@@ -1,0 +1,138 @@
+"""ResNet feature-pyramid CNN branch, eval mode (counterpart of
+``eventad_tpu/models/resnet.py``).
+
+The reference wraps torchvision's ResNet-50 in ``HookModule``
+(net_img.py:42-135): hooks capture ``conv1`` (pre-BN) and ``layer1..layer4``,
+each remapped by a 1x1 conv (``feature_dconv``).  Built here from
+``LAYER_SPECS`` with ``torch.nn.functional.conv2d``; maps are NHWC at the
+public functions, as in the JAX package.  Only the five feature maps are
+computed: the ``output_dconv`` maps feed the detector, not this path.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.norm import BatchNorm
+
+LAYER_SPECS = {
+    "resnet18": ([2, 2, 2, 2], 1),
+    "resnet34": ([3, 4, 6, 3], 1),
+    "resnet50": ([3, 4, 6, 3], 4),
+}
+FEATURE_LAYERS = ("conv1", "layer1", "layer2", "layer3", "layer4")
+
+
+def tap_channels(arch: str) -> List[int]:
+    _, e = LAYER_SPECS[arch]
+    base = {"conv1": 64, "layer1": 64 * e, "layer2": 128 * e,
+            "layer3": 256 * e, "layer4": 512 * e}
+    return [base[l] for l in FEATURE_LAYERS]
+
+
+def _conv_weight(cout, cin, kh, kw, generator):
+    std = (2.0 / (kh * kw * cin)) ** 0.5
+    return nn.Parameter(torch.randn(cout, cin, kh, kw, generator=generator)
+                        * std)
+
+
+class Block(nn.Module):
+    """Bottleneck (expansion 4) or basic block; conv weights OIHW."""
+
+    def __init__(self, cin, planes, expansion, stride, generator):
+        super().__init__()
+        cout = planes * expansion
+        self.stride = stride
+        if expansion == 4:
+            shapes = [(planes, cin, 1), (planes, planes, 3), (cout, planes, 1)]
+        else:
+            shapes = [(planes, cin, 3), (cout, planes, 3)]
+        self.convs = nn.ParameterList(
+            [_conv_weight(o, i, k, k, generator) for o, i, k in shapes])
+        self.bns = nn.ModuleList([BatchNorm(o) for o, _, _ in shapes])
+        self.down = self.down_bn = None
+        if stride != 1 or cin != cout:
+            self.down = _conv_weight(cout, cin, 1, 1, generator)
+            self.down_bn = BatchNorm(cout)
+
+
+class CNNBranch(nn.Module):
+    """ResNet + the HookModule's 1x1 feature remaps (net_img.py:70-90)."""
+
+    def __init__(self, arch: str, feature_channels: List[int],
+                 generator: torch.Generator = None, in_channels: int = 3):
+        super().__init__()
+        blocks, expansion = LAYER_SPECS[arch]
+        self.arch = arch
+        self.conv1 = _conv_weight(64, in_channels, 7, 7, generator)
+        self.bn1 = BatchNorm(64)
+        layers, cin = [], 64
+        for li, (n, planes) in enumerate(zip(blocks, [64, 128, 256, 512])):
+            layer = nn.ModuleList()
+            for bi in range(n):
+                stride = 2 if (li > 0 and bi == 0) else 1
+                layer.append(Block(cin, planes, expansion, stride, generator))
+                cin = planes * expansion
+            layers.append(layer)
+        self.layers = nn.ModuleList(layers)
+        self.feature_w = nn.ParameterList()
+        self.feature_b = nn.ParameterList()
+        for ci, co in zip(tap_channels(arch), feature_channels):
+            s = 1.0 / ci ** 0.5
+            w = torch.empty(co, ci, 1, 1).uniform_(-s, s, generator=generator)
+            b = torch.empty(co).uniform_(-s, s, generator=generator)
+            self.feature_w.append(nn.Parameter(w))
+            self.feature_b.append(nn.Parameter(b))
+
+
+def _bn_apply(x: torch.Tensor, bn: BatchNorm, eps: float = 1e-5):
+    """Eval BN on NCHW as one affine folded in f32 from the parameters in
+    ``x.dtype`` and the f32 running statistics, applied in ``x.dtype``."""
+    a = bn.scale.to(x.dtype).float() * torch.rsqrt(bn.var.float() + eps)
+    b = bn.offset.to(x.dtype).float() - bn.mean.float() * a
+    return x * a.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
+
+
+def _conv(x, w, stride=1):
+    return F.conv2d(x, w.to(x.dtype), stride=stride,
+                    padding=(w.shape[2] - 1) // 2)
+
+
+def _block_forward(x, blk: Block):
+    h = x
+    n = len(blk.convs)
+    for i, (w, bn) in enumerate(zip(blk.convs, blk.bns)):
+        # bottleneck: stride on the 3x3 (i == 1); basic: on the first conv
+        stride = blk.stride if i == (1 if n == 3 else 0) else 1
+        h = _bn_apply(_conv(h, w, stride), bn)
+        if i < n - 1:
+            h = torch.relu(h)
+    identity = x
+    if blk.down is not None:
+        identity = _bn_apply(_conv(x, blk.down, blk.stride), blk.down_bn)
+    return torch.relu(h + identity)
+
+
+def cnn_branch_forward(cnn: CNNBranch, image: torch.Tensor,
+                       compute_dtype: str = "float32") -> List[torch.Tensor]:
+    """``image [B, H, W, 3]`` in [0, 1] -> the five remapped feature maps,
+    NHWC.  ``compute_dtype="bfloat16"`` casts weights and activations; BN
+    running statistics stay f32 inside the folded affine."""
+    dt = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+    x = image.to(dt).permute(0, 3, 1, 2)
+    h = F.conv2d(x, cnn.conv1.to(dt), stride=2, padding=3)
+    taps = [h]                       # the hook fires on conv1 (pre-BN)
+    h = torch.relu(_bn_apply(h, cnn.bn1))
+    h = F.max_pool2d(h, 3, 2, padding=1)
+    for layer in cnn.layers:
+        for blk in layer:
+            h = _block_forward(h, blk)
+        taps.append(h)
+    feats = []
+    for t, w, b in zip(taps, cnn.feature_w, cnn.feature_b):
+        f = F.conv2d(t, w.to(dt)) + b.to(dt)[:, None, None]
+        feats.append(f.permute(0, 2, 3, 1).contiguous())
+    return feats

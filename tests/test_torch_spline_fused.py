@@ -1,0 +1,228 @@
+"""K2, the level-0 layer: the port's plain version against the JAX
+package's ``apply_layer`` (non-fused branch, f32) and against its Pallas
+kernel ``fused_two_block_prepared`` in interpret mode (bf16).  The CUDA
+kernel is held against this plain version on the card by
+``chip_smoke.py``."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eventad_tpu.config import Config as JaxConfig
+from eventad_tpu.models import backbone as jbb
+from eventad_tpu.models.dagr import build_level0_graph as jax_level0
+from eventad_tpu.ops.norm import BatchNormParams, BatchNormState
+from eventad_tpu.ops.spline_conv import SplineConvParams
+from eventad_tpu_torch.config import Config
+from eventad_tpu_torch.models import backbone as tbb
+from eventad_tpu_torch.models.dagr import (build_level0_graph,
+                                           graph_static_config)
+from eventad_tpu_torch.data.synthetic import make_synthetic_batch
+from eventad_tpu_torch.ops.spline_conv import center_index, tap_ranges
+from eventad_tpu_torch.ops.spline_fused import (fused_two_block_cuda,
+                                                fused_two_block_plain,
+                                                prepare_fused)
+
+KS = 5
+F32_TOL = 1e-5       # f32, same math in another summation order
+BF16_TOL = 2e-2      # of the output scale (tests/test_spline_fused.py)
+
+
+def _layer_arrays(rng, cin, cout):
+    def u(*shape, s=1.0):
+        return ((rng.rand(*shape) * 2 - 1) * s).astype(np.float32)
+    a = {}
+    for blk, ci in (("b1", cin), ("b2", cout)):
+        a[blk + "_w"] = u(KS * KS, ci, cout, s=1 / np.sqrt(ci * 4))
+        a[blk + "_root"] = u(ci, cout, s=1 / np.sqrt(ci))
+    for bn in ("b1", "b2", "skip"):
+        a[bn + "_scale"] = (rng.rand(cout) + 0.5).astype(np.float32)
+        a[bn + "_offset"] = u(cout, s=0.1)
+        a[bn + "_mean"] = u(cout, s=0.1)
+        a[bn + "_var"] = (rng.rand(cout) + 0.5).astype(np.float32)
+    a["skip_lin"] = u(cin, cout, s=1 / np.sqrt(cin))
+    a["skip_bias"] = u(cout, s=0.1)
+    return a
+
+
+def _jax_layer(a):
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+
+    def blk(p):
+        return jbb.ConvBlockParams(
+            SplineConvParams(j[p + "_w"], j[p + "_root"], None),
+            BatchNormParams(j[p + "_scale"], j[p + "_offset"]))
+
+    def st(p):
+        return BatchNormState(j[p + "_mean"], j[p + "_var"])
+    params = jbb.LayerParams(blk("b1"), j["skip_lin"], j["skip_bias"],
+                             blk("b2"), BatchNormParams(j["skip_scale"],
+                                                        j["skip_offset"]))
+    state = jbb.LayerState(jbb.ConvBlockState(st("b1")),
+                           jbb.ConvBlockState(st("b2")), st("skip"))
+    return params, state
+
+
+def _torch_layer(a, cin, cout):
+    layer = tbb.Layer(cin, cout, KS)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    with torch.no_grad():
+        for name, blk in (("b1", layer.block1), ("b2", layer.block2)):
+            blk.conv.weight.copy_(t[name + "_w"])
+            blk.conv.root.copy_(t[name + "_root"])
+        for name, bn in (("b1", layer.block1.bn), ("b2", layer.block2.bn),
+                         ("skip", layer.skip_bn)):
+            bn.scale.copy_(t[name + "_scale"])
+            bn.offset.copy_(t[name + "_offset"])
+            bn.mean.copy_(t[name + "_mean"])
+            bn.var.copy_(t[name + "_var"])
+        layer.skip_lin.copy_(t["skip_lin"])
+        layer.skip_lin_bias.copy_(t["skip_bias"])
+    return layer.requires_grad_(False)
+
+
+def _fixture(rng, batch_size=2, events=4096, lookback=512, cin=19, cout=16):
+    kw = dict(batch_size=batch_size, width=96, height=72, scale=1,
+              event_buckets=(events,), graph_lookback=lookback)
+    cfg = Config(**kw)
+    b = make_synthetic_batch(cfg, seed=1)
+    gsc = graph_static_config(cfg)
+    g = build_level0_graph(b.pos, b.polarity, b.valid, gsc, b.rank)
+    x = rng.randn(g.pos.shape[0], cin).astype(np.float32)
+    bc = tbb.make_backbone_config(cfg)
+    return cfg, b, g, x, bc, _layer_arrays(rng, cin, cout)
+
+
+def _prep_and_params(g, layer, bc, dt=torch.float32):
+    """The operands apply_layer hands the fused layer (self edge folded)."""
+    from eventad_tpu_torch.ops.spline_conv import offset_attr
+    attr = offset_attr(g.off[:, 1:], g.nbr_mask[:, 1:], bc.cart_max[0],
+                       bc.width, bc.height)
+    prep = prepare_fused(g.nbr[:, 1:], g.nbr_mask[:, 1:],
+                         attr.clamp(0, 1) * (KS - 1))
+    ranges = tap_ranges(KS, tbb.level0_attr_range(bc))
+    ci = center_index(KS)
+    b1, b2 = layer.block1, layer.block2
+    w1, w2 = b1.conv.weight.to(dt), b2.conv.weight.to(dt)
+    a1, c1 = tbb._fold_bn_affine(b1.bn, None, dt)
+    a2, c2 = tbb._fold_bn_affine(b2.bn, None, dt)
+    a_s, c_s = tbb._fold_bn_affine(layer.skip_bn, layer.skip_lin_bias, dt)
+    args = (w1, b1.conv.root.to(dt) + w1[ci], a1, c1, w2,
+            b2.conv.root.to(dt) + w2[ci])
+    return prep, ranges, args, (layer.skip_lin.to(dt), a2, c2, a_s, c_s)
+
+
+def _rel(got, want):
+    want = np.asarray(want, np.float32)
+    return np.abs(np.asarray(got, np.float32) - want).max() \
+        / (np.abs(want).max() + 1e-6)
+
+
+def test_plain_layer_matches_jax_apply_layer_f32(rng):
+    cfg, b, g, x, bc, arrays = _fixture(rng)
+    jcfg = JaxConfig(batch_size=2, width=96, height=72, scale=1,
+                     event_buckets=(4096,), graph_lookback=512)
+    jg = jax_level0(jnp.asarray(b.pos.numpy()), jnp.asarray(
+        b.polarity.numpy()), jnp.asarray(b.valid.numpy()),
+        graph_static_config(cfg), jnp.asarray(b.rank.numpy()))
+    np.testing.assert_array_equal(np.asarray(jg.nbr), g.nbr.numpy())
+    np.testing.assert_array_equal(np.asarray(jg.off), g.off.numpy())
+    jbc = jbb.make_backbone_config(jcfg)
+    params, state = _jax_layer(arrays)
+    want, _, _ = jbb.apply_layer(
+        params, state, jg._replace(x=jnp.asarray(x)),
+        cart_max=jbc.cart_max[0], kernel_size=KS, aggr="sum",
+        activation=jax.nn.relu, training=False, return_pos_nbr=True,
+        batch_size=2, gather_lookback=512,
+        attr_range=jbb.level0_attr_range(jbc), self_slot0=True,
+        width=96, height=72, activation_name="relu")
+    want = np.asarray(want.x)
+
+    layer = _torch_layer(arrays, 19, 16)
+    prep, ranges, args, epi = _prep_and_params(g, layer, bc)
+    out, h = fused_two_block_plain(torch.from_numpy(x), prep, *args,
+                                   g.node_mask, kernel_size=KS,
+                                   ranges=ranges, act="relu", epilogue=epi)
+    assert out.dtype == torch.float32
+    assert _rel(out, want) < F32_TOL, _rel(out, want)
+    assert (want != 0).mean() > 0.2
+
+    # and the port's own apply_layer (its non-fused branch on the CPU)
+    g2, _ = tbb.apply_layer(layer, g._replace(x=torch.from_numpy(x)),
+                            kernel_size=KS, aggr="sum",
+                            activation_name="relu", cart_max=bc.cart_max[0],
+                            batch_size=2, attr_range=tbb.level0_attr_range(
+                                bc), self_slot0=True, width=96, height=72)
+    assert _rel(g2.x, want) < F32_TOL, _rel(g2.x, want)
+
+
+def test_plain_layer_matches_pallas_interpret_bf16(rng):
+    from eventad_tpu.ops.spline_fused import (fused_two_block_prepared,
+                                              prepare_fused as jprep)
+    cfg, b, g, x, bc, arrays = _fixture(rng, batch_size=1, events=1024,
+                                        lookback=128)
+    layer = _torch_layer(arrays, 19, 16)
+    bf16 = torch.bfloat16
+    prep, ranges, args, epi = _prep_and_params(g, layer, bc, dt=bf16)
+    xb = torch.from_numpy(x).to(bf16)
+    out, h = fused_two_block_plain(xb, prep, *args, g.node_mask,
+                                   kernel_size=KS, ranges=ranges, act="relu",
+                                   epilogue=epi)
+    assert out.dtype == bf16 and h.dtype == bf16
+
+    def j(t):
+        return jnp.asarray(t.float().numpy())
+    mask = g.nbr_mask[:, 1:]
+    jp = jprep(jnp.asarray(g.nbr[:, 1:].numpy()), jnp.asarray(mask.numpy()),
+               j(prep.u), lookback=128, lookahead=0, block=128)
+    want, want_h = fused_two_block_prepared(
+        jnp.asarray(x).astype(jnp.bfloat16), jp, *map(j, args),
+        jnp.asarray(g.node_mask.numpy()), kernel_size=KS, ranges=ranges,
+        act="relu", epilogue=tuple(map(j, epi)), interpret=True)
+    assert _rel(h.float(), want_h) < BF16_TOL, _rel(h.float(), want_h)
+    assert _rel(out.float(), want) < BF16_TOL, _rel(out.float(), want)
+
+
+def test_cuda_wrapper_refuses_cpu_tensors(rng):
+    _, _, g, x, bc, arrays = _fixture(rng, batch_size=1, events=256,
+                                      lookback=64)
+    layer = _torch_layer(arrays, 19, 16)
+    prep, ranges, args, epi = _prep_and_params(g, layer, bc,
+                                               dt=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_two_block_cuda(torch.from_numpy(x).bfloat16(), prep, *args,
+                             g.node_mask, kernel_size=KS, ranges=ranges,
+                             act="relu", epilogue=epi)
+
+
+@pytest.mark.parametrize("aggr", ["sum", "mean"])
+def test_spline_conv_and_basis_match(rng, aggr):
+    """The non-fused formulation on its own: ``spline_conv`` (full tap
+    range, both aggregations) and the degree-1 basis."""
+    from eventad_tpu.ops.spline import spline_basis as jbasis
+    from eventad_tpu.ops.spline_conv import spline_conv as jconv
+    from eventad_tpu_torch.ops.spline import spline_basis
+    from eventad_tpu_torch.ops.spline_conv import SplineConv, spline_conv
+    n, k, cin, cout = 400, 7, 12, 8
+    x = rng.randn(n, cin).astype(np.float32)
+    nbr = rng.randint(0, n, (n, k)).astype(np.int32)
+    mask = rng.rand(n, k) > 0.3
+    attr = rng.rand(n, k, 2).astype(np.float32)
+    node_mask = rng.rand(n) > 0.1
+    conv = SplineConv(cin, cout, KS, torch.Generator().manual_seed(2))
+    conv.requires_grad_(False)
+    want = jconv(jnp.asarray(x), jnp.asarray(nbr), jnp.asarray(mask),
+                 jnp.asarray(attr),
+                 SplineConvParams(jnp.asarray(conv.weight.numpy()),
+                                  jnp.asarray(conv.root.numpy()), None),
+                 kernel_size=KS, aggr=aggr, node_mask=jnp.asarray(node_mask))
+    got = spline_conv(torch.from_numpy(x), torch.from_numpy(nbr),
+                      torch.from_numpy(mask), torch.from_numpy(attr), conv,
+                      kernel_size=KS, aggr=aggr,
+                      node_mask=torch.from_numpy(node_mask))
+    assert _rel(got, want) < F32_TOL
+    w, idx = spline_basis(torch.from_numpy(attr), KS)
+    jw, jidx = jbasis(jnp.asarray(attr), KS)
+    np.testing.assert_allclose(w.numpy(), np.asarray(jw), atol=1e-7)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))

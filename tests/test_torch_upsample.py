@@ -1,0 +1,104 @@
+"""K4, the level-0/1 image rows: the port's plain version against the JAX
+package's ``upsample_lookup`` (f32) and its Pallas flat-table writer
+``upsample_flat_lookup`` in interpret mode (bf16); plus the bilinear
+lookup of the pooled levels.  The CUDA kernel is held against this plain
+version on the card by ``chip_smoke.py``."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eventad_tpu.models.graph import (sample_image_features as jsample,
+                                      upsample_lookup as jlookup)
+from eventad_tpu.ops.upsample_flat import upsample_flat_lookup
+from eventad_tpu_torch.models.graph import sample_image_features
+from eventad_tpu_torch.ops.upsample_flat import (upsample_rows,
+                                                 upsample_rows_cuda,
+                                                 upsample_rows_plain)
+
+B, HF, WF, N = 2, 72, 96, 4096     # fixture geometry
+
+
+def _inputs(rng, shapes=((36, 48, 16), (18, 24, 64))):
+    feats = [rng.randn(B, h, w, c).astype(np.float32) for h, w, c in shapes]
+    xi = rng.randint(0, WF, N)
+    yi = rng.randint(0, HF, N)
+    # normalized as the level-0 graph normalizes: pixel / size in f32
+    pos = np.stack([xi / np.float32(WF), yi / np.float32(HF),
+                    np.zeros(N)], -1).astype(np.float32)
+    batch = rng.randint(0, B, N).astype(np.int32)
+    return feats, pos, batch
+
+
+def _rel(got, want):
+    want = np.asarray(want, np.float32)
+    return np.abs(np.asarray(got, np.float32) - want).max() \
+        / (np.abs(want).max() + 1e-6)
+
+
+def test_plain_matches_upsample_lookup_f32(rng):
+    feats, pos, batch = _inputs(rng)
+    got = upsample_rows_plain([torch.from_numpy(f) for f in feats],
+                              torch.from_numpy(pos), torch.from_numpy(batch),
+                              WF, HF)
+    want = jlookup([jnp.asarray(f) for f in feats], jnp.asarray(pos),
+                   jnp.asarray(batch), jnp.ones(N, bool), WF, HF,
+                   mask_rows=False)
+    assert got.shape == (N, 80)
+    assert _rel(got, want) < 1e-6
+
+
+def test_plain_matches_flat_writer_interpret_bf16(rng):
+    feats, pos, batch = _inputs(rng)
+    fb = [torch.from_numpy(f).to(torch.bfloat16) for f in feats]
+    got = upsample_rows(fb, torch.from_numpy(pos), torch.from_numpy(batch),
+                        WF, HF)
+    assert got.dtype == torch.bfloat16
+    want = upsample_flat_lookup([jnp.asarray(f, jnp.bfloat16) for f in feats],
+                                jnp.asarray(pos), jnp.asarray(batch),
+                                jnp.ones(N, bool), WF, HF, by=24,
+                                interpret=True)
+    assert _rel(got.float(), want) < 2e-2
+
+
+def test_pixel_rounding_is_half_to_even():
+    """A position exactly half-way between two pixels rounds to the even
+    one in both frameworks (jnp.round and torch.round)."""
+    feats = [np.arange(B * 4 * 8 * 1, dtype=np.float32).reshape(B, 4, 8, 1)]
+    pos = np.array([[2.5 / 8, 1.5 / 4, 0], [3.5 / 8, 0.5 / 4, 0]],
+                   np.float32)
+    batch = np.zeros(2, np.int32)
+    got = upsample_rows_plain([torch.from_numpy(feats[0])],
+                              torch.from_numpy(pos), torch.from_numpy(batch),
+                              8, 4)
+    want = jlookup([jnp.asarray(feats[0])], jnp.asarray(pos),
+                   jnp.asarray(batch), jnp.ones(2, bool), 8, 4,
+                   mask_rows=False)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # (2.5, 1.5) -> pixel (2, 2); (3.5, 0.5) -> pixel (4, 0)
+    np.testing.assert_array_equal(got[:, 0].numpy(), [2 * 8 + 2, 4])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sample_image_features_matches(rng, dtype):
+    feat = rng.randn(B, 6, 9, 32).astype(np.float32)
+    pos = rng.rand(500, 3).astype(np.float32)
+    pos[:5, :2] = [[0, 0], [0.9999, 0.9999], [1.0, 1.0], [0.5, 0], [0, 1]]
+    batch = rng.randint(0, B, 500).astype(np.int32)
+    mask = rng.rand(500) > 0.2
+    tdt = getattr(torch, dtype)
+    got = sample_image_features(torch.from_numpy(feat).to(tdt),
+                                torch.from_numpy(pos),
+                                torch.from_numpy(batch),
+                                torch.from_numpy(mask), 90, 60)
+    want = jsample(jnp.asarray(feat, getattr(jnp, dtype)), jnp.asarray(pos),
+                   jnp.asarray(batch), jnp.asarray(mask), 90, 60)
+    assert _rel(got.float(), want) < (1e-6 if dtype == "float32" else 2e-2)
+
+
+def test_cuda_wrapper_refuses_cpu_tensors(rng):
+    feats, pos, batch = _inputs(rng)
+    with pytest.raises(ValueError, match="CUDA"):
+        upsample_rows_cuda([torch.from_numpy(f).bfloat16() for f in feats],
+                           torch.from_numpy(pos), torch.from_numpy(batch),
+                           WF, HF)
