@@ -1,12 +1,15 @@
 """Configuration of the PyTorch port: the fields and derived geometry of
 ``eventad_tpu.config.Config`` without jax or yaml.
 
-Only the fields the batched scoring forward reads are carried, with the
-same names and defaults (reference dagr-S / EventAD values,
-``eventad_tpu/config/defaults.py``).
+Only the fields the port reads are carried (the scoring forward, head
+training, evaluation), with the same names and defaults (reference dagr-S /
+EventAD values, ``eventad_tpu/config/defaults.py``).  ``parse_args`` gives
+the same ``--field value`` command line, without the YAML overlay.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -36,6 +39,27 @@ class Config:
     x_dim: int = 64
     h_dim: int = 256
     max_boxes: int = 30
+    threshold: float = 0.5
+
+    # ---- head training (reference config/eventad_config.py:46-101,
+    # train.py:17-44) ----
+    epochs: int = 100
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-5
+    grad_clip: float = 1.0
+    lr_decay_factor: float = 0.5
+    lr_patience: int = 5
+    min_lr: float = 1e-6
+    seed: int = 42
+
+    # ---- experiment / test (reference test.py:113-129) ----
+    experiment_name: str = "eventad_dagr_experiment"
+    output_dir: str = "./output"
+    test_checkpoint: str = ""
+    legacy_frame_collapse: bool = False
+    measure_fps: bool = True
+    fps_warmup_batches: int = 70
+    fps_num_batches: int = 20
 
     # ---- raw sensor geometry (reference eventad_config.py:97-98) ----
     height: int = 720
@@ -94,3 +118,25 @@ class Config:
                 int(self.net_stem_width * 128),
                 int(self.net_stem_width * 128)]
 
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+def parse_args(argv=None, **overrides) -> Config:
+    """``--field value`` for every :class:`Config` field (booleans as
+    ``true``/``false``, ``event_buckets`` comma-separated); the command line
+    wins over the defaults, ``overrides`` over both.  Unknown arguments are
+    left to the caller's own parser."""
+    parser = argparse.ArgumentParser(add_help=False)
+    for f in dataclasses.fields(Config):
+        if isinstance(f.default, bool):
+            kind = lambda s: s.lower() in ("1", "true", "yes")  # noqa: E731
+        elif f.name == "event_buckets":
+            kind = lambda s: tuple(int(x) for x in s.split(","))  # noqa: E731
+        else:
+            kind = type(f.default)
+        parser.add_argument("--" + f.name, default=None, type=kind)
+    ns, _ = parser.parse_known_args(argv)
+    cli = {k: v for k, v in vars(ns).items() if v is not None}
+    return Config().replace(**{**cli, **overrides})

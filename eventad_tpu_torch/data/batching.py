@@ -1,13 +1,16 @@
 """Batch container of the port and the host-side per-pixel queue ranks.
 
-Counterpart of ``eventad_tpu/data/batching.py`` (``EventBatch``) and
-``eventad_tpu/native.queue_ranks``.  The TPU staging fields
-(``search_starts``, ``image_s2d``) are not carried, nor the optional host
-``pool_tables`` (the pooling computes its cell sums from the events).
+Counterpart of ``eventad_tpu/data/batching.py`` (``EventBatch``,
+``BatchMeta``) and ``eventad_tpu/native.queue_ranks``.  The TPU staging
+fields (``search_starts``, ``image_s2d``) are not carried, nor the optional
+host ``pool_tables`` (the pooling computes its cell sums from the events),
+nor the raw detection lists ``bbox`` / ``bbox0`` (the detector's; only
+their masks, which the training and evaluation loops read).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -23,9 +26,24 @@ class EventBatch(NamedTuple):
     boxes: torch.Tensor        # [B, 2, S, 4] float32 xywh pixels
     box_present: torch.Tensor  # [B, 2, S] bool
     box_labels: torch.Tensor   # [B, S] int32
+    bbox_mask: torch.Tensor    # [B, D] bool, raw current-frame detections
+    bbox0_mask: torch.Tensor   # [B, D] bool, raw previous-frame detections
 
     def to(self, device) -> "EventBatch":
         return EventBatch(*(a.to(device) for a in self))
+
+    def is_empty(self) -> bool:
+        """No current-frame box in the whole batch: the training and
+        evaluation loops skip such a batch."""
+        return not bool(self.bbox_mask.any())
+
+
+@dataclasses.dataclass
+class BatchMeta:
+    """Host-side metadata the metrics pipeline needs."""
+    sequences: List[str]
+    frame_ids: List[int]
+    n_items: int
 
 
 def queue_ranks(x: np.ndarray, y: np.ndarray, width: int,

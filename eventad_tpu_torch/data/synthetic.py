@@ -6,7 +6,9 @@ import numpy as np
 import torch
 
 from ..config import Config
-from .batching import EventBatch, queue_ranks
+from .batching import BatchMeta, EventBatch, queue_ranks
+
+MAX_DETECTIONS = 64   # raw-detection slots per item
 
 
 def make_synthetic_batch(cfg: Config, seed: int = 0,
@@ -33,6 +35,7 @@ def make_synthetic_batch(cfg: Config, seed: int = 0,
     boxes = np.zeros((b, 2, s, 4), np.float32)
     present = np.zeros((b, 2, s), bool)
     labels = np.zeros((b, s), np.int32)
+    bbox_m = np.zeros((b, MAX_DETECTIONS), bool)
     for bi in range(b):
         for k in range(boxes_per_item):
             tid = k + 1
@@ -44,5 +47,37 @@ def make_synthetic_batch(cfg: Config, seed: int = 0,
             boxes[bi, :, tid] = (bx, by, bw, bh)
             present[bi, :, tid] = True
             labels[bi, tid] = cls
+            bbox_m[bi, k] = True
     return EventBatch(*(torch.from_numpy(a) for a in (
-        pos, pol, valid, rank, image, boxes, present, labels)))
+        pos, pol, valid, rank, image, boxes, present, labels, bbox_m,
+        bbox_m.copy())))
+
+
+class SyntheticLoader:
+    """In-memory stand-in for the on-disk loader: ``n_batches`` synthetic
+    batches (seeds ``seed``, ``seed + 1``, ...), made once and yielded as
+    ``(EventBatch, BatchMeta)`` in the same order on every pass.  Batch
+    ``i`` holds ``batch_size`` consecutive frames of the video
+    ``synthetic_<i // batches_per_video>``."""
+
+    def __init__(self, cfg: Config, n_batches: int, seed: int = 0, *,
+                 boxes_per_item: int = 4, batches_per_video: int = 2):
+        b = cfg.batch_size
+        self.items = []
+        for i in range(n_batches):
+            batch = make_synthetic_batch(cfg, seed=seed + i,
+                                         boxes_per_item=boxes_per_item)
+            first = (i % batches_per_video) * b
+            meta = BatchMeta(
+                sequences=[f"synthetic_{i // batches_per_video:04d}"] * b,
+                frame_ids=list(range(first, first + b)), n_items=b)
+            self.items.append((batch, meta))
+
+    def __iter__(self):
+        return iter(self.items)
+
+    def __len__(self):
+        return len(self.items)
+
+
+synthetic_loader = SyntheticLoader

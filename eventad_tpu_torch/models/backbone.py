@@ -11,7 +11,9 @@ aggregation and tensors on CUDA, the level-0 layer runs the fused kernel K2
 (``ops/spline_fused``), pooled layers the shift kernel K3
 (``ops/spline_shift``) and the level-0/1 image rows K4
 (``ops/upsample_flat``); otherwise the non-fused formulation
-(``ops/spline_conv`` + ``ops/norm``), as the reference runs f32 and CPU.
+(``ops/spline_conv`` + ``ops/norm``), as the reference runs f32 and CPU,
+whose level-0 layer fetches its neighbour rows through the windowed gather
+K6a (``ops/gather_window``; its backward is K6b).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..ops.gather_window import gather_rows_auto
 from ..ops.norm import BatchNorm, batch_norm
 from ..ops.pooling import pool_graph
 from ..ops.spline_basis import ACTS
@@ -70,6 +73,7 @@ class BackboneConfig(NamedTuple):
     pooling_aggr: str
     keep_temporal_ordering: bool
     use_image: bool
+    gather_lookback: int = 0   # window of the level-0 neighbour gather
     radius_px: int = 0
     compute_dtype: str = "float32"
 
@@ -88,8 +92,8 @@ def make_backbone_config(cfg: Config) -> BackboneConfig:
         aggr=cfg.aggr, activation=cfg.activation,
         pooling_aggr=cfg.pooling_aggr,
         keep_temporal_ordering=cfg.keep_temporal_ordering,
-        use_image=cfg.use_image, radius_px=cfg.radius_px,
-        compute_dtype=cfg.compute_dtype)
+        use_image=cfg.use_image, gather_lookback=cfg.graph_lookback,
+        radius_px=cfg.radius_px, compute_dtype=cfg.compute_dtype)
 
 
 def layer_in_out_channels(bc: BackboneConfig):
@@ -142,7 +146,8 @@ def apply_layer(layer: Layer, g: Graph, *, kernel_size: int, aggr: str,
                 activation_name: str, cart_max: float, grid=None,
                 batch_size: int = None, span: int = 2, attr_range=None,
                 self_slot0: bool = False, width: int = None,
-                height: int = None, pos_nbr_pre=None):
+                height: int = None, pos_nbr_pre=None,
+                gather_lookback: int = 0):
     """One ``Layer`` on graph ``g``; returns ``(g', pos_nbr)`` where
     ``pos_nbr [N, K', 2]`` are the neighbour positions the next pooling
     reads.
@@ -151,16 +156,18 @@ def apply_layer(layer: Layer, g: Graph, *, kernel_size: int, aggr: str,
     arithmetic from the integer edge offsets; with ``self_slot0`` and sum
     aggregation the self edge (slot 0, attr 0.5) is folded into the root
     products and dropped from the tables (so ``pos_nbr`` has K-1 columns).
-    Pooled levels (``grid`` set): neighbour rows are 2-D shifts of the cell
-    table (``neighbor_rows``)."""
+    Neighbour rows come from ``gather_rows_auto`` with the window
+    ``gather_lookback`` (every ``g.nbr[i, k]`` in ``[i - gather_lookback,
+    i]``).  Pooled levels (``grid`` set): neighbour rows are 2-D shifts of
+    the cell table (``neighbor_rows``)."""
     x_in = g.x
     dt = x_in.dtype
     ks = kernel_size
     act = ACTS[activation_name]
     fold_self = self_slot0 and aggr == "sum"
     s0 = 1 if fold_self else 0
-    nbr = g.nbr[:, s0:]
-    nbr_mask = g.nbr_mask[:, s0:]
+    nbr = g.nbr[:, s0:].contiguous()
+    nbr_mask = g.nbr_mask[:, s0:].contiguous()
     use_fused = (dt == torch.bfloat16 and aggr == "sum" and x_in.is_cuda
                  and (grid is not None or g.off is not None))
     zero = torch.zeros((), dtype=dt, device=x_in.device)
@@ -168,7 +175,7 @@ def apply_layer(layer: Layer, g: Graph, *, kernel_size: int, aggr: str,
     def rows_of(src):
         if grid is not None:
             return neighbor_rows(src, grid, batch_size, span)
-        return torch.where(nbr_mask[..., None], src[nbr.long()], zero)
+        return gather_rows_auto(src, nbr, nbr_mask, lookback=gather_lookback)
 
     x_j1 = None
     if g.off is not None and grid is None:
@@ -313,7 +320,7 @@ def backbone_forward(backbone: Backbone, g0: Graph,
             batch_size=bc.batch_size,
             attr_range=level0_attr_range(bc) if level == 0 else None,
             self_slot0=level == 0, width=bc.width, height=bc.height,
-            pos_nbr_pre=pos_nbr_pre)
+            pos_nbr_pre=pos_nbr_pre, gather_lookback=bc.gather_lookback)
         if level >= 3:
             outs.append(g)
     return tuple(outs)

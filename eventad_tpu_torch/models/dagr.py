@@ -3,8 +3,9 @@
 EventAD.py:141).
 
 ``model_forward`` runs graph construction, the CNN pyramid, the GNN
-pyramid, box-feature pooling and the recurrent head on one batch, in eval
-mode with DAGR frozen (EventAD.py:149-150, 357-360).
+pyramid, box-feature pooling and the recurrent head on one batch.  DAGR is
+frozen and always runs in eval mode without gradients (EventAD.py:149-150,
+357-360); only the head trains.
 """
 from __future__ import annotations
 
@@ -42,16 +43,31 @@ class EventADModel(nn.Module):
         self.head = head
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the CUDA card unless the caller
+    names another (``"cpu"``).  Never a silent choice: without a card,
+    ``device=None`` raises."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on "
+                           "the CPU")
+    return torch.device("cuda")
+
+
 def init_model(cfg: Config, generator: torch.Generator = None,
-               device="cpu") -> Tuple[EventADModel, BackboneConfig,
-                                      EventADConfig]:
+               device=None) -> Tuple[EventADModel, BackboneConfig,
+                                     EventADConfig]:
     """Randomly initialised model at ``cfg``'s widths (initialised on the
-    CPU from ``generator``, then moved to ``device``), in eval mode."""
+    CPU from ``generator``, then moved to ``device``: the CUDA card unless
+    the caller names the CPU), in eval mode."""
+    device = resolve_device(device)
     bc = make_backbone_config(cfg)
     mc = EventADConfig(x_dim=cfg.x_dim, h_dim=cfg.h_dim,
                        max_boxes=cfg.max_boxes)
     model = EventADModel(DAGR(cfg, bc, generator),
                          EventADHead(mc, generator))
+    model.dagr.requires_grad_(False)
     return model.to(device).eval(), bc, mc
 
 
@@ -99,18 +115,25 @@ def dagr_extract_features(dagr: DAGR, pos, polarity, valid, image,
     return backbone_forward(dagr.backbone, g0, feats, bc)
 
 
-@torch.no_grad()
 def model_forward(model: EventADModel, batch: EventBatch, bc: BackboneConfig,
-                  mc: EventADConfig, gsc: tuple) -> EventADOutputs:
-    """One batch through the whole pipeline; the recurrent head always runs
-    f32 (bf16 is only the frozen feature path's compute dtype)."""
-    out3, out4 = dagr_extract_features(
-        model.dagr, batch.pos, batch.polarity, batch.valid, batch.image, bc,
-        gsc, ranks=batch.rank)
-    feats = extract_box_features(out4, batch.boxes, batch.box_present,
-                                 bc.batch_size, bc.width, bc.height)
-    denom = torch.tensor([bc.width, bc.height, bc.width, bc.height],
-                         dtype=torch.float32, device=feats.device)
-    coords = batch.boxes[:, 1] / denom
-    return eventad_forward(model.head, mc, feats.to(torch.float32), coords,
-                           batch.box_present[:, 1], batch.box_labels)
+                  mc: EventADConfig, gsc: tuple, *, training: bool = False,
+                  generator: torch.Generator = None) -> EventADOutputs:
+    """One batch through the whole pipeline.  The DAGR feature path never
+    records gradients; the recurrent head always runs f32 (bf16 is only the
+    frozen feature path's compute dtype) and records them when
+    ``training``.  ``generator`` seeds the head's dropout (off without
+    one)."""
+    with torch.no_grad():
+        _, out4 = dagr_extract_features(
+            model.dagr, batch.pos, batch.polarity, batch.valid, batch.image,
+            bc, gsc, ranks=batch.rank)
+        feats = extract_box_features(out4, batch.boxes, batch.box_present,
+                                     bc.batch_size, bc.width, bc.height)
+        feats = feats.to(torch.float32)
+        denom = torch.tensor([bc.width, bc.height, bc.width, bc.height],
+                             dtype=torch.float32, device=feats.device)
+        coords = batch.boxes[:, 1] / denom
+    with torch.set_grad_enabled(training):
+        return eventad_forward(model.head, mc, feats, coords,
+                               batch.box_present[:, 1], batch.box_labels,
+                               training=training, generator=generator)

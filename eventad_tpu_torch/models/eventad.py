@@ -1,4 +1,4 @@
-"""EventAD anomaly head, eval mode (counterpart of
+"""EventAD anomaly head (counterpart of
 ``eventad_tpu/models/eventad.py``; reference models/EventAD.py:141-499).
 
 Track state is a dense tensor over ``max_boxes + 1`` slots, and batch items
@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .gru import GRU, gru_step
+from .gru import GRU, dropout_mask, gru_step
 
 
 class EventADConfig(NamedTuple):
@@ -26,6 +26,7 @@ class EventADConfig(NamedTuple):
     max_boxes: int = 30
     event_layers: int = 2
     coord_layers: int = 1
+    dropout: float = 0.3
 
 
 def _linear(cin, cout, generator):
@@ -72,11 +73,14 @@ def spatial_attention(h: torch.Tensor, w: torch.Tensor,
     return h * alpha[..., None]
 
 
-def fusion_forward(p: Fusion, ev: torch.Tensor,
-                   co: torch.Tensor) -> torch.Tensor:
+def fusion_forward(p: Fusion, ev: torch.Tensor, co: torch.Tensor, *,
+                   dropout: float = 0.0,
+                   generator: torch.Generator = None) -> torch.Tensor:
     e = ev @ p.event_proj_w + p.event_proj_b
     c = co @ p.coord_proj_w + p.coord_proj_b
     h = torch.relu(torch.cat([e, c], dim=-1) @ p.fuse1_w + p.fuse1_b)
+    if dropout > 0.0 and generator is not None:
+        h = dropout_mask(h, dropout, generator)
     return h @ p.fuse2_w + p.fuse2_b
 
 
@@ -91,9 +95,13 @@ class EventADOutputs(NamedTuple):
 def eventad_forward(head: EventADHead, mc: EventADConfig,
                     features: torch.Tensor, coords: torch.Tensor,
                     bbox_present: torch.Tensor,
-                    labels: torch.Tensor) -> EventADOutputs:
+                    labels: torch.Tensor, *, training: bool = False,
+                    generator: torch.Generator = None) -> EventADOutputs:
     """``features [B, 2, S, x_dim]``, ``coords [B, S, 4]`` normalized xywh,
-    ``bbox_present [B, S]``, ``labels [B, S]``."""
+    ``bbox_present [B, S]``, ``labels [B, S]``.  Dropout (``mc.dropout``,
+    between the event GRU's layers and before the last fusion layer) is
+    active only when ``training`` and a ``generator`` on the features'
+    device is given."""
     b, _, s1, _ = features.shape
     dev = features.device
     curr_feat = features[:, 1]
@@ -105,15 +113,18 @@ def eventad_forward(head: EventADHead, mc: EventADConfig,
     h_event = torch.zeros((s1, mc.event_layers, mc.h_dim), device=dev)
     h_coord = torch.zeros((s1, mc.coord_layers, mc.coord_dim), device=dev)
     seen = torch.zeros((s1,), dtype=torch.bool, device=dev)
+    drop = mc.dropout if (training and generator is not None) else 0.0
     all_logits, losses = [], []
     for i in range(b):
         v = valid[i]
         # unseen tracks start from a zero hidden state (EventAD.py:292-296)
         h_in_e = torch.where(seen[:, None, None], h_event, 0.0)
         h_in_c = torch.where(seen[:, None, None], h_coord, 0.0)
-        out_e, h_out_e = gru_step(head.gru_event, curr_feat[i], h_in_e)
+        out_e, h_out_e = gru_step(head.gru_event, curr_feat[i], h_in_e,
+                                  dropout=drop, generator=generator)
         out_c, h_out_c = gru_step(head.gru_coord, coords[i], h_in_c)
-        logits = fusion_forward(head.fusion, out_e, out_c)
+        logits = fusion_forward(head.fusion, out_e, out_c, dropout=drop,
+                                generator=generator)
         ce = -F.log_softmax(logits, dim=-1).gather(
             1, labels[i][:, None].long())[:, 0]
         losses.append(torch.where(v, ce, 0.0).sum())

@@ -41,11 +41,23 @@ class GRU(nn.Module):
                       generator) for i in range(n_layers)])
 
 
-def gru_step(gru: GRU, x: torch.Tensor, h: torch.Tensor):
+def dropout_mask(x: torch.Tensor, rate: float,
+                 generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout with the keep mask drawn from ``generator`` (which
+    lives on ``x``'s device): kept values are scaled by ``1 / (1 - rate)``."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def gru_step(gru: GRU, x: torch.Tensor, h: torch.Tensor, *,
+             dropout: float = 0.0, generator: torch.Generator = None):
     """One step: ``x [B, In]``, ``h [B, L, H]`` -> ``(out [B, H], h' [B, L,
-    H])``."""
+    H])``.  ``dropout`` is the inter-layer rate (applied to every layer's
+    output but the last, as torch.nn.GRU), active only with a
+    ``generator``; the returned hidden states are the undropped ones."""
     hs = []
     inp = x
+    last = len(gru.layers) - 1
     for i, p in enumerate(gru.layers):
         gi = inp @ p.w_ih + p.b_ih
         gh = h[:, i, :] @ p.w_hh + p.b_hh
@@ -56,4 +68,6 @@ def gru_step(gru: GRU, x: torch.Tensor, h: torch.Tensor):
         n = torch.tanh(inn + r * hn)
         inp = (1.0 - z) * n + z * h[:, i, :]
         hs.append(inp)
+        if dropout > 0.0 and generator is not None and i < last:
+            inp = dropout_mask(inp, dropout, generator)
     return inp, torch.stack(hs, dim=1)

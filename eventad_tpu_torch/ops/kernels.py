@@ -1,9 +1,10 @@
 """Build and bind the hand-written CUDA kernels of ``eventad_tpu_torch/csrc``.
 
-All ``*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, under ``eventad_tpu_torch/build/`` (named
-by a digest of the sources and flags, so an edited source rebuilds), at the
-first launch of any kernel.  The library is loaded with ``ctypes``: every
+All ``*.cu`` sources compile with ``nvcc`` for ``sm_90a`` (one ``nvcc -c``
+per source, all started together, then one link) into one shared library
+with a plain C interface, under ``eventad_tpu_torch/build/`` (named by a
+digest of the sources and flags, so an edited source rebuilds), at the first
+launch of any kernel.  The library is loaded with ``ctypes``: every
 pointer and the stream are ``c_void_p``, every size a ``c_int``, and every
 entry returns ``cudaGetLastError()``, which :func:`launch` turns into an
 exception.  Nothing here runs at import time.
@@ -25,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argument types (the stream is always last)
@@ -40,6 +41,10 @@ SIGNATURES = {
     "eventad_shift_block":
         [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I,
          _P, _I, _I, _I, _I, _P, _P],
+    "eventad_gather_window_rows":
+        [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "eventad_scatter_window_rows":
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -77,15 +82,30 @@ def library() -> ctypes.CDLL:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, sorted(CSRC.glob("*.cu")))]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        if not failed:
+            res = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                 *map(str, objs)], capture_output=True, text=True)
+            logs.append(res.stdout + res.stderr)
+            failed = [res.returncode] if res.returncode != 0 else []
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         library.build_seconds = time.perf_counter() - t0
-        (BUILD_DIR / "nvcc.log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stderr[-4000:]}")
+        (BUILD_DIR / "nvcc.log").write_text("".join(logs))
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n"
+                               f"{''.join(logs)[-4000:]}")
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in SIGNATURES.items():

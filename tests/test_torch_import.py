@@ -1,6 +1,8 @@
-"""The PyTorch port imports no JAX-side module, and its configuration and
-synthetic batches equal the JAX package's."""
+"""The PyTorch port imports no JAX-side module, runs on the card unless the
+caller names the CPU, and its configuration and synthetic batches equal the
+JAX package's."""
 import ast
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -9,6 +11,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from eventad_tpu.config import Config as JaxConfig
 from eventad_tpu.data.synthetic import make_synthetic_batch as jax_batch
@@ -17,6 +20,11 @@ from eventad_tpu_torch.config import Config
 from eventad_tpu_torch.data.batching import queue_ranks
 from eventad_tpu_torch.data.synthetic import make_synthetic_batch
 from eventad_tpu_torch.models.backbone import make_backbone_config
+from eventad_tpu_torch.models.dagr import init_model, resolve_device
+from eventad_tpu_torch.parallel.train_step import (make_optimizer,
+                                                   make_train_fns)
+from eventad_tpu_torch.test import main as evaluate_main
+from eventad_tpu_torch.train import main as train_main
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -28,7 +36,8 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):
     importlib.import_module(m.name)
 bad = sorted(n for n in sys.modules
              if n.split('.')[0] in ('jax', 'jaxlib', 'yaml', 'ml_dtypes',
-                                    'eventad_tpu', 'triton'))
+                                    'eventad_tpu', 'triton', 'optax',
+                                    'sklearn', 'h5py'))
 print('MODULES', sum(n.startswith(pkg.__name__) for n in sys.modules))
 print('BAD', bad)
 """
@@ -40,7 +49,25 @@ def test_port_imports_no_jax_yaml_or_reference_package():
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
     n_mods = int(res.stdout.split("MODULES")[1].split()[0])
-    assert n_mods >= 20, res.stdout
+    assert n_mods >= 32, res.stdout     # the training modules included
+
+
+def test_entry_points_default_to_the_card():
+    """Without a CUDA device nothing falls back to the CPU silently."""
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    cfg = Config(batch_size=1, use_image=False, width=96, height=72, scale=1,
+                 event_buckets=(256,))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_model(cfg)
+    model, bc, mc = init_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_fns(model, bc, mc, (), make_optimizer(
+            model.head.parameters(), 1e-3, 1e-5, 1.0))
+    for main in (train_main, evaluate_main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--batch_size", "1"])
 
 
 def test_chip_smoke_imports_nothing_of_jax():
@@ -52,7 +79,7 @@ def test_chip_smoke_imports_nothing_of_jax():
         elif isinstance(node, ast.ImportFrom):
             tops.add(node.module.split(".")[0])
     assert tops <= {"importlib", "json", "pathlib", "subprocess", "sys",
-                    "time", "torch", "eventad_tpu_torch"}, tops
+                    "tempfile", "time", "torch", "eventad_tpu_torch"}, tops
     # importlib.import_module targets are strings: none names the reference
     assert "eventad_tpu." not in src.replace("eventad_tpu_torch", ""), src
 
@@ -86,6 +113,15 @@ def test_config_geometry_matches(kw):
     ta, tb = make_backbone_config(a), jax_bc(b)
     for field in ta._fields:
         assert getattr(ta, field) == getattr(tb, field), field
+    # every field the port carries (training and evaluation ones included)
+    # has the JAX package's value
+    names = [f.name for f in dataclasses.fields(Config)]
+    assert {"learning_rate", "weight_decay", "grad_clip", "lr_decay_factor",
+            "lr_patience", "min_lr", "epochs", "seed", "threshold",
+            "legacy_frame_collapse", "fps_warmup_batches", "fps_num_batches",
+            "output_dir", "experiment_name", "test_checkpoint"} <= set(names)
+    for name in names:
+        assert getattr(a, name) == getattr(b, name), name
 
 
 def test_synthetic_batch_equals_reference():

@@ -39,7 +39,8 @@ def pair():
     sd = export_backbone(params.dagr.backbone, state.dagr.backbone)
     sd.update(export_cnn_branch(params.dagr.cnn, state.dagr.cnn))
     cfg = Config(**KW)
-    model, tbc, tmc = init_model(cfg, torch.Generator().manual_seed(1))
+    model, tbc, tmc = init_model(cfg, torch.Generator().manual_seed(1),
+                                    device="cpu")
     load_reference_state(model, sd, export_eventad_head(params.head))
     jb = jax_batch(jcfg, seed=3)._replace(pool_tables=None,
                                           search_starts=None, image_s2d=None)
