@@ -43,7 +43,6 @@ exits non-zero without printing a result:
 6. Head training at full width through ``make_train_fns``: the first step's
    loss and head gradients against the same step on the CPU (dropout off;
    f32 within 1e-3 of each gradient's scale, bf16 loss within 0.1 per valid
-   box, what the 0.05 logit band allows a summed cross entropy), 5 steps in
    box, what the 0.05 logit band allows a summed cross entropy), 3 steps on
    one batch with dropout off whose loss must fall, then 5 steps in f32 and
    5 in bf16 with dropout from a seeded CUDA generator and timed steps
@@ -52,6 +51,35 @@ exits non-zero without printing a result:
    and buffer must be bit-identical.  Then evaluation (``eval_step`` ->
    ``collect_predictions`` -> the metric functions) on a few batches, and a
    checkpoint saved and loaded back on the card.
+
+7. The other kernel flavours of the bf16 scoring forward.  The arguments of
+   ``fused_spline_conv`` (K5) are recorded from the ``base`` flavour
+   (``fused_two_block`` and ``fused_shift`` off: 10 calls per forward, two
+   for each of the five levels) and those of ``sample_bilinear`` (K7) from
+   the ``bilinear`` flavour (2 calls), on both check batches.  K5 must agree
+   with its plain version within 2e-3 of the output's scale (f32 output; a
+   ``z`` value that rounds to the other bf16 neighbour moves one product by
+   2^-8).  K7 runs on the recorded maps in bf16 and in f32, with positions
+   pushed outside the map among the inputs, within 1e-2 (one bf16 rounding
+   of the output) and 1e-5 (f32 sums in another order) of the output's
+   scale.  Then, counters zeroed before each, the ``base`` forward must
+   launch K5 ten times a forward and neither K2 nor K3, the ``bilinear``
+   forward K7 twice and never K4; both flavours' logits must lie within
+   0.05 of the port's CPU run of phase 4.  The default and ``base``
+   flavours run twice in mirrored order (default, base, bilinear, base,
+   default), so that their batch times compare within one call.
+8. Detection serving (``models.detector.detector_forward``, eval mode, bf16,
+   batch 6, 16 384 events per item, the operating point of
+   ``bench_detector``): a detector from seed 0 whose BN running statistics
+   are first moved to one batch's statistics by a few batch-statistics
+   passes in f32 (random weights on the initial statistics overflow the
+   ``exp`` of the box decode), copied to the CPU.  In the default flavour
+   and in ``base`` + ``bilinear``: the maps before decoding (``reg``,
+   ``obj``, ``cls`` per scale) within 0.15 of the CPU run's, relative to
+   each map's scale (at least 1; in f32, run once, within 1e-3),
+   ``decoded [6, 175, 7]`` finite,
+   detections of the fixed shape, the expected launches per forward, and
+   images/s with batch ms by ``bench_detector``'s protocol.
 
 Each kernel's record also holds ``bound_ms``, the least time the card could
 take for the same work: the larger of its bytes (every input read once,
@@ -78,6 +106,22 @@ BOXES_PER_ITEM = 6
 KERNEL_TOL = 2e-2     # of the output's max |value|, bf16 outputs
 LOGIT_TOL = 0.05      # absolute, GPU (kernels) vs CPU (non-fused), bf16
 RUNS = 5
+FLAVOUR_RUNS = 3
+FUSED_CONV_TOL = 2e-3     # of the output's scale: one z value rounded to
+                          # the other bf16 neighbour moves a product by 2^-8
+BILINEAR_TOL = {torch.float32: 1e-5,    # f32 sums in another order
+                torch.bfloat16: 1e-2}   # one bf16 rounding of the output
+# detector maps before decoding, of each map's scale (at least 1), against
+# the port's CPU run.  bf16: the card's fused kernels and the CPU's non-fused
+# formulation round at different points through five backbone layers and
+# three head convs at random weights (the reference's own bf16 bounds for
+# the detector, tests/test_detector.py:75-79, are wider: 0.3 absolute on the
+# sigmoided outputs).  f32: sums in another order.
+MAP_TOL = 0.1
+F32_MAP_TOL = 1e-3
+CALIBRATION_PASSES = 10
+BASE = dict(fused_two_block=False, fused_shift=False)
+BILINEAR = dict(bilinear_kernel=True)
 F32_LOGIT_TOL = 1e-4  # absolute, GPU (kernels) vs CPU, f32
 SCATTER_TOL = 1e-5    # of the output's scale, f32 sums in another order
 SCATTER_BF16_TOL = 1e-2   # one bf16 rounding of the output
@@ -97,7 +141,7 @@ KERNELS = [
      "eventad_tpu_torch/csrc/event_graph_search.cu",
      "eventad_tpu/ops/event_graph_pallas.py:61"),
     ("spline_fused_level0", "spline_fused", "fused_two_block_cuda",
-     "fused_two_block_plain", ("models.backbone", "fused_two_block"),
+     "fused_two_block_plain", ("ops.spline_fused", "fused_two_block"),
      "eventad_tpu_torch/csrc/spline_fused.cu",
      "eventad_tpu/ops/spline_fused.py:294"),
     ("spline_shift_pooled", "spline_shift", "shift_spline_conv_cuda",
@@ -378,9 +422,11 @@ def main():
     # CPU leg: same weights, same batches, the port on the CPU
     cpu_model, _, _ = init_model(cfg, torch.Generator().manual_seed(0),
                                  "cpu")
+    cpu_refs_bf16 = []
     for i in (0, 1):
         t0 = time.perf_counter()
         ref = model_forward(cpu_model, cpu_batches[i], bc, mc, gsc)
+        cpu_refs_bf16.append(ref)
         got = outs[i]
         if not torch.equal(ref.valid, got.valid.cpu()):
             raise AssertionError(f"batch {i}: valid slots differ from CPU")
@@ -748,6 +794,322 @@ def main():
             raise AssertionError(f"checkpoint round trip: {k} differs")
     log(f"checkpoint saved and loaded back on the card: {len(want)} tensors "
         f"equal, extra {extra}")
+
+
+    # ---- 7. the other kernel flavours: K5 (base), K7 (bilinear) ----
+    import torch.nn.functional as F
+
+    from eventad_tpu_torch.ops import bilinear_sample as bsm
+    from eventad_tpu_torch.ops import spline_fused as sfm
+
+    bc_base, bc_bil = bc._replace(**BASE), bc._replace(**BILINEAR)
+    all_counters = dict(all_counters,
+                        fused_spline_conv=sfm.fused_spline_conv_cuda,
+                        bilinear_sample=bsm.sample_bilinear_cuda)
+
+    def recorded_calls(batch, bcx, mod, attr, expect):
+        """The scoring forward in flavour ``bcx`` with the arguments of
+        ``mod.<attr>``, as the backbone calls it, recorded."""
+        found, orig = [], getattr(mod, attr)
+
+        def rec(*a, **kw):
+            found.append((a, kw))
+            return orig(*a, **kw)
+        setattr(mod, attr, rec)
+        try:
+            model_forward(model, batch, bcx, mc, gsc)
+            torch.cuda.synchronize()
+        finally:
+            setattr(mod, attr, orig)
+        if len(found) != expect:
+            raise AssertionError(f"{attr}: {len(found)} calls in one "
+                                 f"forward, expected {expect}")
+        return found
+
+    def conv_err(a, kw):
+        got = sfm.fused_spline_conv_cuda(*a, **kw)
+        want = sfm.fused_spline_conv_plain(*a, **kw)
+        if got.shape != want.shape or got.dtype != torch.float32:
+            raise AssertionError(f"fused_spline_conv: {got.shape} "
+                                 f"{got.dtype} vs {want.shape}")
+        no_edge = ~(a[1].nbr >= 0).any(1)
+        if not bool((got[no_edge] == 0).all()):
+            raise AssertionError("fused_spline_conv: a row without an edge "
+                                 "is not zero")
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item() + 1e-6
+        if not err <= FUSED_CONV_TOL * scale:
+            raise AssertionError(f"fused_spline_conv: max abs err {err} > "
+                                 f"{FUSED_CONV_TOL} x {scale}")
+        return err, got
+
+    k5_op = recorded_calls(batches[0], bc_base, sfm, "fused_spline_conv", 10)
+    k5_dense = recorded_calls(dense, bc_base, sfm, "fused_spline_conv", 10)
+    k5_err = k5_ms = k5_plain = 0.0
+    k5_bytes = k5_tap_ops = k5_z_ops = 0
+    level_ms = []
+    for a, kw in k5_op:
+        src, prep, weight = a
+        err, got = conv_err(a, kw)
+        k5_err = max(k5_err, err)
+        level_ms.append(median_ms(lambda: sfm.fused_spline_conv_cuda(
+            *a, **kw)))
+        k5_plain += median_ms(lambda: sfm.fused_spline_conv_plain(*a, **kw),
+                              reps=5)
+        # what this data needs: per edge its (at most four) taps' share of
+        # z, per (row, tap) that an edge touches one C x O product; of the
+        # weights only the taps of the sub-rectangle
+        coeff = sfm._tap_coeff(prep, kw["kernel_size"], kw["ranges"])
+        c, o = src.shape[1], weight.shape[-1]
+        k5_z_ops += 2 * int((coeff != 0).sum()) * c
+        k5_tap_ops += 2 * int((coeff != 0).any(1).sum()) * c * o
+        # the index table in full, coordinates only of the slots that hold
+        # an edge (an empty slot's are never read)
+        k5_bytes += (tensor_bytes((src, prep.nbr, got))
+                     + int((prep.nbr >= 0).sum()) * 2 * prep.u.element_size()
+                     + coeff.shape[-1] * c * o * 2)
+        del coeff
+    k5_ms = sum(level_ms)
+    k5_dense_err = max(conv_err(a, kw)[0] for a, kw in k5_dense)
+    k5_by_bytes = k5_bytes / HBM_BYTES_PER_S
+    k5_by_ops = k5_tap_ops / PEAK_BF16 + k5_z_ops / PEAK_F32
+    k5_bound = max(k5_by_bytes, k5_by_ops) * 1e3
+    k5_by = "bytes" if k5_by_bytes >= k5_by_ops else "operations"
+    shapes = [(tuple(a[0].shape), tuple(a[1].nbr.shape), a[2].shape[-1])
+              for a, _ in k5_op]
+    log(f"fused_spline_conv: 10 calls per base forward, (src, nbr, O) "
+        f"{shapes}; max abs err {k5_err:.3g} (dense / under-filled batch "
+        f"{k5_dense_err:.3g}; tolerance {FUSED_CONV_TOL} of scale); kernel "
+        f"ms per call {[round(t, 4) for t in level_ms]}, {k5_ms:.4f} ms per "
+        f"forward, plain {k5_plain:.4f} ms; bound {k5_bound:.5f} ms by "
+        f"{k5_by} ({k5_bytes} bytes, {k5_tap_ops} tap-product and "
+        f"{k5_z_ops} z operations); no single PyTorch call computes it")
+
+    def bilinear_err(feat, pos, mask, kw):
+        got = bsm.sample_bilinear_cuda(feat, pos, mask, **kw)
+        want = bsm.sample_bilinear_plain(feat, pos, mask, **kw)
+        if got.shape != want.shape or got.dtype != feat.dtype:
+            raise AssertionError(f"sample_bilinear: {got.shape} {got.dtype}")
+        if not bool((got[~mask] == 0).all()):
+            raise AssertionError("sample_bilinear: a masked row is not zero")
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item() + 1e-6
+        if not err <= BILINEAR_TOL[feat.dtype] * scale:
+            raise AssertionError(
+                f"sample_bilinear ({feat.dtype}): max abs err {err} > "
+                f"{BILINEAR_TOL[feat.dtype]} x {scale}")
+        return err, err / scale, got
+
+    k7_op = recorded_calls(batches[0], bc_bil, bb, "sample_bilinear", 2)
+    k7_dense = recorded_calls(dense, bc_bil, bb, "sample_bilinear", 2)
+    k7_rel = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    k7_abs = 0.0
+    k7_ms = k7_plain = k7_lib = 0.0
+    k7_bytes = k7_ops = 0
+    for calls in (k7_op, k7_dense):
+        for a, kw in calls:
+            feat, pos, mask = a
+            # a copy whose positions also leave the map, on every side, and
+            # whose mask drops rows
+            far = pos.clone()
+            far[:, :2] = far[:, :2] * 1.2 - 0.1
+            far[:4, 0] = torch.tensor([1e9, -1e9, 0.0, 1.0], device=dev)
+            fewer = mask & (torch.rand(mask.shape, generator=cot_gen,
+                                       device=dev) > 0.15)
+            for f in (feat, feat.float()):
+                for p, m in ((pos, mask), (far, fewer)):
+                    err, rel, _ = bilinear_err(f, p, m, kw)
+                    k7_rel[f.dtype] = max(k7_rel[f.dtype], rel)
+                    k7_abs = max(k7_abs, err)
+    for a, kw in k7_op:
+        feat, pos, mask = a
+        _, _, got = bilinear_err(feat, pos, mask, kw)
+        k7_ms += median_ms(lambda: bsm.sample_bilinear_cuda(*a, **kw))
+        k7_plain += median_ms(lambda: bsm.sample_bilinear_plain(*a, **kw),
+                              reps=5)
+        # the library's call: grid_sample on the NCHW map and a prepared
+        # grid (neither conversion is timed).  It wants the grid in the
+        # map's type, and a bf16 grid cannot hold a position, so it is held
+        # against the kernel in f32 and timed in the map's type
+        b, hp, wp, c = feat.shape
+        nchw = feat.permute(0, 3, 1, 2).contiguous()
+        gx = pos[:, 0] * bc.width / max(bc.width - 1, 1) * 2 - 1
+        gy = pos[:, 1] * bc.height / max(bc.height - 1, 1) * 2 - 1
+        grid = torch.stack([gx, gy], -1).reshape(b, 1, -1, 2)
+        lib = F.grid_sample(nchw.float(), grid, mode="bilinear",
+                            padding_mode="zeros", align_corners=True)
+        lib = lib[:, :, 0].permute(0, 2, 1).reshape(got.shape) \
+            * mask[:, None]
+        got32 = bsm.sample_bilinear_cuda(feat.float(), pos, mask, **kw)
+        lib_err = (lib - got32).abs().max().item()
+        if not lib_err <= 1e-3 * (got32.abs().max().item() + 1e-6):
+            raise AssertionError(f"sample_bilinear vs grid_sample: {lib_err}")
+        grid = grid.to(feat.dtype)
+        k7_lib += median_ms(lambda: F.grid_sample(
+            nchw, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True))
+        k7_bytes += tensor_bytes(a) + tensor_bytes(kw) + tensor_bytes(got)
+        k7_ops += 9 * got.numel()
+    k7_bound, k7_by = bound(k7_bytes, k7_ops, PEAK_F32)
+    log(f"sample_bilinear: 2 calls per bilinear forward, maps "
+        f"{[tuple(a[0].shape) for a, _ in k7_op]} at {k7_op[0][0][1].shape[0]}"
+        f" positions; max abs err vs plain {k7_abs:.3g}, of scale: bf16 "
+        f"{k7_rel[torch.bfloat16]:.3g} (tolerance "
+        f"{BILINEAR_TOL[torch.bfloat16]}), f32 {k7_rel[torch.float32]:.3g} "
+        f"(tolerance {BILINEAR_TOL[torch.float32]}), positions outside the "
+        f"map and both check batches included; kernel {k7_ms:.4f} ms, plain "
+        f"{k7_plain:.4f} ms, F.grid_sample {k7_lib:.4f} ms per forward; "
+        f"bound {k7_bound:.5f} ms by {k7_by} ({k7_bytes} bytes, {k7_ops} "
+        f"operations)")
+
+    def zero_counters():
+        for fn in all_counters.values():
+            fn.launches = 0
+
+    def read_counters(expect, what):
+        seen = {n: fn.launches for n, fn in all_counters.items()
+                if fn.launches}
+        if seen != expect:
+            raise AssertionError(f"{what} launched {seen}, expected "
+                                 f"{expect}")
+        return seen
+
+    n = FLAVOUR_RUNS
+    flavour_launches = {}
+    default_expect = dict(event_graph_search=n, spline_fused_level0=2 * n,
+                          spline_shift_pooled=8 * n, upsample_rows=2 * n)
+    base_expect = dict(event_graph_search=n, upsample_rows=2 * n,
+                       fused_spline_conv=10 * n)
+    # default and base run twice, in mirrored order, so that their batch
+    # times can be compared within this call
+    for name, bcx, expect in (
+            ("default", bc, default_expect),
+            ("base", bc_base, base_expect),
+            ("bilinear", bc_bil, dict(event_graph_search=n,
+                                      spline_fused_level0=2 * n,
+                                      spline_shift_pooled=8 * n,
+                                      bilinear_sample=2 * n)),
+            ("base", bc_base, base_expect),
+            ("default", bc, default_expect)):
+        zero_counters()
+        ts_f, outs_f = [], []
+        for i in range(n):
+            t0 = time.perf_counter()
+            o = model_forward(model, batches[i], bcx, mc, gsc)
+            torch.cuda.synchronize()
+            ts_f.append(time.perf_counter() - t0)
+            outs_f.append(o)
+        flavour_launches.setdefault(
+            name, read_counters(expect, f"{name} forward"))
+        d = 0.0
+        for ref, got in zip(cpu_refs_bf16, outs_f):
+            v = ref.valid
+            if not (torch.equal(v, got.valid.cpu())
+                    and bool(torch.isfinite(got.logits).all())):
+                raise AssertionError(f"{name}: valid slots differ from CPU, "
+                                     f"or logits not finite")
+            d = max(d, (ref.logits[v] - got.logits.cpu()[v]).abs().max()
+                    .item())
+        med_f = sorted(ts_f)[len(ts_f) // 2]
+        log(f"{name} flavour: launches over {n} forwards "
+            f"{flavour_launches[name]}; GPU vs CPU logits max abs diff "
+            f"{d:.3g} over batches 0 and 1 (tolerance {LOGIT_TOL}); median {med_f * 1e3:.3f} ms "
+            f"per batch, sync bboxes/s {n_boxes / med_f}")
+        if not d < LOGIT_TOL:
+            raise AssertionError(f"{name}: GPU vs CPU logits differ by {d}")
+    records.append(dict(
+        name="fused_spline_conv", route="cuda",
+        source="eventad_tpu_torch/csrc/spline_fused_single.cu",
+        replaces="eventad_tpu/ops/spline_fused.py:62",
+        launches=flavour_launches["base"]["fused_spline_conv"],
+        max_abs_err=max(k5_err, k5_dense_err), ms=k5_ms, plain_ms=k5_plain,
+        bound_ms=k5_bound, bound_by=k5_by, library_ms=None))
+    records.append(dict(
+        name="bilinear_sample", route="cuda",
+        source="eventad_tpu_torch/csrc/bilinear_sample.cu",
+        replaces="eventad_tpu/ops/bilinear_sample.py:45",
+        launches=flavour_launches["bilinear"]["bilinear_sample"],
+        max_abs_err=k7_abs, ms=k7_ms, plain_ms=k7_plain,
+        bound_ms=k7_bound, bound_by=k7_by, library_ms=k7_lib))
+
+    # ---- 8. detection serving ----
+    from eventad_tpu_torch.bench_detector import ITERS, WARMUP, bench
+    from eventad_tpu_torch.models.detector import (detector_forward,
+                                                   detector_maps,
+                                                   init_detector)
+
+    detector, _ = init_detector(cfg, torch.Generator().manual_seed(0), dev)
+    with torch.no_grad():
+        for _ in range(CALIBRATION_PASSES):
+            detector_forward(detector, batches[0], cfg, bc32, training=True)
+    cpu_detector, _ = init_detector(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+    cpu_detector.load_state_dict(detector.state_dict())
+
+    def maps_err(maps, ref):
+        worst = 0.0
+        for scale_maps, scale_ref in zip(maps, ref):
+            for m, r in zip(scale_maps, scale_ref):
+                if m.shape != r.shape:
+                    raise AssertionError(f"map {m.shape} vs {r.shape}")
+                r = r.float()
+                worst = max(worst, (m.float().cpu() - r).abs().max().item()
+                            / max(1.0, r.abs().max().item()))
+        return worst
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu_maps, _ = detector_maps(cpu_detector, cpu_batches[0], cfg, bc)
+        cpu_maps32, _ = detector_maps(cpu_detector, cpu_batches[0], cfg,
+                                      bc32)
+        maps32, _ = detector_maps(detector, batches[0], cfg, bc32)
+    err32 = maps_err(maps32, cpu_maps32)
+    log(f"detector: {sum(p.numel() for p in detector.parameters())} "
+        f"parameters, running statistics from {CALIBRATION_PASSES} "
+        f"batch-statistics passes (f32) on batch 0; CPU maps (bf16 and "
+        f"f32) in {time.perf_counter() - t0:.1f} s; f32 maps GPU vs CPU max "
+        f"{err32:.3g} of scale (tolerance {F32_MAP_TOL})")
+    if not err32 <= F32_MAP_TOL:
+        raise AssertionError(f"f32 detector maps differ from the CPU run "
+                             f"by {err32} of their scale")
+    n_anchors = sum(nx * ny for nx, ny in bc.grids[2:4])
+    for name, bcx, expect in (
+            ("default", bc, dict(event_graph_search=1, spline_fused_level0=2,
+                                 spline_shift_pooled=8, upsample_rows=2)),
+            ("base+bilinear", bc._replace(**BASE, **BILINEAR),
+             dict(event_graph_search=1, fused_spline_conv=10,
+                  bilinear_sample=2))):
+        with torch.no_grad():
+            maps, strides = detector_maps(detector, batches[0], cfg, bcx)
+        worst = maps_err(maps, cpu_maps)
+        zero_counters()
+        dets, decoded = detector_forward(detector, batches[0], cfg, bcx)
+        torch.cuda.synchronize()
+        seen = read_counters(expect, f"detector forward ({name})")
+        if tuple(decoded.shape) != (cfg.batch_size, n_anchors, 7) \
+                or decoded.dtype != torch.float32 \
+                or not bool(torch.isfinite(decoded).all()):
+            raise AssertionError(f"decoded {tuple(decoded.shape)} "
+                                 f"{decoded.dtype}, or not finite")
+        shapes = {k: tuple(v.shape) for k, v in dets.items()}
+        if shapes != dict(boxes=(cfg.batch_size, 64, 4),
+                          scores=(cfg.batch_size, 64),
+                          labels=(cfg.batch_size, 64),
+                          mask=(cfg.batch_size, 64)) \
+                or not bool(torch.isfinite(dets["scores"]).all()):
+            raise AssertionError(f"detections {shapes}")
+        if not worst <= MAP_TOL:
+            raise AssertionError(f"detector maps ({name}) differ from the "
+                                 f"CPU run by {worst} of their scale")
+        dt_det = bench(detector, batches[0], cfg, bcx)
+        log(f"detector forward ({name}, bf16): maps vs CPU max "
+            f"{worst:.3g} of scale (tolerance {MAP_TOL}); decoded "
+            f"{tuple(decoded.shape)} finite, wh up to "
+            f"{float(decoded[..., 2:4].max()):.3g} px; "
+            f"{int(dets['mask'].sum())} boxes kept of {cfg.batch_size} x "
+            f"64; launches per forward {seen}; detector_images_per_sec "
+            f"{cfg.batch_size / dt_det} batch_ms {dt_det * 1e3} "
+            f"({WARMUP} warm-up, {ITERS} timed, one synchronise) on {smi}")
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 ``eventad_tpu.config.Config`` without jax or yaml.
 
 Only the fields the port reads are carried (the scoring forward, head
-training, evaluation), with the same names and defaults (reference dagr-S /
+training, evaluation, detection serving), with the same names and defaults (reference dagr-S /
 EventAD values, ``eventad_tpu/config/defaults.py``).  ``parse_args`` gives
 the same ``--field value`` command line, without the YAML overlay.
 """
@@ -29,8 +29,11 @@ class Config:
     base_width: float = 0.5
     after_pool_width: float = 1.0
     net_stem_width: float = 0.5
+    yolo_stem_width: float = 0.5
+    num_scales: int = 2
     pooling_dim_at_output: str = "5x7"
     use_image: bool = True
+    no_events: bool = False
     keep_temporal_ordering: bool = False
     img_net: str = "resnet50"
 
@@ -117,7 +120,6 @@ class Config:
                 int(self.net_stem_width * 128),
                 int(self.net_stem_width * 128),
                 int(self.net_stem_width * 128)]
-
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

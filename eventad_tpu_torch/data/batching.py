@@ -4,8 +4,8 @@ Counterpart of ``eventad_tpu/data/batching.py`` (``EventBatch``,
 ``BatchMeta``) and ``eventad_tpu/native.queue_ranks``.  The TPU staging
 fields (``search_starts``, ``image_s2d``) are not carried, nor the optional
 host ``pool_tables`` (the pooling computes its cell sums from the events),
-nor the raw detection lists ``bbox`` / ``bbox0`` (the detector's; only
-their masks, which the training and evaluation loops read).
+nor the previous frame's raw detection list ``bbox0`` (only its mask, which
+the evaluation loop reads).
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ class EventBatch(NamedTuple):
     box_labels: torch.Tensor   # [B, S] int32
     bbox_mask: torch.Tensor    # [B, D] bool, raw current-frame detections
     bbox0_mask: torch.Tensor   # [B, D] bool, raw previous-frame detections
+    bbox: torch.Tensor         # [B, D, 6] float32 (x, y, w, h, class, track)
 
     def to(self, device) -> "EventBatch":
         return EventBatch(*(a.to(device) for a in self))

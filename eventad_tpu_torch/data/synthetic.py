@@ -36,6 +36,7 @@ def make_synthetic_batch(cfg: Config, seed: int = 0,
     present = np.zeros((b, 2, s), bool)
     labels = np.zeros((b, s), np.int32)
     bbox_m = np.zeros((b, MAX_DETECTIONS), bool)
+    bbox = np.zeros((b, MAX_DETECTIONS, 6), np.float32)
     for bi in range(b):
         for k in range(boxes_per_item):
             tid = k + 1
@@ -48,9 +49,10 @@ def make_synthetic_batch(cfg: Config, seed: int = 0,
             present[bi, :, tid] = True
             labels[bi, tid] = cls
             bbox_m[bi, k] = True
+            bbox[bi, k] = (bx, by, bw, bh, cls, tid)
     return EventBatch(*(torch.from_numpy(a) for a in (
         pos, pol, valid, rank, image, boxes, present, labels, bbox_m,
-        bbox_m.copy())))
+        bbox_m.copy(), bbox)))
 
 
 class SyntheticLoader:

@@ -7,13 +7,24 @@ ConvBlockWithSkip (spline conv + BN, plus linear + BN skip, summed, then
 act) (reference conv.py:10-72).
 
 Routing follows the reference's branches: with bf16 compute, sum
-aggregation and tensors on CUDA, the level-0 layer runs the fused kernel K2
-(``ops/spline_fused``), pooled layers the shift kernel K3
+aggregation, eval mode and tensors on CUDA, the level-0 layer runs the fused
+kernel K2 (``ops/spline_fused``), pooled layers the shift kernel K3
 (``ops/spline_shift``) and the level-0/1 image rows K4
 (``ops/upsample_flat``); otherwise the non-fused formulation
-(``ops/spline_conv`` + ``ops/norm``), as the reference runs f32 and CPU,
-whose level-0 layer fetches its neighbour rows through the windowed gather
-K6a (``ops/gather_window``; its backward is K6b).
+(``ops/spline_conv`` + ``ops/norm``), as the reference runs f32, training
+and CPU, whose level-0 layer fetches its neighbour rows through the windowed
+gather K6a (``ops/gather_window``; its backward is K6b).
+
+Three flags of :class:`BackboneConfig` select the other kernel flavours of
+the bf16 eval path.  With ``fused_two_block`` off the level-0 layer, and
+with ``fused_shift`` off every pooled layer, runs as two launches of the
+generic single-block conv K5 (``ops/spline_fused.fused_spline_conv``) with
+root, BN, activation, mask and skip in PyTorch ops around them.  With
+``bilinear_kernel`` on the level-0/1 image rows come from the bilinear
+sampler K7 (``ops/bilinear_sample``), one call per map, instead of K4.  A
+flavour asked for by its flag runs on either device (the kernel on the card,
+its plain version on the CPU), so it can be held against the reference on
+the CPU; the default flags route exactly as before.
 """
 from __future__ import annotations
 
@@ -23,13 +34,14 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..ops.bilinear_sample import sample_bilinear
 from ..ops.gather_window import gather_rows_auto
 from ..ops.norm import BatchNorm, batch_norm
 from ..ops.pooling import pool_graph
 from ..ops.spline_basis import ACTS
 from ..ops.spline_conv import (SplineConv, center_index, offset_attr,
                                spline_conv, tap_ranges)
-from ..ops.spline_fused import fused_two_block, prepare_fused
+from ..ops import spline_fused
 from ..ops.spline_shift import prepare_shift, shift_spline_conv
 from ..ops.upsample_flat import upsample_rows
 from .graph import Graph, neighbor_rows, sample_image_features, \
@@ -76,6 +88,10 @@ class BackboneConfig(NamedTuple):
     gather_lookback: int = 0   # window of the level-0 neighbour gather
     radius_px: int = 0
     compute_dtype: str = "float32"
+    # the kernel flavours of the bf16 eval path (see the module docstring)
+    fused_two_block: bool = True   # level 0: K2; off: two launches of K5
+    fused_shift: bool = True       # pooled levels: K3; off: K5
+    bilinear_kernel: bool = False  # level-0/1 image rows: K7 instead of K4
 
 
 def make_backbone_config(cfg: Config) -> BackboneConfig:
@@ -147,7 +163,8 @@ def apply_layer(layer: Layer, g: Graph, *, kernel_size: int, aggr: str,
                 batch_size: int = None, span: int = 2, attr_range=None,
                 self_slot0: bool = False, width: int = None,
                 height: int = None, pos_nbr_pre=None,
-                gather_lookback: int = 0):
+                gather_lookback: int = 0, training: bool = False,
+                fused_two_block: bool = True, fused_shift: bool = True):
     """One ``Layer`` on graph ``g``; returns ``(g', pos_nbr)`` where
     ``pos_nbr [N, K', 2]`` are the neighbour positions the next pooling
     reads.
@@ -159,7 +176,12 @@ def apply_layer(layer: Layer, g: Graph, *, kernel_size: int, aggr: str,
     Neighbour rows come from ``gather_rows_auto`` with the window
     ``gather_lookback`` (every ``g.nbr[i, k]`` in ``[i - gather_lookback,
     i]``).  Pooled levels (``grid`` set): neighbour rows are 2-D shifts of
-    the cell table (``neighbor_rows``)."""
+    the cell table (``neighbor_rows``).
+
+    ``training``: BN by batch statistics (running statistics updated in
+    place), always through the non-fused formulation.  ``fused_two_block``
+    / ``fused_shift``: off selects the generic fused conv K5 for the bf16
+    eval layer at level 0 / a pooled level."""
     x_in = g.x
     dt = x_in.dtype
     ks = kernel_size
@@ -168,8 +190,13 @@ def apply_layer(layer: Layer, g: Graph, *, kernel_size: int, aggr: str,
     s0 = 1 if fold_self else 0
     nbr = g.nbr[:, s0:].contiguous()
     nbr_mask = g.nbr_mask[:, s0:].contiguous()
-    use_fused = (dt == torch.bfloat16 and aggr == "sum" and x_in.is_cuda
-                 and (grid is not None or g.off is not None))
+    fused_act = activation_name in ("relu", "elu", "hardtanh", "silu")
+    # K3 (pooled) or K2 (level 0); otherwise the generic conv K5
+    use_whole_layer = fused_act and (fused_shift if grid is not None
+                                     else fused_two_block)
+    use_fused = (dt == torch.bfloat16 and aggr == "sum" and not training
+                 and (grid is not None or g.off is not None)
+                 and (x_in.is_cuda or not use_whole_layer))
     zero = torch.zeros((), dtype=dt, device=x_in.device)
 
     def rows_of(src):
@@ -200,8 +227,10 @@ def apply_layer(layer: Layer, g: Graph, *, kernel_size: int, aggr: str,
     attr_f32 = attr
 
     b1, b2 = layer.block1, layer.block2
+    node_mask = g.node_mask
     if use_fused:
         u = torch.clamp(attr_f32, 0.0, 1.0) * (ks - 1)
+    if use_fused and use_whole_layer:
         w1, w2 = b1.conv.weight.to(dt), b2.conv.weight.to(dt)
         root1, root2 = b1.conv.root.to(dt), b2.conv.root.to(dt)
         a1, c1 = _fold_bn_affine(b1.bn, None, dt)
@@ -224,41 +253,66 @@ def apply_layer(layer: Layer, g: Graph, *, kernel_size: int, aggr: str,
                 ci = center_index(ks)
                 root1 = root1 + w1[ci]
                 root2 = root2 + w2[ci]
-            out, _ = fused_two_block(
-                x_in, prepare_fused(nbr, nbr_mask, u), w1, root1, a1, c1,
-                w2, root2, g.node_mask, kernel_size=ks, ranges=ranges,
-                act=activation_name,
+            out, _ = spline_fused.fused_two_block(
+                x_in, spline_fused.prepare_fused(nbr, nbr_mask, u), w1, root1,
+                a1, c1, w2, root2, g.node_mask, kernel_size=ks,
+                ranges=ranges, act=activation_name,
                 epilogue=(skip_lin, a2, c2, a_s, c_s))
         return g._replace(x=out), pos_nbr
 
-    attr = attr.to(dt)
-    node_mask = g.node_mask
+    if use_fused:
+        # K5 once per conv block: the neighbour aggregation in the kernel,
+        # everything around it in PyTorch ops
+        prep = spline_fused.prepare_fused(nbr, nbr_mask, u)
+        ranges = (tap_ranges(ks, attr_range) if attr_range
+                  else ((0, ks - 1), (0, ks - 1)))
 
-    def conv_block(src, conv, xj):
-        return spline_conv(src, nbr, nbr_mask, attr, conv, kernel_size=ks,
-                           aggr=aggr, node_mask=node_mask, x_j=xj,
-                           attr_range=attr_range,
-                           add_center_to_root=fold_self)
+        def conv_block(src, conv, xj=None):
+            w = conv.weight.to(dt)
+            root = conv.root.to(dt)
+            if fold_self:
+                root = root + w[center_index(ks)]
+            out = spline_fused.fused_spline_conv(
+                src, prep, w, kernel_size=ks, ranges=ranges) \
+                + (src @ root).to(torch.float32)
+            return torch.where(node_mask[:, None], out, 0.0).to(dt)
+    else:
+        attr = attr.to(dt)
 
-    h = act(batch_norm(conv_block(x_in, b1.conv, x_j1), node_mask, b1.bn))
+        def conv_block(src, conv, xj=None):
+            return spline_conv(src, nbr, nbr_mask, attr, conv,
+                               kernel_size=ks, aggr=aggr,
+                               node_mask=node_mask,
+                               x_j=rows_of(src) if xj is None else xj,
+                               attr_range=attr_range,
+                               add_center_to_root=fold_self)
+
+    def norm(x, bn):
+        return batch_norm(x, node_mask, bn, training=training)
+
+    h = act(norm(conv_block(x_in, b1.conv, x_j1), b1.bn))
     h = torch.where(node_mask[:, None], h, zero)
-    h2 = batch_norm(conv_block(h, b2.conv, rows_of(h)), node_mask, b2.bn)
+    h2 = norm(conv_block(h, b2.conv), b2.bn)
     skip = x_in @ layer.skip_lin.to(dt) + layer.skip_lin_bias.to(dt)
-    skip = batch_norm(skip, node_mask, layer.skip_bn)
+    skip = norm(skip, layer.skip_bn)
     out = torch.where(node_mask[:, None], act(h2 + skip), zero)
     return g._replace(x=out), pos_nbr
 
 
 def backbone_forward(backbone: Backbone, g0: Graph,
                      image_feats: Optional[Sequence[torch.Tensor]],
-                     bc: BackboneConfig):
+                     bc: BackboneConfig, *, training: bool = False):
     """Runs the 5-level pyramid on the level-0 event graph (``g0.x`` the
     polarity ``[N, 1]``) with the 5 NHWC CNN maps (or None).  Returns
-    ``(out3, out4)``, the graphs after layers 4 and 5 (net.py:165-184)."""
+    ``(out3, out4)``, the graphs after layers 4 and 5 (net.py:165-184).
+    ``training``: BN by batch statistics in every layer."""
     dt = torch.bfloat16 if bc.compute_dtype == "bfloat16" else torch.float32
     g = g0._replace(x=g0.x.to(dt))
+    # mirrors apply_layer's gate for pooled levels: a fused layer takes the
+    # neighbour positions from the pooling's own shift pass
     fused_pooled = (dt == torch.bfloat16 and bc.aggr == "sum"
-                    and g0.x.is_cuda)
+                    and not training
+                    and (g0.x.is_cuda or not bc.fused_shift))
 
     # levels 0 and 1 both sample at the event positions: one row fetch of
     # the two upsampled maps serves both
@@ -267,7 +321,12 @@ def backbone_forward(backbone: Backbone, g0: Graph,
     if bc.use_image:
         c0 = image_feats[0].shape[-1]
         maps01 = [image_feats[0].to(dt), image_feats[1].to(dt)]
-        if dt == torch.bfloat16:
+        if bc.bilinear_kernel:
+            rows01 = torch.cat(
+                [sample_bilinear(f, g0.pos, g0.node_mask,
+                                 full_width=bc.width, full_height=bc.height,
+                                 batch=g0.batch) for f in maps01], dim=1)
+        elif dt == torch.bfloat16 and not training:
             rows01 = upsample_rows(maps01, g0.pos, g0.batch, bc.width,
                                    bc.height)
         else:
@@ -320,7 +379,9 @@ def backbone_forward(backbone: Backbone, g0: Graph,
             batch_size=bc.batch_size,
             attr_range=level0_attr_range(bc) if level == 0 else None,
             self_slot0=level == 0, width=bc.width, height=bc.height,
-            pos_nbr_pre=pos_nbr_pre, gather_lookback=bc.gather_lookback)
+            pos_nbr_pre=pos_nbr_pre, gather_lookback=bc.gather_lookback,
+            training=training, fused_two_block=bc.fused_two_block,
+            fused_shift=bc.fused_shift)
         if level >= 3:
             outs.append(g)
     return tuple(outs)

@@ -3,7 +3,9 @@ dicts of numpy arrays (or tensors) — the dicts ``eventad_tpu/models/
 convert.py`` writes (``export_backbone``, ``export_cnn_branch``,
 ``export_eventad_head``) and the reference's torch checkpoints hold — and
 writes them back (``export_reference_state``), so one checkpoint format
-serves both packages.
+serves both packages.  ``load_detector_state`` fills the port's detector
+from the reference package's detector parameters and state, handed over as
+nested containers of numpy arrays.
 
 Layouts: torch conv weights OIHW (kept as they are); torch Linear ``[O, I]``
 -> ``[I, O]``; GRU ``[3H, In]`` -> ``[In, 3H]``; spline kernels
@@ -74,9 +76,11 @@ def _load_cnn(cnn, sd: Mapping, prefix: str = "backbone.net."):
             if blk.down is not None:
                 _copy(blk.down, sd[f"{base}.downsample.0.weight"], base)
                 _load_bn(blk.down_bn, sd, f"{base}.downsample.1")
-    for i, (w, b) in enumerate(zip(cnn.feature_w, cnn.feature_b)):
-        _copy(w, sd[f"{prefix}feature_dconv.{i}.weight"], "feature_dconv")
-        _copy(b, sd[f"{prefix}feature_dconv.{i}.bias"], "feature_dconv")
+    for key, ws, bs in (("feature_dconv", cnn.feature_w, cnn.feature_b),
+                        ("output_dconv", cnn.output_w, cnn.output_b)):
+        for i, (w, b) in enumerate(zip(ws, bs)):
+            _copy(w, sd[f"{prefix}{key}.{i}.weight"], key)
+            _copy(b, sd[f"{prefix}{key}.{i}.bias"], key)
 
 
 def _load_gru(gru: GRU, sd: Mapping, prefix: str):
@@ -205,3 +209,122 @@ def split_reference_state(sd: Mapping):
     dagr = {k[n:]: v for k, v in sd.items() if k.startswith(DAGR_PREFIX)}
     head = {k: v for k, v in sd.items() if not k.startswith(DAGR_PREFIX)}
     return dagr, head
+
+
+# ---------------------------------------------------------------------------
+# the detector: nested containers of numpy arrays -> the port's modules
+# ---------------------------------------------------------------------------
+def _field(obj, name: str):
+    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
+
+
+def _fill_bn(bn: BatchNorm, p, s, name: str):
+    _copy(bn.scale, _field(p, "scale"), name)
+    _copy(bn.offset, _field(p, "offset"), name)
+    _copy(bn.mean, _field(s, "mean"), name)
+    _copy(bn.var, _field(s, "var"), name)
+
+
+def _fill_spline(conv, p, name: str):
+    _copy(conv.weight, p.weight, name)
+    _copy(conv.root, p.root, name)
+    if (conv.bias is None) != (p.bias is None):
+        raise ValueError(f"{name}: bias on one side only")
+    if conv.bias is not None:
+        _copy(conv.bias, p.bias, name)
+
+
+def _fill_conv_block(blk, p, s, name: str):
+    _fill_spline(blk.conv, p.conv, name)
+    _fill_bn(blk.bn, p.bn, s.bn, name)
+
+
+def _oihw(w) -> np.ndarray:
+    """A conv kernel in HWIO layout as the port's OIHW."""
+    return np.transpose(np.asarray(w), (3, 2, 0, 1))
+
+
+def _dagr_reference_state(params, state) -> Dict[str, np.ndarray]:
+    """The DAGR part (``DAGRParams`` / ``DAGRState`` as nested containers
+    of numpy arrays) as a reference-format state dict, the keys
+    :func:`_load_backbone` and :func:`_load_cnn` read."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def bn(key, p, s):
+        sd[f"{key}.weight"] = _field(p, "scale")
+        sd[f"{key}.bias"] = _field(p, "offset")
+        sd[f"{key}.running_mean"] = _field(s, "mean")
+        sd[f"{key}.running_var"] = _field(s, "var")
+
+    for nm, lp, ls in zip(_LAYER_NAMES, params.backbone.layers,
+                          state.backbone.layers):
+        base = f"backbone.{nm}"
+        for bi, bp, bs in ((1, lp.block1, ls.block1),
+                           (2, lp.block2, ls.block2)):
+            cb = f"{base}.conv_block{bi}"
+            sd[f"{cb}.conv.weight"] = bp.conv.weight
+            sd[f"{cb}.conv.lin.weight"] = np.asarray(bp.conv.root).T
+            bn(f"{cb}.norm.module", bp.bn, bs.bn)
+        sd[f"{base}.conv_block2.lin.mlp.weight"] = np.asarray(lp.skip_lin).T
+        sd[f"{base}.conv_block2.lin.mlp.bias"] = lp.skip_lin_bias
+        bn(f"{base}.conv_block2.norm_skip.module", lp.skip_bn, ls.skip_bn)
+    if params.cnn is None:
+        return sd
+    net = "backbone.net."
+    r = net + "module."
+    rp, rs = params.cnn["resnet"], state.cnn
+    sd[r + "conv1.weight"] = _oihw(rp["conv1"])
+    bn(r + "bn1", rp["bn1"], rs["bn1"])
+    for li in range(1, 5):
+        for bi, (bp, bs) in enumerate(zip(rp[f"layer{li}"],
+                                          rs[f"layer{li}"])):
+            base = f"{r}layer{li}.{bi}"
+            for ci in (1, 2, 3):
+                if f"c{ci}" in bp:
+                    sd[f"{base}.conv{ci}.weight"] = _oihw(bp[f"c{ci}"])
+                    bn(f"{base}.bn{ci}", bp[f"b{ci}"], bs[f"b{ci}"])
+            if "down" in bp:
+                sd[f"{base}.downsample.0.weight"] = _oihw(bp["down"])
+                bn(f"{base}.downsample.1", bp["down_bn"], bs["down_bn"])
+    for key in ("feature_dconv", "output_dconv"):
+        for i, d in enumerate(params.cnn[key]):
+            sd[f"{net}{key}.{i}.weight"] = _oihw(d["w"])
+            sd[f"{net}{key}.{i}.bias"] = d["b"]
+    return sd
+
+
+def load_detector_state(detector, params, state):
+    """Fills the port's ``Detector`` in place from the reference package's
+    ``DetectorParams`` / ``DetectorState``, given as the same nested
+    containers (named tuples, dicts, lists) with numpy arrays as leaves, so
+    that both compute the same function.  The DAGR part goes through the
+    reference-format key map that :func:`load_reference_state` reads; the
+    head, which has no such map yet, is filled directly.  Returns the
+    detector."""
+    sd = _dagr_reference_state(params.dagr, state.dagr)
+    _load_backbone(detector.dagr.backbone, sd)
+    if detector.dagr.cnn is not None:
+        _load_cnn(detector.dagr.cnn, sd)
+    head = detector.head
+    for i, (sc, sp, ss) in enumerate(zip(head.scales, params.head.scales,
+                                         state.head.scales)):
+        name = f"head.scales[{i}]"
+        for blk in ("stem", "cls_conv", "reg_conv"):
+            _fill_conv_block(getattr(sc, blk), getattr(sp, blk),
+                             getattr(ss, blk), name)
+        for conv in ("cls_pred", "reg_pred", "obj_pred"):
+            _fill_spline(getattr(sc, conv), getattr(sp, conv), name)
+    if head.cnn is not None:
+        for i, (sc, sp, ss) in enumerate(zip(
+                head.cnn.scales, params.head.cnn["scales"],
+                state.head.cnn["scales"])):
+            name = f"head.cnn.scales[{i}]"
+            for blk in ("stem", "cls1", "cls2", "reg1", "reg2"):
+                m = getattr(sc, blk)
+                _copy(m.weight, _oihw(sp[blk]["w"]), name)
+                _fill_bn(m.bn, sp[blk]["bn"], ss[blk]["bn"], name)
+            for conv in ("cls_pred", "reg_pred", "obj_pred"):
+                m = getattr(sc, conv)
+                _copy(m.weight, _oihw(sp[conv]["w"]), name)
+                _copy(m.bias, sp[conv]["b"], name)
+    return detector

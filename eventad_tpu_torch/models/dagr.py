@@ -27,12 +27,16 @@ from .resnet import CNNBranch, cnn_branch_forward
 
 
 class DAGR(nn.Module):
+    """Backbone and CNN branch.  ``output_channels``: widths of the CNN
+    branch's two output maps, which only the detector's head reads."""
+
     def __init__(self, cfg: Config, bc: BackboneConfig,
-                 generator: torch.Generator = None):
+                 generator: torch.Generator = None, output_channels=()):
         super().__init__()
         self.backbone = Backbone(bc, generator)
         self.cnn = (CNNBranch(cfg.img_net, list(cfg.channels()[1:]),
-                              generator) if cfg.use_image else None)
+                              generator, output_channels=output_channels)
+                    if cfg.use_image else None)
         self.img_net = cfg.img_net
 
 

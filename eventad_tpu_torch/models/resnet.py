@@ -5,12 +5,14 @@ The reference wraps torchvision's ResNet-50 in ``HookModule``
 (net_img.py:42-135): hooks capture ``conv1`` (pre-BN) and ``layer1..layer4``,
 each remapped by a 1x1 conv (``feature_dconv``).  Built here from
 ``LAYER_SPECS`` with ``torch.nn.functional.conv2d``; maps are NHWC at the
-public functions, as in the JAX package.  Only the five feature maps are
-computed: the ``output_dconv`` maps feed the detector, not this path.
+public functions, as in the JAX package.  The two ``output_dconv`` maps
+(remaps of ``layer3`` and ``layer4``) feed the detector's CNN head; a branch
+built without ``output_channels`` has no such convs, and the scoring path
+computes only the five feature maps.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +26,7 @@ LAYER_SPECS = {
     "resnet50": ([3, 4, 6, 3], 4),
 }
 FEATURE_LAYERS = ("conv1", "layer1", "layer2", "layer3", "layer4")
+OUTPUT_LAYERS = ("layer3", "layer4")
 
 
 def tap_channels(arch: str) -> List[int]:
@@ -63,7 +66,8 @@ class CNNBranch(nn.Module):
     """ResNet + the HookModule's 1x1 feature remaps (net_img.py:70-90)."""
 
     def __init__(self, arch: str, feature_channels: List[int],
-                 generator: torch.Generator = None, in_channels: int = 3):
+                 generator: torch.Generator = None, in_channels: int = 3,
+                 output_channels: Sequence[int] = ()):
         super().__init__()
         blocks, expansion = LAYER_SPECS[arch]
         self.arch = arch
@@ -86,6 +90,16 @@ class CNNBranch(nn.Module):
             b = torch.empty(co).uniform_(-s, s, generator=generator)
             self.feature_w.append(nn.Parameter(w))
             self.feature_b.append(nn.Parameter(b))
+        self.output_w = nn.ParameterList()
+        self.output_b = nn.ParameterList()
+        taps = dict(zip(FEATURE_LAYERS, tap_channels(arch)))
+        for layer, co in zip(OUTPUT_LAYERS, output_channels):
+            ci = taps[layer]
+            s = 1.0 / ci ** 0.5
+            w = torch.empty(co, ci, 1, 1).uniform_(-s, s, generator=generator)
+            b = torch.empty(co).uniform_(-s, s, generator=generator)
+            self.output_w.append(nn.Parameter(w))
+            self.output_b.append(nn.Parameter(b))
 
 
 def _bn_apply(x: torch.Tensor, bn: BatchNorm, eps: float = 1e-5):
@@ -117,10 +131,13 @@ def _block_forward(x, blk: Block):
 
 
 def cnn_branch_forward(cnn: CNNBranch, image: torch.Tensor,
-                       compute_dtype: str = "float32") -> List[torch.Tensor]:
+                       compute_dtype: str = "float32", *,
+                       outputs: bool = False):
     """``image [B, H, W, 3]`` in [0, 1] -> the five remapped feature maps,
-    NHWC.  ``compute_dtype="bfloat16"`` casts weights and activations; BN
-    running statistics stay f32 inside the folded affine."""
+    NHWC; with ``outputs`` the pair ``(features, output maps)``, the two
+    ``output_dconv`` maps beside them.  ``compute_dtype="bfloat16"`` casts
+    weights and activations; BN running statistics stay f32 inside the
+    folded affine."""
     dt = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
     x = image.to(dt).permute(0, 3, 1, 2)
     h = F.conv2d(x, cnn.conv1.to(dt), stride=2, padding=3)
@@ -131,8 +148,15 @@ def cnn_branch_forward(cnn: CNNBranch, image: torch.Tensor,
         for blk in layer:
             h = _block_forward(h, blk)
         taps.append(h)
-    feats = []
-    for t, w, b in zip(taps, cnn.feature_w, cnn.feature_b):
+
+    def remap(t, w, b):
         f = F.conv2d(t, w.to(dt)) + b.to(dt)[:, None, None]
-        feats.append(f.permute(0, 2, 3, 1).contiguous())
-    return feats
+        return f.permute(0, 2, 3, 1).contiguous()
+
+    feats = [remap(t, w, b)
+             for t, w, b in zip(taps, cnn.feature_w, cnn.feature_b)]
+    if not outputs:
+        return feats
+    by_layer = dict(zip(FEATURE_LAYERS, taps))
+    return feats, [remap(by_layer[layer], w, b) for layer, w, b in
+                   zip(OUTPUT_LAYERS, cnn.output_w, cnn.output_b)]

@@ -1,0 +1,300 @@
+"""YOLOX-style detection heads on graph and CNN features, decode and
+class-offset NMS (counterpart of ``eventad_tpu/models/yolox_head.py``;
+reference dagr.py:132-320, spline_conv.py:80-118, model/utils.py:25-110).
+
+The pooled node tables are dense grids (cell = (b, iy, ix)), so the
+reference's scatter into a dense map is a reshape.  Per scale
+(dagr.py:174-187):
+
+    stem (ConvBlock) -> cls_conv -> cls_pred (to dense, C = num_classes)
+                     `-> reg_conv -> reg_pred (4) + obj_pred (1)
+
+The CNN head (YOLOX ``BaseConv`` stacks) runs on the ResNet output maps and
+its logits are added to the GNN maps (hybrid fusion, dagr.py:247-262).
+Decode and NMS keep the JAX package's fixed output shapes.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.norm import MOMENTUM, BatchNorm, batch_norm
+from ..ops.spline_basis import ACTS
+from ..ops.spline_conv import SplineConv, spline_conv
+from .backbone import BackboneConfig, ConvBlock
+from .graph import Graph, neighbor_rows
+
+
+class ScaleHead(nn.Module):
+    def __init__(self, cin: int, width: int, num_classes: int,
+                 kernel_size: int, generator: torch.Generator = None):
+        super().__init__()
+        self.stem = ConvBlock(cin, width, kernel_size, generator)
+        self.cls_conv = ConvBlock(width, width, kernel_size, generator)
+        self.reg_conv = ConvBlock(width, width, kernel_size, generator)
+        self.cls_pred = SplineConv(width, num_classes, kernel_size,
+                                   generator, bias=True)
+        self.reg_pred = SplineConv(width, 4, kernel_size, generator,
+                                   bias=True)
+        self.obj_pred = SplineConv(width, 1, kernel_size, generator,
+                                   bias=True)
+
+
+class BaseConv(nn.Module):
+    """YOLOX ``BaseConv``: conv (OIHW, no bias) -> BN -> SiLU."""
+
+    def __init__(self, cin: int, cout: int, ks: int,
+                 generator: torch.Generator = None):
+        super().__init__()
+        std = (2.0 / (ks * ks * cin)) ** 0.5
+        self.weight = nn.Parameter(
+            torch.randn(cout, cin, ks, ks, generator=generator) * std)
+        self.bn = BatchNorm(cout)
+
+
+class Pred(nn.Module):
+    """A 1x1 prediction conv with bias."""
+
+    def __init__(self, cin: int, cout: int,
+                 generator: torch.Generator = None):
+        super().__init__()
+        s = 1.0 / cin ** 0.5
+        self.weight = nn.Parameter(torch.empty(cout, cin, 1, 1).uniform_(
+            -s, s, generator=generator))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+
+class CNNScaleHead(nn.Module):
+    def __init__(self, cin: int, hidden: int, num_classes: int,
+                 generator: torch.Generator = None):
+        super().__init__()
+        self.stem = BaseConv(cin, hidden, 1, generator)
+        self.cls1 = BaseConv(hidden, hidden, 3, generator)
+        self.cls2 = BaseConv(hidden, hidden, 3, generator)
+        self.reg1 = BaseConv(hidden, hidden, 3, generator)
+        self.reg2 = BaseConv(hidden, hidden, 3, generator)
+        self.cls_pred = Pred(hidden, num_classes, generator)
+        self.reg_pred = Pred(hidden, 4, generator)
+        self.obj_pred = Pred(hidden, 1, generator)
+
+
+class CNNHead(nn.Module):
+    """YOLOX decoupled head on image features (dagr.py:132-148)."""
+
+    def __init__(self, num_classes: int, in_channels=(256, 256),
+                 width: float = 0.5, generator: torch.Generator = None):
+        super().__init__()
+        hidden = int(256 * width)
+        self.scales = nn.ModuleList(
+            [CNNScaleHead(cin, hidden, num_classes, generator)
+             for cin in in_channels])
+
+
+class GNNHead(nn.Module):
+    def __init__(self, bc: BackboneConfig, num_classes: int = 2,
+                 num_scales: int = 2, cnn_in_channels=(256, 256),
+                 yolo_stem_width: float = 0.5, use_image: bool = True,
+                 generator: torch.Generator = None):
+        super().__init__()
+        in_ch = [bc.channels[-2], bc.channels[-1]]
+        n_reg = max(in_ch)
+        self.scales = nn.ModuleList(
+            [ScaleHead(in_ch[i], n_reg, num_classes, bc.kernel_size,
+                       generator) for i in range(num_scales)])
+        self.cnn = (CNNHead(num_classes, cnn_in_channels, yolo_stem_width,
+                            generator) if use_image else None)
+
+
+def _apply_block(blk: ConvBlock, g: Graph, attr, bc: BackboneConfig,
+                 training: bool, grid) -> Graph:
+    h = spline_conv(g.x, g.nbr, g.nbr_mask, attr.to(g.x.dtype), blk.conv,
+                    kernel_size=bc.kernel_size, aggr=bc.aggr,
+                    node_mask=g.node_mask,
+                    x_j=neighbor_rows(g.x, grid, bc.batch_size, span=2))
+    h = ACTS[bc.activation](batch_norm(h, g.node_mask, blk.bn,
+                                       training=training))
+    zero = torch.zeros((), dtype=h.dtype, device=h.device)
+    return g._replace(x=torch.where(g.node_mask[:, None], h, zero))
+
+
+def _to_dense(x: torch.Tensor, grid: Tuple[int, int], batch_size: int,
+              node_mask: torch.Tensor) -> torch.Tensor:
+    """``[B*ny*nx, C]`` cell table -> ``[B, C, ny, nx]`` dense map; the cell
+    order (b, iy, ix) is the pooling's cluster order, the reference's voxel
+    scatter (spline_conv.py:99-105)."""
+    nx, ny = grid
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    xm = torch.where(node_mask[:, None], x, zero)
+    return xm.reshape(batch_size, ny, nx, x.shape[1]).permute(0, 3, 1, 2)
+
+
+def gnn_head_scale_forward(head: ScaleHead, g: Graph, attr, grid,
+                           bc: BackboneConfig, training: bool = False):
+    """One scale of the GNN head on graph ``g``: ``(cls, reg, obj)`` dense
+    maps ``[B, C, ny, nx]`` in ``g.x.dtype``."""
+    g1 = _apply_block(head.stem, g, attr, bc, training, grid)
+    gc = _apply_block(head.cls_conv, g1, attr, bc, training, grid)
+    gr = _apply_block(head.reg_conv, g1, attr, bc, training, grid)
+
+    def pred(conv, gg):
+        out = spline_conv(gg.x, gg.nbr, gg.nbr_mask, attr.to(gg.x.dtype),
+                          conv, kernel_size=bc.kernel_size, aggr=bc.aggr,
+                          node_mask=gg.node_mask,
+                          x_j=neighbor_rows(gg.x, grid, bc.batch_size,
+                                            span=2))
+        return _to_dense(out, grid, bc.batch_size, g.node_mask)
+    return pred(head.cls_pred, gc), pred(head.reg_pred, gr), \
+        pred(head.obj_pred, gr)
+
+
+def _base_conv(x: torch.Tensor, m: BaseConv, training: bool,
+               eps: float = 1e-5) -> torch.Tensor:
+    """NCHW.  Eval: the BN affine folded in f32 from parameters and running
+    statistics rounded to ``x.dtype``, applied in ``x.dtype``; training: the
+    map's own statistics, running statistics updated in place."""
+    dt = x.dtype
+    h = F.conv2d(x, m.weight.to(dt), padding=(m.weight.shape[2] - 1) // 2)
+    bn = m.bn
+    if training:
+        mean = h.mean(dim=(0, 2, 3))
+        var = h.var(dim=(0, 2, 3), unbiased=False)
+        cnt = h.numel() // h.shape[1]
+        with torch.no_grad():
+            bn.mean.mul_(1 - MOMENTUM).add_(MOMENTUM * mean)
+            bn.var.mul_(1 - MOMENTUM).add_(
+                MOMENTUM * var * cnt / max(cnt - 1, 1))
+        y = ((h - mean[:, None, None])
+             * torch.rsqrt(var + eps)[:, None, None]
+             * bn.scale[:, None, None] + bn.offset[:, None, None])
+    else:
+        a = bn.scale.to(dt).float() * torch.rsqrt(bn.var.to(dt).float()
+                                                  + eps)
+        b = bn.offset.to(dt).float() - bn.mean.to(dt).float() * a
+        y = h * a.to(dt)[:, None, None] + b.to(dt)[:, None, None]
+    return F.silu(y)
+
+
+def _nearest(f: torch.Tensor, ny: int, nx: int) -> torch.Tensor:
+    """Nearest resize of NCHW ``f`` at the half-pixel source index
+    ``floor((i + 0.5) * src / dst)``, as ``jax.image.resize`` picks it."""
+    _, _, h, w = f.shape
+
+    def index(dst, src):
+        i = torch.arange(dst, dtype=torch.float32, device=f.device)
+        return ((i + 0.5) * src / dst).floor().long()
+    return f[:, :, index(ny, h)][:, :, :, index(nx, w)]
+
+
+def cnn_head_forward(head: CNNHead, feats: Sequence[torch.Tensor],
+                     out_sizes, training: bool = False):
+    """``feats``: NHWC maps, resized to ``out_sizes`` (ny, nx) as
+    dagr.py:233 does.  Returns a dict of lists (cls / reg / obj) in NCHW.
+    Eval runs in the maps' dtype (parameters and statistics cast to it);
+    training always in f32."""
+    outs = {"cls_output": [], "reg_output": [], "obj_output": []}
+    for f, size, sc in zip(feats, out_sizes, head.scales):
+        f = _nearest(f.permute(0, 3, 1, 2), *size)
+        if training:
+            f = f.to(torch.float32)
+        dt = f.dtype
+        h = _base_conv(f, sc.stem, training)
+        c = _base_conv(_base_conv(h, sc.cls1, training), sc.cls2, training)
+        r = _base_conv(_base_conv(h, sc.reg1, training), sc.reg2, training)
+
+        def pred(x, p):
+            return F.conv2d(x, p.weight.to(dt)) + p.bias.to(dt)[:, None, None]
+        outs["cls_output"].append(pred(c, sc.cls_pred))
+        outs["reg_output"].append(pred(r, sc.reg_pred))
+        outs["obj_output"].append(pred(r, sc.obj_pred))
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# decode + NMS (model/utils.py:63-132 equivalents, fixed shapes)
+# ---------------------------------------------------------------------------
+def decode_outputs(maps: List[torch.Tensor], strides) -> torch.Tensor:
+    """``maps``: per scale ``[B, 5+C, ny, nx]`` (reg 4, obj, cls...), obj and
+    cls already sigmoided.  Returns ``[B, A, 5+C]`` f32 with xy in pixels
+    and wh decoded through exp (dagr.py:314-320)."""
+    outs = []
+    for m, stride in zip(maps, strides):
+        m = m.to(torch.float32)          # decode and NMS geometry stay f32
+        b, c, ny, nx = m.shape
+        flat = m.reshape(b, c, ny * nx).permute(0, 2, 1)
+        gx = torch.arange(nx, device=m.device).repeat(ny).to(flat.dtype)
+        gy = torch.arange(ny, device=m.device).repeat_interleave(nx) \
+            .to(flat.dtype)
+        xy = (flat[..., :2] + torch.stack([gx, gy], -1)[None]) * stride
+        wh = torch.exp(flat[..., 2:4]) * stride
+        outs.append(torch.cat([xy, wh, flat[..., 4:]], dim=-1))
+    return torch.cat(outs, dim=1)
+
+
+def _iou_matrix(boxes: torch.Tensor) -> torch.Tensor:
+    """``boxes [..., N, 4]`` xyxy -> ``[..., N, N]`` IoU."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    area = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
+
+    def overlap(lo, hi):
+        return (torch.minimum(hi[..., :, None], hi[..., None, :])
+                - torch.maximum(lo[..., :, None], lo[..., None, :])) \
+            .clamp(min=0)
+    inter = overlap(x1, x2) * overlap(y1, y2)
+    return inter / (area[..., :, None] + area[..., None, :] - inter) \
+        .clamp(min=1e-9)
+
+
+def nms_fixed(boxes, scores, class_ids, *, iou_threshold: float = 0.65,
+              score_threshold: float = 0.001, max_out: int = 64,
+              width: int = 640, height: int = 640):
+    """Class-offset NMS with a fixed output size (the reference's
+    ``batched_nms_coordinate_trick``, model/utils.py:25-33) of ``boxes
+    [..., N, 4]`` xyxy, ``scores`` and ``class_ids [..., N]``; leading
+    dimensions are independent images.  Returns ``(keep_idx, keep_mask)``,
+    both ``[..., min(N, max_out)]``.  Both sorts are stable, so tied scores
+    keep their anchor order.  The greedy suppression is N sequential steps
+    on all images at once, on the tensors' own device."""
+    n = boxes.shape[-2]
+    offset = class_ids.to(boxes.dtype) * (max(width, height) + 1)
+    shifted = boxes + offset[..., None]
+    neg_inf = torch.full((), -torch.inf, dtype=scores.dtype,
+                         device=scores.device)
+    s = torch.where(scores >= score_threshold, scores, neg_inf)
+    order = torch.argsort(-s, dim=-1, stable=True)
+    s_sorted = torch.gather(s, -1, order)
+    shifted = torch.gather(shifted, -2, order[..., None].expand(
+        *order.shape, 4))
+    rank = torch.arange(n, device=boxes.device)
+    # sup[..., i, j]: box i, if kept, suppresses the later box j
+    sup = (_iou_matrix(shifted) > iou_threshold) & (rank > rank[:, None])
+    alive = torch.isfinite(s_sorted)
+    keep = alive.clone()
+    for i in range(n):
+        keep &= ~(sup[..., i, :] & keep[..., i:i + 1])
+    kidx = torch.argsort(-torch.where(keep, s_sorted, neg_inf), dim=-1,
+                         stable=True)[..., :max_out]
+    kmask = torch.gather(keep & alive, -1, kidx)
+    return torch.gather(order, -1, kidx), kmask
+
+
+def postprocess(outputs: torch.Tensor, num_classes: int, *,
+                conf_threshold: float = 0.001, nms_threshold: float = 0.65,
+                width: int = 640, height: int = 640, max_out: int = 64):
+    """reference ``postprocess_network_output`` (model/utils.py:63-110) with
+    fixed shapes: ``outputs [B, A, 5+C]`` -> a dict of per-image tensors of
+    size ``max_out`` (boxes xyxy, scores, labels) with a mask."""
+    xy = outputs[..., :2] - outputs[..., 2:4] / 2
+    boxes = torch.cat([xy, xy + outputs[..., 2:4]], dim=-1)
+    class_conf, class_pred = outputs[..., 5:5 + num_classes].max(-1)
+    score = outputs[..., 4] * class_conf
+    idx, mask = nms_fixed(boxes, score, class_pred,
+                          iou_threshold=nms_threshold,
+                          score_threshold=conf_threshold, max_out=max_out,
+                          width=width, height=height)
+    return {"boxes": torch.gather(boxes, 1, idx[..., None].expand(
+                *idx.shape, 4)),
+            "scores": torch.gather(score, 1, idx),
+            "labels": torch.gather(class_pred, 1, idx), "mask": mask}

@@ -38,6 +38,10 @@ SIGNATURES = {
     "eventad_level0_block":
         [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
          _I, _I, _I, _I, _P, _P],
+    "eventad_fused_spline_conv":
+        [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "eventad_bilinear_sample":
+        [_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P],
     "eventad_shift_block":
         [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I,
          _P, _I, _I, _I, _I, _P, _P],

@@ -20,10 +20,13 @@ from torch import nn
 
 class SplineConv(nn.Module):
     """PyG ``SplineConv`` parameters: ``weight [K*K, Cin, Cout]`` (x tap
-    fastest), ``root [Cin, Cout]``, no bias (reference layers use none)."""
+    fastest), ``root [Cin, Cout]`` and, for the detection head's prediction
+    convs only, a zero-initialised ``bias [Cout]`` (the backbone's layers
+    use none)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int, generator: torch.Generator = None):
+                 kernel_size: int, generator: torch.Generator = None,
+                 bias: bool = False):
         super().__init__()
         m = kernel_size * kernel_size
         s = 1.0 / (in_channels * m) ** 0.5
@@ -32,7 +35,22 @@ class SplineConv(nn.Module):
         r = torch.empty(in_channels, out_channels)
         self.weight = nn.Parameter(w.uniform_(-s, s, generator=generator))
         self.root = nn.Parameter(r.uniform_(-sr, sr, generator=generator))
-        self.bias = None
+        self.bias = (nn.Parameter(torch.zeros(out_channels)) if bias
+                     else None)
+
+
+def cartesian_attr(pos: torch.Tensor, nbr: torch.Tensor,
+                   nbr_mask: torch.Tensor, max_value: float,
+                   clamp: bool = True) -> torch.Tensor:
+    """Pseudo-coordinates ``[N, K, 2]`` of each (destination, slot) edge,
+    PyG ``T.Cartesian(norm=True, cat=False)``: ``(pos[dst] - pos[src]) /
+    (2 max) + 0.5``, clipped to [0, 1] with ``clamp``, 0.5 where masked
+    (reference net.py:71-121)."""
+    d = pos[:, None, :2] - pos[nbr.long()][..., :2]
+    attr = d / (2.0 * max_value) + 0.5
+    if clamp:
+        attr = torch.clamp(attr, 0.0, 1.0)
+    return torch.where(nbr_mask[..., None], attr, 0.5)
 
 
 def tap_ranges(kernel_size: int,
@@ -143,6 +161,8 @@ def spline_conv(x: torch.Tensor, nbr: torch.Tensor, nbr_mask: torch.Tensor,
             raise ValueError("the self-edge fold requires sum aggregation")
         root = root + weight[center_index(kernel_size)]
     out = out + x @ root
+    if conv.bias is not None:
+        out = out + conv.bias.to(dt)
     if node_mask is not None:
         out = torch.where(node_mask[:, None], out,
                           torch.zeros((), dtype=out.dtype, device=x.device))

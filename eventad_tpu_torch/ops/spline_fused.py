@@ -1,7 +1,10 @@
-"""K2: the whole level-0 layer — two spline-conv blocks with root, eval-BN
-affines, activation, linear skip and skip-BN (counterpart of
-``eventad_tpu/ops/spline_fused.py:fused_two_block_prepared``; kernel
-``csrc/spline_fused.cu``, launched once per block).
+"""The fused spline convolutions over a neighbour table (counterpart of
+``eventad_tpu/ops/spline_fused.py``).
+
+K2, ``fused_two_block``: the whole level-0 layer — two spline-conv blocks
+with root, eval-BN affines, activation, linear skip and skip-BN
+(``fused_two_block_prepared`` there; kernel ``csrc/spline_fused.cu``,
+launched once per block).
 
 Computes, with the self edge folded into ``root1``/``root2`` by the caller
 and the taps restricted to the static sub-rectangle ``ranges``:
@@ -12,6 +15,17 @@ and the taps restricted to the static sub-rectangle ``ranges``:
 
 ``h`` is rounded to bf16 before block 2 gathers it, as the TPU kernel
 rounds it.  Sums run in f32 in both versions, in different orders.
+
+K5, ``fused_spline_conv``: one generic conv block, the neighbour
+aggregation alone (``fused_spline_conv_prepared`` there; kernel
+``csrc/spline_fused_single.cu``):
+
+    z[n, m, :] = sum_k coeff[n, k, m] * src[nbr[n, k], :]
+    out[n, o]  = sum_m bf16(z[n, m, :]) . bf16(W_sub[m])[:, o]
+
+for any window of neighbours (before and after the destination) and any tap
+sub-rectangle; ``src`` bf16, sums and output f32.  Root product, bias, BN,
+activation, mask and skip stay with the caller.
 """
 from __future__ import annotations
 
@@ -36,6 +50,18 @@ def prepare_fused(nbr: torch.Tensor, nbr_mask: torch.Tensor,
                      .contiguous(), u.to(torch.float32).contiguous())
 
 
+def _tap_coeff(prep: FusedPrep, ks: int, ranges) -> torch.Tensor:
+    """``coeff [N, K, M]``: each slot's spline weight on every tap of the
+    sub-rectangle (x fastest), zero where the slot holds no edge."""
+    (mx0, mx1), (my0, my1) = ranges
+    nxs, nys = mx1 - mx0 + 1, my1 - my0 + 1
+    cxs, cys = axis_weights(prep.u[..., 0], prep.u[..., 1], ks, mx0=mx0,
+                            my0=my0, nxs=nxs, nys=nys)
+    coeff = torch.stack([cys[my] * cxs[mx] for my in range(nys)
+                         for mx in range(nxs)], -1)
+    return coeff * (prep.nbr >= 0)[..., None]
+
+
 def _masked_act(pre, node_mask, act):
     return torch.where(node_mask[:, None], ACTS[act](pre),
                        torch.zeros((), device=pre.device))
@@ -48,15 +74,9 @@ def fused_two_block_plain(src, prep: FusedPrep, w1, root1, a1, b1, w2, root2,
     Sums in f32; ``h`` and the output are emitted in ``src.dtype`` (bf16 on
     the kernel's path).  Returns ``(out [N, O], h [N, C1])``."""
     ks = kernel_size
-    (mx0, mx1), (my0, my1) = ranges
-    nxs, nys = mx1 - mx0 + 1, my1 - my0 + 1
     n = src.shape[0]
     sub = torch.as_tensor(sub_kernel_index(ks, ranges), device=src.device)
-    cxs, cys = axis_weights(prep.u[..., 0], prep.u[..., 1], ks, mx0=mx0,
-                            my0=my0, nxs=nxs, nys=nys)
-    coeff = torch.stack([cys[my] * cxs[mx] for my in range(nys)
-                         for mx in range(nxs)], -1)
-    coeff = coeff * (prep.nbr >= 0)[..., None]              # [N, K, M]
+    coeff = _tap_coeff(prep, ks, ranges)                    # [N, K, M]
     idx = prep.nbr.clamp(min=0).long()
 
     def block(x, w, root):
@@ -135,3 +155,57 @@ def fused_two_block(src, prep: FusedPrep, *args, **kw):
     if src.is_cuda:
         return fused_two_block_cuda(src, prep, *args, **kw)
     return fused_two_block_plain(src, prep, *args, **kw)
+
+
+def fused_spline_conv_plain(src, prep: FusedPrep, weight, *,
+                            kernel_size: int, ranges) -> torch.Tensor:
+    """Plain PyTorch version of K5, rounding where the kernel rounds:
+    ``src`` and the taps of ``weight [ks*ks, C, O]`` in bf16, ``z`` summed
+    in f32 and rounded to bf16, the tap product summed in f32.  Returns
+    ``[N, O]`` f32."""
+    n = src.shape[0]
+    bf16, f32 = torch.bfloat16, torch.float32
+    sub = torch.as_tensor(sub_kernel_index(kernel_size, ranges),
+                          device=src.device)
+    coeff = _tap_coeff(prep, kernel_size, ranges)
+    rows = src.to(bf16).to(f32)[prep.nbr.clamp(min=0).long()]
+    z = torch.einsum("nkm,nkc->nmc", coeff, rows).to(bf16).to(f32)
+    ws = weight[sub].to(bf16).to(f32)
+    return z.reshape(n, -1) @ ws.reshape(-1, ws.shape[-1])
+
+
+def fused_spline_conv_cuda(src, prep: FusedPrep, weight, *,
+                           kernel_size: int, ranges) -> torch.Tensor:
+    """One launch of ``csrc/spline_fused_single.cu``."""
+    n, c = src.shape
+    k = prep.nbr.shape[1]
+    require(src, "src", dtype=torch.bfloat16, shape=(n, c))
+    require(prep.nbr, "prep.nbr", dtype=torch.int32, shape=(n, k))
+    require(prep.u, "prep.u", dtype=torch.float32, shape=(n, k, 2))
+    (mx0, mx1), (my0, my1) = ranges
+    nxs, nys = mx1 - mx0 + 1, my1 - my0 + 1
+    o = weight.shape[-1]
+    # the tap sub-rectangle as a slice: no index tensor crosses to the card
+    w_sub = weight.reshape(kernel_size, kernel_size, c, o)[
+        my0:my1 + 1, mx0:mx1 + 1].to(torch.bfloat16).reshape(
+            nxs * nys, c, o).contiguous()
+    require(w_sub, "weight", dtype=torch.bfloat16, shape=(nxs * nys, c, o))
+    out = torch.empty((n, o), dtype=torch.float32, device=src.device)
+    if n == 0:
+        return out
+    launch("eventad_fused_spline_conv", ptr(src), c, ptr(prep.nbr), k,
+           ptr(prep.u), ptr(w_sub), n, o, kernel_size, mx0, nxs, my0, nys,
+           ptr(out))
+    fused_spline_conv_cuda.launches += 1
+    return out
+
+
+fused_spline_conv_cuda.launches = 0
+
+
+def fused_spline_conv(src, prep: FusedPrep, weight, **kw) -> torch.Tensor:
+    """Dispatch by device: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if src.is_cuda:
+        return fused_spline_conv_cuda(src, prep, weight, **kw)
+    return fused_spline_conv_plain(src, prep, weight, **kw)

@@ -1,6 +1,8 @@
-"""Where one head-training step spends its time on the GPU.
+"""Where one head-training step, or one detection forward, spends its time
+on the GPU.
 
     python3 -m eventad_tpu_torch.tools.profile_step [float32|bfloat16 ...]
+    python3 -m eventad_tpu_torch.tools.profile_step detector [flavour ...]
 
 At the reference operating point (batch 6, 360x240, 16 384 events per item,
 ResNet-50, random weights from seed 0), for each compute dtype named
@@ -15,8 +17,16 @@ ResNet-50, random weights from seed 0), for each compute dtype named
   number of device operations per step, the idle share of the untraced
   step, and the ten kernels with the most device time.
 
-Prints the card's name and power limit first and one JSON line per dtype
-last.  Needs a CUDA device.
+With ``detector`` first, the same for ``detector_forward`` in eval mode
+(bf16 features) in each kernel flavour named (``default``, ``base``,
+``bilinear``, ``base+bilinear``; default the first and the last): stage
+times (graph, CNN, backbone, heads, decode + NMS), the whole forward
+untraced, and the trace of 3 forwards.  The detector's BN running statistics
+are first moved to one batch's by ten batch-statistics passes, since random
+weights on the initial statistics overflow the box decode.
+
+Prints the card's name and power limit first and one JSON line per dtype or
+flavour last.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ from ..models.eventad import eventad_forward
 from ..models.feature_extract import extract_box_features
 from ..models.resnet import cnn_branch_forward
 from ..parallel.train_step import make_optimizer, make_train_fns
+from .check_fused import FLAVOURS
 
 STAGES = ("graph", "cnn", "backbone", "box_features", "head_forward",
           "head_backward", "guard_clip_adamw")
@@ -90,6 +101,53 @@ def staged_step(model, batch, bc, mc, gsc, optimizer):
     return ts
 
 
+def timed_ms(fn, reps=9):
+    """Host-clock milliseconds of ``reps`` calls, one synchronise each."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return ts
+
+
+def traced_kernels(fn, n_traced=3):
+    """``(name, device ms per call of fn, launches per call)`` of every
+    device operation in a ``torch.profiler`` trace of ``n_traced`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_traced):
+            fn()
+        torch.cuda.synchronize()
+    kernels = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        # device-side spans of host annotations (the optimizer's
+        # record_function) are not device work
+        if us > 0 and str(e.device_type).endswith("CUDA") \
+                and not getattr(e, "is_user_annotation", False) \
+                and not e.key.startswith(("Optimizer.", "ProfilerStep")):
+            kernels.append((e.key, us / 1e3 / n_traced, e.count / n_traced))
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device time")
+    return kernels
+
+
+def device_summary(kernels, step_ms) -> dict:
+    busy = sum(k[1] for k in kernels)
+    top = sorted(kernels, key=lambda k: -k[1])[:10]
+    return dict(
+        device_busy_ms_per_step=busy,
+        device_ops_per_step=sum(k[2] for k in kernels),
+        device_idle_share=1.0 - busy / step_ms,
+        top_kernels=[dict(name=k[0][:100], ms_per_step=k[1],
+                          calls_per_step=k[2]) for k in top])
+
+
 def profile_dtype(dtype: str, smi: str) -> dict:
     dev = torch.device("cuda")
     cfg = Config(batch_size=6, use_image=True, compute_dtype=dtype,
@@ -110,51 +168,87 @@ def profile_dtype(dtype: str, smi: str) -> dict:
     stages = {name: _median([r[i] for r in stage_runs]) * 1e3
               for i, name in enumerate(STAGES)}
 
-    def timed(fn, reps=9):
-        ts = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        return ts
+    train_ts = timed_ms(lambda: fns.train_step(batch, gen))
+    eval_ts = timed_ms(lambda: fns.eval_step(batch))
 
-    train_ts = timed(lambda: fns.train_step(batch, gen))
-    eval_ts = timed(lambda: fns.eval_step(batch))
-
-    from torch.profiler import ProfilerActivity, profile
-    n_traced = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_traced):
-            fns.train_step(batch, gen)
-        torch.cuda.synchronize()
-    kernels = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        # device-side spans of host annotations (the optimizer's
-        # record_function) are not device work
-        if us > 0 and str(e.device_type).endswith("CUDA") \
-                and not getattr(e, "is_user_annotation", False) \
-                and not e.key.startswith(("Optimizer.", "ProfilerStep")):
-            kernels.append((e.key, us / 1e3 / n_traced, e.count / n_traced))
-    if not kernels:
-        raise RuntimeError("the profiler recorded no device time")
-    busy = sum(k[1] for k in kernels)
+    kernels = traced_kernels(lambda: fns.train_step(batch, gen))
     step_ms = _median(train_ts)
-    top = sorted(kernels, key=lambda k: -k[1])[:10]
     return dict(
         dtype=dtype, card=smi, stage_ms=stages,
         stage_sum_ms=sum(stages.values()), train_step_ms=step_ms,
         train_step_ms_all=train_ts, eval_step_ms=_median(eval_ts),
         train_items_per_sec=cfg.batch_size / step_ms * 1e3,
-        device_busy_ms_per_step=busy,
-        device_ops_per_step=sum(k[2] for k in kernels),
-        device_idle_share=1.0 - busy / step_ms,
-        top_kernels=[dict(name=k[0][:100], ms_per_step=k[1],
-                          calls_per_step=k[2]) for k in top])
+        **device_summary(kernels, step_ms))
+
+
+DETECTOR_FLAVOURS = {
+    **{k: FLAVOURS[k] for k in ("default", "base", "bilinear")},
+    "base+bilinear": {**FLAVOURS["base"], **FLAVOURS["bilinear"]},
+}
+DETECTOR_STAGES = ("graph", "cnn", "backbone", "heads", "decode_nms")
+
+
+def staged_detector_forward(detector, batch, cfg, bc):
+    """One detection forward, stage by stage, a synchronise after each; the
+    stage seconds.  The same calls as ``detector_forward`` makes."""
+    from ..models.detector import decode_detections, head_maps
+    ts = []
+
+    def lap(t0):
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+        return time.perf_counter()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        g0 = build_level0_graph(batch.pos, batch.polarity, batch.valid,
+                                graph_static_config(cfg), batch.rank)
+        t0 = lap(t0)
+        feats, image_outs = cnn_branch_forward(
+            detector.dagr.cnn, batch.image, bc.compute_dtype, outputs=True)
+        t0 = lap(t0)
+        outs = backbone_forward(detector.dagr.backbone, g0, feats, bc)
+        t0 = lap(t0)
+        maps, strides = head_maps(detector, outs, image_outs, bc)
+        t0 = lap(t0)
+        decode_detections(maps, strides, bc)
+        lap(t0)
+    return ts
+
+
+def profile_detector(flavour: str, smi: str) -> dict:
+    from ..models.detector import detector_forward, init_detector
+    dev = torch.device("cuda")
+    cfg = Config(batch_size=6, use_image=True, compute_dtype="bfloat16",
+                 event_buckets=(16384,))
+    detector, bc = init_detector(cfg, torch.Generator().manual_seed(0), dev)
+    batch = make_synthetic_batch(cfg, seed=0, boxes_per_item=6).to(dev)
+    with torch.no_grad():
+        for _ in range(10):
+            detector_forward(detector, batch, cfg,
+                             bc._replace(compute_dtype="float32"),
+                             training=True)
+    bc = bc._replace(**DETECTOR_FLAVOURS[flavour])
+
+    def forward():
+        return detector_forward(detector, batch, cfg, bc)
+
+    for _ in range(3):
+        _, decoded = forward()
+    if not bool(torch.isfinite(decoded).all()):
+        raise RuntimeError("the decoded outputs are not finite")
+    stage_runs = [staged_detector_forward(detector, batch, cfg, bc)
+                  for _ in range(7)]
+    stages = {name: _median([r[i] for r in stage_runs]) * 1e3
+              for i, name in enumerate(DETECTOR_STAGES)}
+    ts = timed_ms(forward)
+    batch_ms = _median(ts)
+    return dict(
+        flavour=flavour, dtype="bfloat16", card=smi, stage_ms=stages,
+        stage_sum_ms=sum(stages.values()), batch_ms=batch_ms,
+        batch_ms_all=ts, images_per_sec=cfg.batch_size / batch_ms * 1e3,
+        **device_summary(traced_kernels(forward), batch_ms))
 
 
 def main(argv=None):
@@ -166,6 +260,11 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    argv = list(argv or [])
+    if argv[:1] == ["detector"]:
+        for flavour in argv[1:] or ["default", "base+bilinear"]:
+            print(json.dumps(profile_detector(flavour, smi)), flush=True)
+        return
     for dtype in argv or ["float32", "bfloat16"]:
         print(json.dumps(profile_dtype(dtype, smi)), flush=True)
 

@@ -1,0 +1,119 @@
+"""K7, the bilinear sampler: the port's plain version against the JAX
+package's Pallas kernel ``sample_bilinear_mxu`` in interpret mode and
+against its oracle ``sample_image_features``, on the cases of
+``tests/test_bilinear_sample.py`` and on an N and a C that the TPU kernel
+refuses.  The CUDA kernel is held against this plain version on the card by
+``chip_smoke.py``."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eventad_tpu.models.graph import sample_image_features
+from eventad_tpu.ops.bilinear_sample import sample_bilinear_mxu
+from eventad_tpu_torch.models.graph import \
+    sample_image_features as torch_sample_image_features
+from eventad_tpu_torch.ops.bilinear_sample import (sample_bilinear,
+                                                   sample_bilinear_cuda,
+                                                   sample_bilinear_plain)
+
+import _torch_threads  # noqa: F401  (one intra-op thread)
+
+W, H = 360, 240
+F32_TOL = 1e-4     # rtol and atol, tests/test_bilinear_sample.py
+BF16_TOL = 0.05    # its bf16 band: the weights or the blend round in bf16
+
+# name: (items, rows per item, hp, wp, C, fractional positions, bf16)
+CASES = {
+    "coarse": (2, 256, 30, 45, 64, False, False),
+    "fine": (2, 128, 120, 180, 16, False, False),
+    "out_of_range": (1, 128, 30, 45, 64, True, False),
+    "bf16": (2, 128, 30, 45, 64, False, True),
+}
+
+
+def _inputs(b, n_max, hp, wp, c, frac_pos, seed=0):
+    rng = np.random.RandomState(seed)
+    feat = rng.randn(b, hp, wp, c).astype(np.float32)
+    n = b * n_max
+    if frac_pos:     # arbitrary fractions, some outside the map
+        px, py = rng.rand(n) * 1.1 - 0.05, rng.rand(n) * 1.1 - 0.05
+    else:
+        px, py = rng.randint(0, W, n) / W, rng.randint(0, H, n) / H
+    pos = np.stack([px, py, np.zeros(n)], 1).astype(np.float32)
+    mask = rng.rand(n) > 0.15
+    batch = np.repeat(np.arange(b, dtype=np.int32), n_max)
+    return feat, pos, mask, batch
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_plain_matches_pallas_interpret_and_oracle(name):
+    b, n_max, hp, wp, c, frac_pos, bf16 = CASES[name]
+    feat, pos, mask, batch = _inputs(b, n_max, hp, wp, c, frac_pos)
+    jfeat = jnp.asarray(feat)
+    tfeat = torch.from_numpy(feat)
+    if bf16:
+        jfeat, tfeat = jfeat.astype(jnp.bfloat16), tfeat.bfloat16()
+    got = sample_bilinear_plain(tfeat, torch.from_numpy(pos),
+                                torch.from_numpy(mask), full_width=W,
+                                full_height=H,
+                                batch=torch.from_numpy(batch))
+    assert got.dtype == tfeat.dtype and got.shape == (b * n_max, c)
+    assert (got[~torch.from_numpy(mask)] == 0).all()
+    # without ``batch`` the item is the row's block
+    blocks = sample_bilinear(tfeat, torch.from_numpy(pos),
+                             torch.from_numpy(mask), full_width=W,
+                             full_height=H)
+    assert torch.equal(got, blocks)
+    got = got.float().numpy()
+    tol = BF16_TOL if bf16 else F32_TOL
+    kernel = sample_bilinear_mxu(jfeat, jnp.asarray(pos), jnp.asarray(mask),
+                                 full_width=W, full_height=H, batch_size=b,
+                                 interpret=True)
+    oracle = sample_image_features(jfeat, jnp.asarray(pos),
+                                   jnp.asarray(batch), jnp.asarray(mask),
+                                   W, H)
+    for want in (kernel, oracle):
+        np.testing.assert_allclose(
+            got, np.asarray(want.astype(jnp.float32)), rtol=tol, atol=tol)
+
+
+def test_any_row_count_and_width_against_the_port_oracle():
+    """N = 3 x 77 rows and C = 5: the TPU kernel takes neither (rows per
+    item a multiple of 128, C a multiple of 8); the port's sampler does."""
+    b, n_max, hp, wp, c = 3, 77, 9, 13, 5
+    feat, pos, mask, batch = _inputs(b, n_max, hp, wp, c, True, seed=1)
+    with pytest.raises(AssertionError):
+        sample_bilinear_mxu(jnp.asarray(feat), jnp.asarray(pos),
+                            jnp.asarray(mask), full_width=W, full_height=H,
+                            batch_size=b, interpret=True)
+    # items out of order, which only ``batch`` can say
+    order = np.random.RandomState(2).permutation(b * n_max)
+    pos, mask, batch = pos[order], mask[order], batch[order]
+    args = (torch.from_numpy(feat), torch.from_numpy(pos))
+    got = sample_bilinear_plain(*args, torch.from_numpy(mask), full_width=W,
+                                full_height=H, batch=torch.from_numpy(batch))
+    want = torch_sample_image_features(
+        *args, torch.from_numpy(batch), torch.from_numpy(mask), W, H)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=F32_TOL,
+                               atol=F32_TOL)
+    oracle = sample_image_features(
+        jnp.asarray(feat), jnp.asarray(pos), jnp.asarray(batch),
+        jnp.asarray(mask), W, H)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), rtol=F32_TOL,
+                               atol=F32_TOL)
+    with pytest.raises(ValueError, match="do not split"):
+        sample_bilinear_plain(torch.from_numpy(feat),
+                              torch.from_numpy(pos[:100]),
+                              torch.from_numpy(mask[:100]), full_width=W,
+                              full_height=H)
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    feat, pos, mask, batch = _inputs(1, 128, 30, 45, 64, False)
+    before = sample_bilinear_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        sample_bilinear_cuda(torch.from_numpy(feat), torch.from_numpy(pos),
+                             torch.from_numpy(mask), full_width=W,
+                             full_height=H, batch=torch.from_numpy(batch))
+    assert sample_bilinear_cuda.launches == before

@@ -11,6 +11,8 @@ from eventad_tpu.ops import event_graph as jeg
 from eventad_tpu.ops.event_graph_pallas import build_graph_pallas
 from eventad_tpu_torch.ops import event_graph as teg
 
+import _torch_threads  # noqa: F401  (one intra-op thread)
+
 # fixture geometry: 96x72, radius 2 px, 10 ms, K 16, Q 128
 KW = dict(radius=2, delta_t_us=10_000, max_neighbors=16, max_queue_size=128)
 

@@ -14,6 +14,8 @@ from eventad_tpu.ops.gather_window import (_gather_window_diff,
                                            scatter_window_rows as jax_scatter)
 from eventad_tpu_torch.ops import gather_window as gw
 
+import _torch_threads  # noqa: F401  (one intra-op thread)
+
 
 def _case(rng, n, k, c, lookback, tail=0):
     """Window-local neighbour table honouring the event-graph contract;

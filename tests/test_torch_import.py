@@ -23,8 +23,14 @@ from eventad_tpu_torch.models.backbone import make_backbone_config
 from eventad_tpu_torch.models.dagr import init_model, resolve_device
 from eventad_tpu_torch.parallel.train_step import (make_optimizer,
                                                    make_train_fns)
+from eventad_tpu_torch.bench_detector import main as bench_detector_main
+from eventad_tpu_torch.models.detector import init_detector
 from eventad_tpu_torch.test import main as evaluate_main
+from eventad_tpu_torch.test_detector import main as detector_eval_main
+from eventad_tpu_torch.tools.check_fused import main as check_fused_main
 from eventad_tpu_torch.train import main as train_main
+
+import _torch_threads  # noqa: F401  (one intra-op thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -49,7 +55,8 @@ def test_port_imports_no_jax_yaml_or_reference_package():
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
     n_mods = int(res.stdout.split("MODULES")[1].split()[0])
-    assert n_mods >= 32, res.stdout     # the training modules included
+    # the training, detection and kernel-flavour modules included
+    assert n_mods >= 40, res.stdout
 
 
 def test_entry_points_default_to_the_card():
@@ -65,9 +72,32 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_train_fns(model, bc, mc, (), make_optimizer(
             model.head.parameters(), 1e-3, 1e-5, 1.0))
-    for main in (train_main, evaluate_main):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_detector(cfg)
+    for main in (train_main, evaluate_main, detector_eval_main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--batch_size", "1"])
+    for main in (bench_detector_main, check_fused_main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["256"])
+
+
+def test_check_fused_flavours_on_the_cpu(capsys):
+    """The flavour check end to end at a small geometry: every bf16 flavour
+    (the generic ones through K5's and K7's plain versions) inside the band
+    around the f32 run."""
+    from eventad_tpu_torch.tools.check_fused import FLAVOURS, flavour_errors
+    cfg = Config(batch_size=2, use_image=True, width=96, height=72, scale=1,
+                 event_buckets=(1024,), graph_lookback=256,
+                 compute_dtype="bfloat16")
+    rel = flavour_errors(cfg, torch.device("cpu"))
+    assert set(rel) == set(FLAVOURS) == {"base", "two_block", "shift",
+                                         "default", "bilinear"}
+    band = max(1.5 * rel["base"], 2e-2)
+    assert all(0 < r <= band for r in rel.values()), rel
+    # on the CPU the default flags route as before: the flavours that differ
+    # only in a flag the CPU's default routing ignores are equal
+    assert rel["default"] != rel["base"]
 
 
 def test_chip_smoke_imports_nothing_of_jax():

@@ -24,6 +24,8 @@ from eventad_tpu_torch.models.dagr import (graph_static_config, init_model,
 from eventad_tpu_torch.models.resnet import cnn_branch_forward
 from eventad_tpu_torch.ops.pooling import pool_graph
 
+import _torch_threads  # noqa: F401  (one intra-op thread)
+
 KW = dict(batch_size=2, use_image=True, width=96, height=72, scale=1,
           event_buckets=(4096,), graph_lookback=512)
 F32_TOL = 1e-4     # logits, f32 both sides (full-precision matmuls)
@@ -35,7 +37,15 @@ def pair():
     """Both models with the same weights (JAX init, exported through the
     reference checkpoint layout) and the same batch."""
     jcfg = JaxConfig(**KW)
-    params, state, bc, mc = jdagr.init_model(jax.random.PRNGKey(0), jcfg)
+    # one compiled program instead of an eager op per tensor: same values
+    static = {}
+
+    def init(key):
+        params, state, static["bc"], static["mc"] = jdagr.init_model(key,
+                                                                     jcfg)
+        return params, state
+    params, state = jax.jit(init)(jax.random.PRNGKey(0))
+    bc, mc = static["bc"], static["mc"]
     sd = export_backbone(params.dagr.backbone, state.dagr.backbone)
     sd.update(export_cnn_branch(params.dagr.cnn, state.dagr.cnn))
     cfg = Config(**KW)

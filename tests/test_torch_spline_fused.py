@@ -24,6 +24,8 @@ from eventad_tpu_torch.ops.spline_fused import (fused_two_block_cuda,
                                                 fused_two_block_plain,
                                                 prepare_fused)
 
+import _torch_threads  # noqa: F401  (one intra-op thread)
+
 KS = 5
 F32_TOL = 1e-5       # f32, same math in another summation order
 BF16_TOL = 2e-2      # of the output scale (tests/test_spline_fused.py)

@@ -18,6 +18,8 @@ from eventad_tpu_torch.ops.spline_shift import (prepare_shift,
                                                 tap_windows)
 from tests.test_spline_shift import _pooled_graph
 
+import _torch_threads  # noqa: F401  (one intra-op thread)
+
 F32_TOL = 1e-5      # f32, same math in another summation order
 BF16_TOL = 2e-2     # of the output scale (tests/test_spline_shift.py)
 GEOM = dict(nx=14, ny=10, bsz=2, span=2, width=112, height=80)

@@ -30,6 +30,8 @@ from eventad_tpu_torch.utils import checkpoint as ckpt
 from eventad_tpu_torch.utils import evaluation as tev
 from eventad_tpu_torch.utils.predict import collect_predictions
 
+import _torch_threads  # noqa: F401  (one intra-op thread)
+
 KW = dict(batch_size=2, use_image=False, width=96, height=72, scale=1,
           event_buckets=(4096,), graph_lookback=512)
 OPT = dict(learning_rate=1e-3, weight_decay=1e-5, grad_clip=1.0)
@@ -37,7 +39,15 @@ OPT = dict(learning_rate=1e-3, weight_decay=1e-5, grad_clip=1.0)
 
 def _jax_side():
     jcfg = JaxConfig(**KW)
-    params, state, bc, mc = jdagr.init_model(jax.random.PRNGKey(0), jcfg)
+    # one compiled program instead of an eager op per tensor: same values
+    static = {}
+
+    def init(key):
+        params, state, static["bc"], static["mc"] = jdagr.init_model(key,
+                                                                     jcfg)
+        return params, state
+    params, state = jax.jit(init)(jax.random.PRNGKey(0))
+    bc, mc = static["bc"], static["mc"]
     jb = jax_batch(jcfg, seed=3)._replace(pool_tables=None,
                                           search_starts=None, image_s2d=None)
     return (jcfg, params, state, bc, mc._replace(dropout=0.0),

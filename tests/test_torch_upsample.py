@@ -16,6 +16,8 @@ from eventad_tpu_torch.ops.upsample_flat import (upsample_rows,
                                                  upsample_rows_cuda,
                                                  upsample_rows_plain)
 
+import _torch_threads  # noqa: F401  (one intra-op thread)
+
 B, HF, WF, N = 2, 72, 96, 4096     # fixture geometry
 
 
