@@ -16,8 +16,15 @@ exits non-zero without printing a result:
    on a check batch with dense graphs and an under-filled item.  Each kernel
    is then held against its plain PyTorch version on those very arguments:
    K1 (neighbour search) exactly, K2-K4 within 2e-2 of the output's scale
-   (one bf16 rounding of the outputs and of the block-1 rows they read),
-   with median times (CUDA events) at the operating point.
+   (one bf16 rounding of the outputs and of the block-1 rows they read; K3
+   also rounds each tap's ``z`` to bf16, as the TPU kernel does), with
+   median times (CUDA events) at the operating point.  K3 and K7 also run
+   on shapes the path does not reach (``check_shift_general``,
+   ``check_bilinear_general``).
+   A second forward must reuse K3's static tables and weight packs, a trace
+   of ``prepare_shift`` and the two blocks of every pooled level must show
+   the eight launches and no other device operation (no copy to the card),
+   and a weight changed in place must reach the kernel's output.
 4. Launch counters are zeroed, the forward runs on several batches (new
    seeds), and the counters are read: every kernel must have launched.
    Logits must be finite and ``[6, 31, 2]``, and agree with the same
@@ -85,8 +92,13 @@ Each kernel's record also holds ``bound_ms``, the least time the card could
 take for the same work: the larger of its bytes (every input read once,
 every output written once; for K6b only the unmasked edge rows) over 3.35
 TB/s and its operations on these inputs over the peak rate of their type
-(989 TFLOP/s bf16, 67 TFLOP/s f32 and integer), and ``library_ms``, the time
-of the one PyTorch call that computes the same function where there is one.
+(989 TFLOP/s bf16, 67 TFLOP/s f32 and integer), ``library_ms``, the time
+of the one PyTorch call that computes the same function where there is one,
+and ``launch_ms``, the kernels alone: the wrapper's launches, with the
+operands as the wrapper prepared them, captured 20 times into a CUDA graph
+whose replay is timed, summed over the path's calls (K7's
+``library_launch_ms`` likewise for ``F.grid_sample``).  ``ms`` is the
+wrapper, one call per pair of events, the host's share of a call inside.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -107,6 +119,7 @@ KERNEL_TOL = 2e-2     # of the output's max |value|, bf16 outputs
 LOGIT_TOL = 0.05      # absolute, GPU (kernels) vs CPU (non-fused), bf16
 RUNS = 5
 FLAVOUR_RUNS = 3
+LAUNCH_REPS = 20      # launches between one pair of events (launch_ms)
 FUSED_CONV_TOL = 2e-3     # of the output's scale: one z value rounded to
                           # the other bf16 neighbour moves a product by 2^-8
 BILINEAR_TOL = {torch.float32: 1e-5,    # f32 sums in another order
@@ -173,6 +186,193 @@ def median_ms(fn, reps=10, warmup=2):
         ts.append(a.elapsed_time(b))
     ts.sort()
     return ts[len(ts) // 2]
+
+
+def graph_ms(enqueue, reps=LAUNCH_REPS):
+    """Milliseconds of the card for one ``enqueue()``: ``reps`` of them are
+    captured into one CUDA graph, which is replayed once to warm up and
+    then timed, one replay between a pair of CUDA events.  The card runs
+    the graph's kernels back to back, so the host's launch rate (one launch
+    every ~0.013 ms from Python) does not enter; what is left besides the
+    kernels is the start of one replay, spread over ``reps``.  The capture
+    is begun by hand: ``torch.cuda.graph`` would first empty the
+    allocator's cache and with it free memory that recorded launches still
+    point to."""
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            for _ in range(reps):
+                enqueue()
+        finally:
+            graph.capture_end()
+    torch.cuda.synchronize()
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def launch_ms(mod, fn):
+    """Milliseconds of the kernels alone for one call of the wrapper ``fn``
+    of ops module ``mod``: the C entries the wrapper calls are recorded with
+    their arguments (``mod.launch``) and replayed through :func:`graph_ms`,
+    so no operand is prepared and no launch is made inside the clock.
+    The wrapper's temporaries are freed when it returns, but nothing
+    allocates on the card before the replay ends, so the recorded pointers
+    still hold what the wrapper put there."""
+    recorded, orig = [], mod.launch
+
+    def rec(name, *args):
+        recorded.append((name, args))
+        return orig(name, *args)
+    mod.launch = rec
+    try:
+        out = fn()
+    finally:
+        mod.launch = orig
+    if not recorded:
+        raise AssertionError("launch_ms: the wrapper launched no kernel")
+
+    def replay():
+        for name, args in recorded:
+            orig(name, *args)
+    ms = graph_ms(replay)
+    del out
+    return ms
+
+
+def check_bilinear_general(dev):
+    """K7 on shapes the main path does not reach: C of 1, 3, 20 and 64 (one
+    value, 2, 4 and 8 channels a thread), an N that no group size divides,
+    f32 and bf16, dense outputs and ``out=`` column ranges of a wider table
+    at aligned and unaligned offsets.  Returns the worst error relative to
+    its tolerance and the number of cases."""
+    from eventad_tpu_torch.ops import bilinear_sample as bsm
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n, b, hp, wp, full_w, full_h = 997, 3, 9, 13, 104, 72
+    worst, cases = 0.0, 0
+    pos = torch.rand((n, 3), generator=gen, device=dev) * 1.2 - 0.1
+    batch = torch.randint(0, b, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    mask = torch.rand((n,), generator=gen, device=dev) > 0.15
+    kw = dict(full_width=full_w, full_height=full_h, batch=batch)
+    for c in (1, 3, 20, 64):
+        for dtype in (torch.float32, torch.bfloat16):
+            feat = torch.randn((b, hp, wp, c), generator=gen,
+                               device=dev).to(dtype)
+            want = bsm.sample_bilinear_plain(feat, pos, mask, **kw)
+            scale = want.float().abs().max().item() + 1e-6
+            table = torch.full((n, c + 19), 7.0, dtype=dtype, device=dev)
+            outs = [bsm.sample_bilinear_cuda(feat, pos, mask, **kw)]
+            for off in (8, 3):
+                table.fill_(7.0)
+                view = table[:, off:off + c]
+                got = bsm.sample_bilinear_cuda(feat, pos, mask, out=view,
+                                               **kw)
+                if got.data_ptr() != view.data_ptr() \
+                        or not bool((table[:, :off] == 7).all()) \
+                        or not bool((table[:, off + c:] == 7).all()):
+                    raise AssertionError(
+                        f"sample_bilinear out= (C {c}, {dtype}, offset "
+                        f"{off}): wrote outside its column range")
+                outs.append(view.clone())
+            for got in outs:
+                if not bool((got[~mask] == 0).all()):
+                    raise AssertionError("sample_bilinear: a masked row is "
+                                         "not zero")
+                err = (got.float() - want.float()).abs().max().item()
+                if not err <= BILINEAR_TOL[dtype] * scale:
+                    raise AssertionError(
+                        f"sample_bilinear (C {c}, {dtype}): max abs err "
+                        f"{err} > {BILINEAR_TOL[dtype]} x {scale}")
+                worst = max(worst, err / scale / BILINEAR_TOL[dtype])
+                cases += 1
+    return worst, cases
+
+
+# K3 on shapes the main path does not reach: (C, O, Cs or None, activation,
+# grid, items, share of slots that hold an edge).  The kernel picks its row
+# tile by N and by what fits in shared memory; the last three cases make it
+# pick 32 rows, 128 rows, and 32 because 128 do not fit (the others get 16)
+SHIFT_CASES = [
+    (5, 8, None, None, (7, 5), 3, 0.5),
+    (82, 24, 82, "relu", (13, 9), 5, 0.3),
+    (130, 64, 130, "elu", (14, 10), 3, 0.2),
+    (64, 128, 130, "hardtanh", (13, 9), 5, 1.0),   # every slot an edge
+    (82, 64, None, "silu", (28, 20), 3, 0.1),
+    (33, 40, 7, "relu", (9, 7), 2, 0.4),           # odd C and Cs
+    (82, 64, 82, "relu", (28, 20), 9, 0.1),        # 5 040 rows: 32 a block
+    (82, 64, None, "elu", (57, 40), 6, 0.08),      # 13 680 rows: 128
+    (130, 64, 130, "relu", (57, 40), 6, 0.08),     # 13 680 rows: 128 -> 32
+]
+
+
+def check_shift_general(dev):
+    """K3 on the shapes of ``SHIFT_CASES``: N never a multiple of its row
+    tile, the first 70 rows without any edge (whole tiles of 16 and 32),
+    inputs from a seeded generator.  Against the plain version (f32 ``z``)
+    within ``KERNEL_TOL``
+    of the output's scale; the error against the plain version that rounds
+    where the kernel rounds is returned beside it (both of scale)."""
+    from eventad_tpu_torch.ops import spline_shift as ssm
+    gen = torch.Generator(device=dev).manual_seed(31)
+    bf = torch.bfloat16
+    worst = worst_rounded = 0.0
+    runs = 0
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    for c, o, cs, act, (nx, ny), items, share in SHIFT_CASES:
+        n, ks = items * nx * ny, 5
+        u = torch.rand((n, 25, 2), generator=gen, device=dev) * (ks - 1)
+        edges = torch.rand((n, 25), generator=gen, device=dev) < share
+        edges[:70] = False
+        nodes = torch.rand((n,), generator=gen, device=dev) > 0.1
+        prep = ssm.prepare_shift(u, edges, nodes, grid=(nx, ny), span=2,
+                                 cart_max=2.0 / min(nx, ny), width=8 * nx,
+                                 height=8 * ny, kernel_size=ks)
+        src = rand(n, c).to(bf)
+        ops = ((rand(ks * ks, c, o) / (4 * c) ** 0.5).to(bf),
+               (rand(c, o) / c ** 0.5).to(bf),
+               torch.rand(o, generator=gen, device=dev) + 0.5,
+               rand(o) * 0.1)
+        skip = None
+        if cs is not None:
+            skip = (rand(n, cs).to(bf), (rand(cs, o) / cs ** 0.5).to(bf),
+                    torch.rand(o, generator=gen, device=dev) + 0.5,
+                    rand(o) * 0.1)
+        want = ssm.shift_spline_conv_plain(src, prep, *ops, act=act,
+                                           skip=skip).float()
+        rounded = ssm.shift_spline_conv_plain(
+            src, prep, *ops, act=act, skip=skip,
+            kernel_rounding=True).float()
+        scale = want.abs().max().item() + 1e-6
+        got = ssm.shift_spline_conv_cuda(src, prep, *ops, act=act, skip=skip)
+        torch.cuda.synchronize()
+        if got.dtype != bf or got.shape != want.shape \
+                or not bool((got[~nodes] == 0).all()):
+            raise AssertionError(f"shift_spline_conv (C {c}, O {o}): "
+                                 f"{got.dtype} {tuple(got.shape)}, or a "
+                                 f"masked row is not zero")
+        err = (got.float() - want).abs().max().item() / scale
+        err_r = (got.float() - rounded).abs().max().item() / scale
+        if not max(err, err_r) <= KERNEL_TOL:
+            raise AssertionError(
+                f"shift_spline_conv (C {c}, O {o}, Cs {cs}, {act}, N {n}): "
+                f"max abs err {err} (f32 z) / {err_r} (bf16 z) of scale > "
+                f"{KERNEL_TOL}")
+        worst, worst_rounded = max(worst, err), max(worst_rounded, err_r)
+        runs += 1
+        del want, rounded, got
+    return worst, worst_rounded, runs
 
 
 def compare(name, got, want):
@@ -259,6 +459,39 @@ def bound(nbytes, ops, peak):
 
 OPS = {"event_graph_search": search_ops, "spline_fused_level0": level0_ops,
        "spline_shift_pooled": shift_ops, "upsample_rows": upsample_ops}
+
+
+def all_bytes(a, kw, out):
+    """Every tensor among the arguments read once, the result written."""
+    return tensor_bytes(a) + tensor_bytes(kw) + tensor_bytes(out)
+
+
+def level0_bytes(a, kw, out):
+    """K2: coordinates only of the slots that hold an edge (an empty slot's
+    are never read)."""
+    prep = a[1]
+    return all_bytes(a, kw, out) \
+        - int((prep.nbr < 0).sum()) * 2 * prep.u.element_size()
+
+
+def shift_bytes(a, kw, out):
+    """K3: the source rows, the edge mask in full (it says which slots hold
+    an edge) and the node mask, coordinates only of the slots that hold an
+    edge, the static offset and tap lists, of the weights the used taps,
+    root, the affines and the skip operands, and the output.  Not the
+    tables the kernel does not take (``tap_idx``, ``win_mask``) and not the
+    pack, which holds the same weights again."""
+    src, prep, weight, root, scale, offset = a
+    return (tensor_bytes((src, prep.mq, prep.node_mask, prep.d_offs,
+                          prep.tap_mxy, prep.tap_ptr, prep.tap_slots, root,
+                          scale, offset, kw.get("skip"), out))
+            + int(prep.mq.sum()) * 2 * prep.u.element_size()
+            + prep.tap_idx.shape[0] * weight[0].numel()
+            * weight.element_size())
+
+
+BYTES = {"spline_fused_level0": level0_bytes,
+         "spline_shift_pooled": shift_bytes}
 
 
 def main():
@@ -355,12 +588,14 @@ def main():
         cuda_fn = getattr(mods[mod], cuda_name)
         plain_fn = getattr(mods[mod], plain_name)
         err, ms, plain_ms, nbytes, ops = 0.0, 0.0, 0.0, 0, 0
+        alone_ms = 0.0
         for a, kw in op_calls[name]:
             got = cuda_fn(*a, **kw)
             err = max(err, compare(name, got, plain_fn(*a, **kw)))
             ms += median_ms(lambda: cuda_fn(*a, **kw))
+            alone_ms += launch_ms(mods[mod], lambda: cuda_fn(*a, **kw))
             plain_ms += median_ms(lambda: plain_fn(*a, **kw))
-            nbytes += tensor_bytes(a) + tensor_bytes(kw) + tensor_bytes(got)
+            nbytes += BYTES.get(name, all_bytes)(a, kw, got)
             n_ops, peak = OPS[name](a, kw, got)
             ops += n_ops
         bound_ms, bound_by = bound(nbytes, ops, peak)
@@ -370,14 +605,16 @@ def main():
                   if isinstance(t, torch.Tensor)]
         log(f"{name}: {len(op_calls[name])} call(s) per forward, first input"
             f" shapes {shapes}; max abs err {err:.3g} (dense / under-filled"
-            f" batch {dense_err:.3g}); kernel {ms:.4f} ms, plain "
+            f" batch {dense_err:.3g}); kernel {ms:.4f} ms (launches alone "
+            f"{alone_ms:.4f} ms), plain "
             f"{plain_ms:.4f} ms per forward; bound {bound_ms:.5f} ms by "
             f"{bound_by} ({nbytes} bytes, {ops} operations); no single "
             f"PyTorch call computes it")
         records.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces,
                             max_abs_err=max(err, dense_err), ms=ms,
-                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            launch_ms=alone_ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=None))
 
     def edges_per_event(calls):
@@ -386,6 +623,108 @@ def main():
     log(f"level-0 edges per event (self edge excluded): operating point "
         f"{edges_per_event(op_calls):.3f}, dense batch "
         f"{edges_per_event(dense_calls):.3f}")
+
+    # K3 and K7 on shapes the path does not reach
+    ssm, bb = mods["spline_shift"], importlib.import_module(
+        "eventad_tpu_torch.models.backbone")
+    g_err, g_err_rounded, g_runs = check_shift_general(dev)
+    log(f"spline_shift_pooled, general shapes: {g_runs} runs ("
+        f"cases of (C, O, Cs, act, N); O 8-128, odd C, every activation, "
+        f"row tiles of 16, 32 and 128 by N, tiles with no edge, every slot "
+        f"an edge): max abs err {g_err:.3g} of scale against the "
+        f"plain version (tolerance {KERNEL_TOL}), {g_err_rounded:.3g} "
+        f"against the plain version with z rounded to bf16")
+    b_err, b_cases = check_bilinear_general(dev)
+    log(f"sample_bilinear, general shapes: {b_cases} cases (C 1, 3, 20, 64; "
+        f"997 rows; f32 and bf16; dense and out= column ranges at offsets "
+        f"8 and 3): worst error {b_err:.3g} of its tolerance; nothing "
+        f"written outside a column range")
+
+    k3_calls = op_calls["spline_shift_pooled"]
+    per_row = [round(float(a[1].mq.sum()) / a[1].mq.shape[0], 3)
+               for a, _ in k3_calls[::2]]
+    per_call = [launch_ms(ssm, lambda: ssm.shift_spline_conv_cuda(*a, **kw))
+                for a, kw in k3_calls]
+    log(f"pooled-level edges per row (of 25 slots), levels 1-4: {per_row}; "
+        f"launches alone per call {[round(t, 4) for t in per_call]} ms")
+
+    # after the first forward the K3 path copies nothing to the card and
+    # prepares nothing per call: the static tables and the packs are the
+    # same objects, and a trace of prepare_shift + the two blocks of every
+    # pooled level shows the eight launches and no other device operation
+    preps = []
+    orig_prepare = bb.prepare_shift
+
+    def rec_prepare(*a, **kw):
+        preps.append((a, kw))
+        return orig_prepare(*a, **kw)
+    bb.prepare_shift = rec_prepare
+    try:
+        again_calls = recorded_forward(batches[0])["spline_shift_pooled"]
+    finally:
+        bb.prepare_shift = orig_prepare
+    if len(preps) != 4 or len(again_calls) != 8:
+        raise AssertionError(f"{len(preps)} prepare_shift and "
+                             f"{len(again_calls)} shift_spline_conv calls")
+    static = ("d_offs", "tap_mxy", "tap_ptr", "tap_slots", "tap_idx",
+              "win_mask")
+    for (a, kw), (a2, kw2) in zip(k3_calls, again_calls):
+        if any(getattr(a[1], f) is not getattr(a2[1], f) for f in static):
+            raise AssertionError("K3: a static table was made anew")
+        if any(x is not y for x, y in zip(a[2:], a2[2:])) \
+                or kw["pack"] is None or kw["pack"] is not kw2["pack"]:
+            raise AssertionError("K3: operands were packed anew")
+
+    # (the only trace of this run, and early in it: later in a process
+    # the tracing layer was seen to lose device events)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i, (pa, pkw) in enumerate(preps):
+            prep = bb.prepare_shift(*pa, **pkw)
+            for a, kw in again_calls[2 * i:2 * i + 2]:
+                ssm.shift_spline_conv_cuda(a[0], prep, *a[2:], **kw)
+        torch.cuda.synchronize()
+    dev_ops = {e.key: e.count for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)}
+    others = {k: v for k, v in dev_ops.items()
+              if "shift_block_kernel" not in k}
+    n_k3 = sum(v for k, v in dev_ops.items() if "shift_block_kernel" in k)
+    if others or n_k3 != 8:
+        raise AssertionError(f"K3 path of one forward: {n_k3} launches and "
+                             f"other device operations {others}")
+    log(f"spline_shift_pooled: second forward reuses the static tables and "
+        f"the packs (same objects); traced prepare_shift + 2 blocks x 4 "
+        f"levels: {n_k3} kernel launches, no copy to the card and no other "
+        f"device operation")
+
+    # a weight changed in place reaches the kernel: the pack is not stale
+    conv1 = model.dagr.backbone.layers[1].block1.conv
+    a, kw = k3_calls[0]
+    with torch.no_grad():
+        conv1.weight.mul_(2)
+    try:
+        a2, kw2 = recorded_forward(batches[0])["spline_shift_pooled"][0]
+        if a2[2] is a[2] or not torch.equal(a2[2], a[2] * 2) \
+                or kw2["pack"] is kw["pack"]:
+            raise AssertionError("K3: the in-place weight change did not "
+                                 "reach the layer's operands and pack")
+        got2 = ssm.shift_spline_conv_cuda(*a2, **kw2)
+        stale_err = compare("spline_shift_pooled", got2,
+                            ssm.shift_spline_conv_plain(*a2, **kw2))
+        moved = (got2.float() - ssm.shift_spline_conv_cuda(*a, **kw).float()
+                 ).abs().max().item()
+    finally:
+        with torch.no_grad():
+            conv1.weight.div_(2)
+    a3, _ = recorded_forward(batches[0])["spline_shift_pooled"][0]
+    if not torch.equal(a3[2], a[2]) or not moved > 0:
+        raise AssertionError("K3: the weight change is not undone, or "
+                             "changed nothing")
+    log(f"spline_shift_pooled: weight.mul_(2) in place -> packed anew, max "
+        f"abs err {stale_err:.3g} against the plain version on the doubled "
+        f"weight, output moved by {moved:.3g}; undone by div_(2)")
 
     # ---- 4. the main path, counters zeroed just before ----
     counters = {k[0]: getattr(mods[k[1]], k[2]) for k in KERNELS}
@@ -515,6 +854,7 @@ def main():
         return err, bool(torch.equal(got.cpu(), seq)), g
 
     g_ms = g_plain = g_lib = s_ms = s_plain = s_lib = 0.0
+    g_alone = s_alone = 0.0
     g_bytes = s_bytes = s_ops = 0
     s_err, s_seq = 0.0, True
     for a, kw in op_g:
@@ -525,6 +865,9 @@ def main():
         s_err, s_seq = max(s_err, err), s_seq and seq
         idx = torch.where(mask, nbr, 0).long()
         g_ms += median_ms(lambda: gw.gather_window_rows_cuda(*a, **kw))
+        g_alone += launch_ms(gw, lambda: gw.gather_window_rows_cuda(*a, **kw))
+        s_alone += launch_ms(gw, lambda: gw.scatter_window_rows_cuda(
+            g, nbr, mask, n_src, **kw))
         g_plain += median_ms(lambda: gw.gather_window_rows_plain(*a))
         g_lib += median_ms(lambda: src[idx])
         s_ms += median_ms(lambda: gw.scatter_window_rows_cuda(
@@ -552,13 +895,16 @@ def main():
     shapes = [tuple(t.shape) for t in op_g[0][0]]
     log(f"gather_window_rows: 2 calls per f32 forward, first input shapes "
         f"{shapes}; equal to the plain version exactly (f32 and bf16, both "
-        f"batches); kernel {g_ms:.4f} ms, plain {g_plain:.4f} ms, indexed "
+        f"batches); kernel {g_ms:.4f} ms (launches alone {g_alone:.4f} ms), "
+        f"plain {g_plain:.4f} ms, indexed "
         f"gather src[idx] {g_lib:.4f} ms per forward; bound {g_bound:.5f} "
         f"ms by {g_by} ({g_bytes} bytes)")
     log(f"scatter_window_rows: cotangents of the same shapes; max abs err "
         f"vs index_add_ {s_err:.3g} (tolerance {SCATTER_TOL} of scale); two "
         f"runs bit-identical; equal to the CPU's sequential index_add_ "
-        f"exactly: {s_seq}; kernel {s_ms:.4f} ms, plain {s_plain:.4f} ms, "
+        f"exactly: {s_seq}; kernel {s_ms:.4f} ms (launches alone "
+        f"{s_alone:.4f} ms), plain "
+        f"{s_plain:.4f} ms, "
         f"index_add_ {s_lib:.4f} ms for both; bound {s_bound:.5f} ms by "
         f"{s_by} ({s_bytes} bytes, {s_ops} additions)")
 
@@ -641,12 +987,13 @@ def main():
         name="gather_window_rows", route="cuda", source=gather_src,
         replaces="eventad_tpu/ops/gather_window.py:41",
         launches=f32_launches["gather_window_rows"], max_abs_err=0.0,
-        ms=g_ms, plain_ms=g_plain, bound_ms=g_bound, bound_by=g_by,
-        library_ms=g_lib))
+        ms=g_ms, launch_ms=g_alone, plain_ms=g_plain,
+        bound_ms=g_bound, bound_by=g_by, library_ms=g_lib))
     records.append(dict(
         name="scatter_window_rows", route="cuda", source=gather_src,
         replaces="eventad_tpu/ops/gather_window.py:169",
         launches=grad_launches[1], max_abs_err=s_err, ms=s_ms,
+        launch_ms=s_alone,
         plain_ms=s_plain, bound_ms=s_bound, bound_by=s_by,
         library_ms=s_lib))
 
@@ -847,12 +1194,14 @@ def main():
     k5_dense = recorded_calls(dense, bc_base, sfm, "fused_spline_conv", 10)
     k5_err = k5_ms = k5_plain = 0.0
     k5_bytes = k5_tap_ops = k5_z_ops = 0
-    level_ms = []
+    level_ms, k5_alone = [], []
     for a, kw in k5_op:
         src, prep, weight = a
         err, got = conv_err(a, kw)
         k5_err = max(k5_err, err)
         level_ms.append(median_ms(lambda: sfm.fused_spline_conv_cuda(
+            *a, **kw)))
+        k5_alone.append(launch_ms(sfm, lambda: sfm.fused_spline_conv_cuda(
             *a, **kw)))
         k5_plain += median_ms(lambda: sfm.fused_spline_conv_plain(*a, **kw),
                               reps=5)
@@ -881,15 +1230,35 @@ def main():
         f"{shapes}; max abs err {k5_err:.3g} (dense / under-filled batch "
         f"{k5_dense_err:.3g}; tolerance {FUSED_CONV_TOL} of scale); kernel "
         f"ms per call {[round(t, 4) for t in level_ms]}, {k5_ms:.4f} ms per "
-        f"forward, plain {k5_plain:.4f} ms; bound {k5_bound:.5f} ms by "
+        f"forward (launches alone {[round(t, 4) for t in k5_alone]}, "
+        f"{sum(k5_alone):.4f} ms; the eight pooled-level calls "
+        f"{sum(level_ms[2:]):.4f} / {sum(k5_alone[2:]):.4f} ms), plain "
+        f"{k5_plain:.4f} ms; bound {k5_bound:.5f} ms by "
         f"{k5_by} ({k5_bytes} bytes, {k5_tap_ops} tap-product and "
         f"{k5_z_ops} z operations); no single PyTorch call computes it")
 
     def bilinear_err(feat, pos, mask, kw):
-        got = bsm.sample_bilinear_cuda(feat, pos, mask, **kw)
-        want = bsm.sample_bilinear_plain(feat, pos, mask, **kw)
-        if got.shape != want.shape or got.dtype != feat.dtype:
-            raise AssertionError(f"sample_bilinear: {got.shape} {got.dtype}")
+        """One call as the path makes it: ``out=`` the recorded view's
+        column range of a fresh table of the path's width, filled with a
+        sentinel, whose other columns must stay untouched."""
+        view = kw["out"]
+        n_rows, c = view.shape
+        width = view.stride(0)
+        off = view.storage_offset() % width
+        table = torch.full((n_rows, width), 7.0, dtype=feat.dtype,
+                           device=dev)
+        plain_kw = {k: v for k, v in kw.items() if k != "out"}
+        got = bsm.sample_bilinear_cuda(feat, pos, mask,
+                                       out=table[:, off:off + c], **plain_kw)
+        want = bsm.sample_bilinear_plain(feat, pos, mask, **plain_kw)
+        if got.shape != want.shape or got.dtype != feat.dtype \
+                or got.data_ptr() != table[:, off:].data_ptr():
+            raise AssertionError(f"sample_bilinear: {got.shape} {got.dtype}, "
+                                 f"or not the view it was given")
+        if not (bool((table[:, :off] == 7).all())
+                and bool((table[:, off + c:] == 7).all())):
+            raise AssertionError("sample_bilinear: wrote outside its column "
+                                 "range of the path's table")
         if not bool((got[~mask] == 0).all()):
             raise AssertionError("sample_bilinear: a masked row is not zero")
         err = (got.float() - want.float()).abs().max().item()
@@ -900,11 +1269,25 @@ def main():
                 f"{BILINEAR_TOL[feat.dtype]} x {scale}")
         return err, err / scale, got
 
-    k7_op = recorded_calls(batches[0], bc_bil, bb, "sample_bilinear", 2)
-    k7_dense = recorded_calls(dense, bc_bil, bb, "sample_bilinear", 2)
+    def one_table(calls):
+        """The sampler's recorded calls, whose ``out=`` views must be the
+        two column ranges of one table."""
+        views = [kw["out"] for _, kw in calls]
+        if len({v.untyped_storage().data_ptr() for v in views}) != 1 \
+                or views[1].data_ptr() - views[0].data_ptr() \
+                != views[0].shape[1] * views[0].element_size() \
+                or views[0].stride(0) != sum(v.shape[1] for v in views):
+            raise AssertionError("sample_bilinear: the two calls do not "
+                                 "write one table's column ranges")
+        return calls
+
+    k7_op = one_table(recorded_calls(batches[0], bc_bil, bb,
+                                     "sample_bilinear", 2))
+    k7_dense = one_table(recorded_calls(dense, bc_bil, bb,
+                                        "sample_bilinear", 2))
     k7_rel = {torch.float32: 0.0, torch.bfloat16: 0.0}
     k7_abs = 0.0
-    k7_ms = k7_plain = k7_lib = 0.0
+    k7_ms = k7_plain = k7_lib = k7_alone = k7_lib_alone = 0.0
     k7_bytes = k7_ops = 0
     for calls in (k7_op, k7_dense):
         for a, kw in calls:
@@ -921,10 +1304,13 @@ def main():
                     err, rel, _ = bilinear_err(f, p, m, kw)
                     k7_rel[f.dtype] = max(k7_rel[f.dtype], rel)
                     k7_abs = max(k7_abs, err)
+    # timed as recorded: each call writes its column range of the path's
+    # own table
     for a, kw in k7_op:
         feat, pos, mask = a
-        _, _, got = bilinear_err(feat, pos, mask, kw)
+        plain_kw = {k: v for k, v in kw.items() if k != "out"}
         k7_ms += median_ms(lambda: bsm.sample_bilinear_cuda(*a, **kw))
+        k7_alone += launch_ms(bsm, lambda: bsm.sample_bilinear_cuda(*a, **kw))
         k7_plain += median_ms(lambda: bsm.sample_bilinear_plain(*a, **kw),
                               reps=5)
         # the library's call: grid_sample on the NCHW map and a prepared
@@ -938,27 +1324,33 @@ def main():
         grid = torch.stack([gx, gy], -1).reshape(b, 1, -1, 2)
         lib = F.grid_sample(nchw.float(), grid, mode="bilinear",
                             padding_mode="zeros", align_corners=True)
-        lib = lib[:, :, 0].permute(0, 2, 1).reshape(got.shape) \
+        lib = lib[:, :, 0].permute(0, 2, 1).reshape(kw["out"].shape) \
             * mask[:, None]
-        got32 = bsm.sample_bilinear_cuda(feat.float(), pos, mask, **kw)
+        got32 = bsm.sample_bilinear_cuda(feat.float(), pos, mask, **plain_kw)
         lib_err = (lib - got32).abs().max().item()
         if not lib_err <= 1e-3 * (got32.abs().max().item() + 1e-6):
             raise AssertionError(f"sample_bilinear vs grid_sample: {lib_err}")
+        del lib, got32
         grid = grid.to(feat.dtype)
-        k7_lib += median_ms(lambda: F.grid_sample(
-            nchw, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=True))
-        k7_bytes += tensor_bytes(a) + tensor_bytes(kw) + tensor_bytes(got)
-        k7_ops += 9 * got.numel()
+        def lib_call():
+            return F.grid_sample(nchw, grid, mode="bilinear",
+                                 padding_mode="zeros", align_corners=True)
+        k7_lib += median_ms(lib_call)
+        k7_lib_alone += graph_ms(lib_call)
+        k7_bytes += tensor_bytes(a) + tensor_bytes(kw)     # out= among kw
+        k7_ops += 9 * kw["out"].numel()
     k7_bound, k7_by = bound(k7_bytes, k7_ops, PEAK_F32)
     log(f"sample_bilinear: 2 calls per bilinear forward, maps "
         f"{[tuple(a[0].shape) for a, _ in k7_op]} at {k7_op[0][0][1].shape[0]}"
         f" positions; max abs err vs plain {k7_abs:.3g}, of scale: bf16 "
         f"{k7_rel[torch.bfloat16]:.3g} (tolerance "
         f"{BILINEAR_TOL[torch.bfloat16]}), f32 {k7_rel[torch.float32]:.3g} "
-        f"(tolerance {BILINEAR_TOL[torch.float32]}), positions outside the "
-        f"map and both check batches included; kernel {k7_ms:.4f} ms, plain "
-        f"{k7_plain:.4f} ms, F.grid_sample {k7_lib:.4f} ms per forward; "
+        f"(tolerance {BILINEAR_TOL[torch.float32]}), each call into its "
+        f"column range of a table of the path's width, positions outside "
+        f"the map and both check batches included; kernel {k7_ms:.4f} ms ("
+        f"launches alone {k7_alone:.4f} ms), plain {k7_plain:.4f} ms, "
+        f"F.grid_sample {k7_lib:.4f} ms (alone, by the same graph replay, "
+        f"{k7_lib_alone:.4f} ms) per forward; "
         f"bound {k7_bound:.5f} ms by {k7_by} ({k7_bytes} bytes, {k7_ops} "
         f"operations)")
 
@@ -1013,7 +1405,8 @@ def main():
         med_f = sorted(ts_f)[len(ts_f) // 2]
         log(f"{name} flavour: launches over {n} forwards "
             f"{flavour_launches[name]}; GPU vs CPU logits max abs diff "
-            f"{d:.3g} over batches 0 and 1 (tolerance {LOGIT_TOL}); median {med_f * 1e3:.3f} ms "
+            f"{d:.3g} over batches 0 and 1 (tolerance {LOGIT_TOL}); median "
+            f"{med_f * 1e3:.3f} ms "
             f"per batch, sync bboxes/s {n_boxes / med_f}")
         if not d < LOGIT_TOL:
             raise AssertionError(f"{name}: GPU vs CPU logits differ by {d}")
@@ -1022,15 +1415,17 @@ def main():
         source="eventad_tpu_torch/csrc/spline_fused_single.cu",
         replaces="eventad_tpu/ops/spline_fused.py:62",
         launches=flavour_launches["base"]["fused_spline_conv"],
-        max_abs_err=max(k5_err, k5_dense_err), ms=k5_ms, plain_ms=k5_plain,
+        max_abs_err=max(k5_err, k5_dense_err), ms=k5_ms,
+        launch_ms=sum(k5_alone), plain_ms=k5_plain,
         bound_ms=k5_bound, bound_by=k5_by, library_ms=None))
     records.append(dict(
         name="bilinear_sample", route="cuda",
         source="eventad_tpu_torch/csrc/bilinear_sample.cu",
         replaces="eventad_tpu/ops/bilinear_sample.py:45",
         launches=flavour_launches["bilinear"]["bilinear_sample"],
-        max_abs_err=k7_abs, ms=k7_ms, plain_ms=k7_plain,
-        bound_ms=k7_bound, bound_by=k7_by, library_ms=k7_lib))
+        max_abs_err=k7_abs, ms=k7_ms, launch_ms=k7_alone,
+        plain_ms=k7_plain, bound_ms=k7_bound, bound_by=k7_by,
+        library_ms=k7_lib, library_launch_ms=k7_lib_alone))
 
     # ---- 8. detection serving ----
     from eventad_tpu_torch.bench_detector import ITERS, WARMUP, bench

@@ -8,30 +8,50 @@
 //       +   ty ((1-tx) f[y0+1,x0] + tx f[y0+1,x0+1]),
 //
 // a tap outside the map counts as zero (grid_sample, align_corners, zero
-// padding) and a masked row is zero.  The blend runs in f32 with one rounding
-// to the map's type at the end (the TPU kernel rounds the y weights to bf16
-// first; both stay inside the same band of the f32 result).
+// padding) and a masked row is zero.  Rounding points: the position scales
+// with two products and one IEEE division (__fdiv_rn, so that it equals the
+// plain version's division by a tensor), the blend runs in f32, and the
+// result is rounded once to the map's type (the TPU kernel rounds the y
+// weights to bf16 first; both stay inside the same band of the f32 result).
 //
 // The TPU kernel applies the two axes as a product with a [hp, 128] weight
 // matrix and a broadcast-reduce over wp, because a per-event gather is what
-// a TPU cannot do; here the four taps are indexed loads.  Unlike K4
-// (upsample_rows.cu) the positions are continuous, taps may fall outside the
-// map, rows are masked, and f32 maps are taken as well as bf16.
+// a TPU cannot do; here the four taps are indexed loads.
 //
-// What bounds it on the H100: bytes.  It writes N x C values and reads four
-// taps per value from a map that stays in the 50 MB L2.  Design: one thread
-// per output value, channel fastest, so a warp writes consecutive values and
-// reads consecutive channels of each tap.  Any N and any C.
+// What bounds it on the H100: bytes.  It writes N x C values once and reads
+// four taps per value from maps of a few MB that stay in the 50 MB L2, so
+// the output stream to device memory is the floor and the number of memory
+// instructions per byte is what a design can waste.  Design: a thread owns V
+// consecutive channels of one row, V x sizeof(T) = 16 bytes where the
+// shapes allow (8 bf16 or 4 f32 channels), so a row of C channels belongs to
+// a group of C / V neighbouring threads; each tap is one 16-byte load and
+// the result one 16-byte store.  The row's work (position, item, mask, two
+// divisions, the flags) is done once per V values; the lanes of a group read
+// the same position words, which the hardware serves as one broadcast, so
+// nothing is exchanged between lanes.  V falls to 4, 2 or 1 when C, the
+// map's address, the output's address or its row stride do not divide by
+// the wider vector: any N and any C run, a C of 1 or 3 as one thread per
+// value.  The output may be a column range of a wider tensor (out_stride
+// elements between rows), so two maps can fill one table with no copy.  No
+// shared memory is used.
 #include "common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+constexpr int kThreads = 256;
+
+template <int kBytes> struct Raw;
+template <> struct Raw<16> { using type = uint4; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<4> { using type = unsigned int; };
+template <> struct Raw<2> { using type = unsigned short; };
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
+__device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
@@ -51,83 +71,142 @@ __device__ __forceinline__ void axis_taps(float p, int full, int size,
   *i0 = (*ok0 || *ok1) ? static_cast<int>(fl) : 0;
 }
 
-template <typename T>
-__global__ void bilinear_sample_kernel(
+// V channels of one tap as floats; zeros where the tap lies outside the map
+template <typename T, int V>
+__device__ __forceinline__ void load_tap(const T* p, bool ok, float* v) {
+  using R = typename Raw<V * sizeof(T)>::type;
+  if (ok) {
+    const R raw = __ldg(reinterpret_cast<const R*>(p));
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = to_f(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = 0.f;
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads) bilinear_sample_kernel(
     const T* __restrict__ feat, int b, int hp, int wp, int c,
     const float* __restrict__ pos, int pos_stride,
     const int* __restrict__ batch, int rows_per_item,
     const uint8_t* __restrict__ mask, int rows, int full_w, int full_h,
-    T* __restrict__ out) {
+    T* __restrict__ out, long long out_stride) {
+  using R = typename Raw<V * sizeof(T)>::type;
+  const int nvec = c / V;
+  const long long total = static_cast<long long>(rows) * nvec;
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(rows) * c) return;
-  const int r = static_cast<int>(idx / c);
-  const int ch = static_cast<int>(idx % c);
-  const int item = batch != nullptr ? batch[r] : r / rows_per_item;
-  float v = 0.f;
+  if (idx >= total) return;
+  int r, vec;
+  if (total <= 0x7fffffffLL) {     // the usual case: one 32-bit division
+    r = static_cast<int>(static_cast<unsigned>(idx) /
+                         static_cast<unsigned>(nvec));
+    vec = static_cast<int>(idx) - r * nvec;
+  } else {
+    r = static_cast<int>(idx / nvec);
+    vec = static_cast<int>(idx - static_cast<long long>(r) * nvec);
+  }
+  const int ch = vec * V;
+  const int item = batch != nullptr ? __ldg(batch + r) : r / rows_per_item;
+  float v[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) v[i] = 0.f;
   if (mask[r] && item >= 0 && item < b) {
     int x0, y0;
     float tx, ty;
     bool okx0, okx1, oky0, oky1;
-    axis_taps(pos[static_cast<long long>(r) * pos_stride], full_w, wp, &x0,
-              &tx, &okx0, &okx1);
-    axis_taps(pos[static_cast<long long>(r) * pos_stride + 1], full_h, hp,
-              &y0, &ty, &oky0, &oky1);
+    const float* p = pos + static_cast<long long>(r) * pos_stride;
+    axis_taps(__ldg(p), full_w, wp, &x0, &tx, &okx0, &okx1);
+    axis_taps(__ldg(p + 1), full_h, hp, &y0, &ty, &oky0, &oky1);
     const T* base = feat + static_cast<long long>(item) * hp * wp * c + ch;
-    auto tap = [&](int yy, int xx, bool ok) {
-      return ok ? load_f(base + (static_cast<long long>(yy) * wp + xx) * c)
-                : 0.f;
-    };
-    const float v00 = tap(y0, x0, oky0 && okx0);
-    const float v01 = tap(y0, x0 + 1, oky0 && okx1);
-    const float v10 = tap(y0 + 1, x0, oky1 && okx0);
-    const float v11 = tap(y0 + 1, x0 + 1, oky1 && okx1);
-    v = (1.f - ty) * ((1.f - tx) * v00 + tx * v01) +
-        ty * ((1.f - tx) * v10 + tx * v11);
+    const long long row0 = static_cast<long long>(y0) * wp + x0;
+    float v00[V], v01[V], v10[V], v11[V];
+    load_tap<T, V>(base + row0 * c, oky0 && okx0, v00);
+    load_tap<T, V>(base + (row0 + 1) * c, oky0 && okx1, v01);
+    load_tap<T, V>(base + (row0 + wp) * c, oky1 && okx0, v10);
+    load_tap<T, V>(base + (row0 + wp + 1) * c, oky1 && okx1, v11);
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      v[i] = (1.f - ty) * ((1.f - tx) * v00[i] + tx * v01[i]) +
+             ty * ((1.f - tx) * v10[i] + tx * v11[i]);
   }
-  store_f(out + idx, v);
+  R raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < V; ++i) from_f(e + i, v[i]);
+  *reinterpret_cast<R*>(out + static_cast<long long>(r) * out_stride + ch) =
+      raw;
 }
 
-template <typename T>
-int launch_bilinear(const void* feat, int b, int hp, int wp, int c,
-                    const void* pos, int pos_stride, const void* batch,
-                    int rows_per_item, const void* mask, int rows, int full_w,
-                    int full_h, void* out, cudaStream_t stream) {
-  const long long total = static_cast<long long>(rows) * c;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  bilinear_sample_kernel<T><<<static_cast<unsigned>(blocks), threads, 0,
-                              stream>>>(
-      static_cast<const T*>(feat), b, hp, wp, c,
-      static_cast<const float*>(pos), pos_stride,
-      static_cast<const int*>(batch), rows_per_item,
-      static_cast<const uint8_t*>(mask), rows, full_w, full_h,
-      static_cast<T*>(out));
+struct Args {
+  const void* feat;
+  int b, hp, wp, c;
+  const void* pos;
+  int pos_stride;
+  const void* batch;
+  int rows_per_item;
+  const void* mask;
+  int rows, full_w, full_h;
+  void* out;
+  long long out_stride;
+  cudaStream_t stream;
+};
+
+template <typename T, int V>
+int launch_v(const Args& a) {
+  const long long total = static_cast<long long>(a.rows) * (a.c / V);
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  bilinear_sample_kernel<T, V><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                 a.stream>>>(
+      static_cast<const T*>(a.feat), a.b, a.hp, a.wp, a.c,
+      static_cast<const float*>(a.pos), a.pos_stride,
+      static_cast<const int*>(a.batch), a.rows_per_item,
+      static_cast<const uint8_t*>(a.mask), a.rows, a.full_w, a.full_h,
+      static_cast<T*>(a.out), a.out_stride);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the widest vector of at most 16 bytes that C, both addresses and the
+// output's row stride divide by
+template <typename T>
+int launch_bilinear(const Args& a) {
+  auto fits = [&](int v) {
+    const uintptr_t bytes = static_cast<uintptr_t>(v) * sizeof(T);
+    return a.c % v == 0 && a.out_stride % v == 0 &&
+           reinterpret_cast<uintptr_t>(a.feat) % bytes == 0 &&
+           reinterpret_cast<uintptr_t>(a.out) % bytes == 0;
+  };
+  if constexpr (sizeof(T) == 2) {
+    if (fits(8)) return launch_v<T, 8>(a);
+  }
+  if (fits(4)) return launch_v<T, 4>(a);
+  if (fits(2)) return launch_v<T, 2>(a);
+  return launch_v<T, 1>(a);
 }
 
 }  // namespace
 
 // feat [B, hp, wp, C] (elem_size 4: f32, 2: bf16; NHWC), pos [rows,
 // pos_stride] f32 normalized (x, y first), batch [rows] int32 or NULL (then
-// row r belongs to item r / rows_per_item), mask [rows] uint8 -> out [rows,
-// C] in feat's type.
+// row r belongs to item r / rows_per_item), mask [rows] of one byte each
+// (uint8 or bool) -> out [rows, C] in feat's type, row r at out + r *
+// out_stride elements (out_stride >= C; C for a dense output).
 EVENTAD_API int eventad_bilinear_sample(
     const void* feat, int b, int hp, int wp, int c, int elem_size,
     const void* pos, int pos_stride, const void* batch, int rows_per_item,
     const void* mask, int rows, int full_w, int full_h, void* out,
-    void* stream) {
+    int out_stride, void* stream) {
   if (static_cast<long long>(rows) * c == 0) return 0;
-  if (hp < 1 || wp < 1 || pos_stride < 2 ||
+  if (hp < 1 || wp < 1 || pos_stride < 2 || out_stride < c ||
       (batch == nullptr && rows_per_item < 1) ||
       (elem_size != 2 && elem_size != 4))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (elem_size == 4)
-    return launch_bilinear<float>(feat, b, hp, wp, c, pos, pos_stride, batch,
-                                  rows_per_item, mask, rows, full_w, full_h,
-                                  out, s);
-  return launch_bilinear<__nv_bfloat16>(feat, b, hp, wp, c, pos, pos_stride,
-                                        batch, rows_per_item, mask, rows,
-                                        full_w, full_h, out, s);
+  const Args a{feat, b, hp, wp, c, pos, pos_stride, batch, rows_per_item,
+               mask, rows, full_w, full_h, out, out_stride,
+               static_cast<cudaStream_t>(stream)};
+  if (elem_size == 4) return launch_bilinear<float>(a);
+  return launch_bilinear<__nv_bfloat16>(a);
 }

@@ -7,174 +7,612 @@
 // edge exists only where the edge mask mq[n, s] is set; shifted reads that
 // cross a grid row or an item boundary are always masked.  Per slot, the
 // static tap window of tap_windows bounds the taps its attrs can reach, so
-// each tap m has a static list of contributing slots (the host builds it
-// once per geometry).  Per destination n and output channel o:
+// each tap m has a static list of contributing slots (built once per
+// geometry on the host).  Per destination n and output channel o:
 //
 //   z_m[n, :] = sum_{s in slots(m), mq[n,s]} cy[my] cx[mx] * src[n + d_off[s]]
-//   acc       = sum_m z_m[n, :] . W[m][:, o] + src[n] . root[:, o]
+//   acc       = sum_m bf16(z_m[n, :]) . W[m][:, o] + src[n] . root[:, o]
 //   out[n, o] = bf16(act(a acc + b (+ a_s (xs[n] . skip[:, o]) + b_s)) mask)
 //
-// What bounds it on the H100: latency more than operations.  At level 1
-// (13 440 cells, 82 or 64 input channels, 64 outputs, 25 taps) the tap
-// products are ~2 GFLOP per launch against a few MB of traffic, but levels
-// 3 and 4 have only 840 and 210 cells, and every block walks all 25 taps
-// one after the other.  Design: a block owns max(8, 256 / O) destinations
-// (8 at O = 64), so even level 4 spreads over 27 blocks.  Per tap it builds
-// z_m for its rows in shared memory (threads over (row, channel), direct
-// loads of the shifted rows, edges with mq = 0 skipped so a masked source
-// row is never read), then every thread adds z_m . W[m][:, o] for a fixed o
-// and rows * O / 256 rows, reusing each weight it loads across those rows.
-// f32 FMAs on the CUDA cores; the tap products on tensor cores are later
-// work.
+// Rounding points, those of the TPU kernel: src, xs and the weights are
+// bf16; z_m is summed in f32 and rounded to bf16 once; every product sums in
+// f32 on the tensor cores; the affine, the activation and the mask run in
+// f32 and the output is rounded to bf16 once.
+//
+// What bounds it on the H100.  By bytes the eight launches of a forward
+// need 0.005 ms and their tap products, dense, 0.01 ms of the tensor cores:
+// neither is the limit.  The limits are (a) the z build, a data-dependent
+// sum of shifted rows per (row, tap) that only the CUDA cores can do, (b)
+// the weights, 13-19 KB per tap that every block needs, and (c) at the
+// small levels (840 and 210 rows) the latency of up to 27 steps in
+// sequence on a handful of blocks.  What the design does about each, as
+// the TPU kernel does with its VMEM window:
+//
+// * Per (row, slot) once: the floor taps and fractions of the edge.  Each
+//   edge sets its bit in the mask of the (up to four) taps it weighs on,
+//   per (row, tap) a bit mask over the tap's slot list, and marks the
+//   window row it reads; per block a bit mask of the taps any row touches.
+//   The cost follows the edges, which are few (0.6 to 2.6 of 25 slots per
+//   row at the operating point).  An untouched tap is skipped whole: no
+//   weights, no z, no product.  A block without an edge does only root,
+//   skip and epilogue.
+// * The source window in shared memory: of rows [n0 - halo, n0 + TM +
+//   halo) of src, halo = max |d_off|, the tile's own rows and the rows an
+//   edge reads, with cp.async (16 bytes where C and the address allow, else
+//   4, else plain 2-byte loads), rows outside the table and the pad columns
+//   zero.  Every later read of a neighbour row is a 16-byte shared-memory
+//   read at a static row offset.  A dense graph loads the whole window, a
+//   sparse one a fifth of it.
+// * z_m for a touched tap: threads over (row, 8-channel vector) walk the
+//   set bits of their row's mask, so an entry without weight costs nothing,
+//   sum in f32 from the window, round to bf16 and store 16 bytes into one of
+//   two z buffers in the ldmatrix layout.  This sum is where a level-1
+//   launch spends its instructions.
+// * The products are mma.sync.aligned.m16n8k16 (bf16 in, f32 out) with A
+//   by ldmatrix from the z buffer (the window's own rows for the root, the
+//   xs tile for the skip) and B by ldmatrix from the weights, which the
+//   host packs once as [tap][O][C padded] (k contiguous, i.e. transposed,
+//   so that the B fragment is an untransposed ldmatrix), taps first, root
+//   last, the skip apart.  Accumulators stay in registers across all taps;
+//   the skip has its own (it has its own affine).  Row strides are C padded
+//   to 16 plus 8 elements, an odd number of 16-byte units, so that the
+//   eight rows of an ldmatrix fall into eight different bank groups.
+// * The weights of the next step arrive by cp.async into the other of two
+//   stages while this tap multiplies and the next z is built: one
+//   __syncthreads() per touched tap.
+// * The row tile follows the level: 128 rows where that still fills three
+//   quarters of the SMs (level 1: 105 blocks), else 32 where that gives a
+//   block per SM, else 16 (levels 2-4: 210, 53 and 14 blocks), so that the
+//   small levels spread.  Every block fetches the weights of every tap it
+//   touches from L2, and with few edges a block touches most taps whatever
+//   its size: a level-1 launch moves 150 MB of weights at 32 rows and 38 MB
+//   at 128, and runs a tenth faster there; below level 1 the larger tiles
+//   leave SMs idle and measured slower.
+// * A block has 16 warps at every tile size: the z build is what takes the
+//   time and wants the threads (one (row, vector) item each at 16 rows),
+//   and a step is a chain of dependent shared-memory reads that only more
+//   warps hide.  For the products they split the tile 8 x 2, 2 x 8 or
+//   1 x 16 (rows x column groups of 8, 2 or 1 blocks of 8 channels);
+//   the column groups beyond O / 8 blocks sit a product out and, taking
+//   their z items first, build the next z meanwhile.
+//
+// mma.sync is enough here: the products are ~9 GFLOP per forward, 1 % of
+// what the z build and the latency cost; wgmma would want 64-row tiles at
+// every level and buys nothing at this size.
+//
+// Shared memory per block, bytes (CS = pad16(C) + 8, CSS likewise for Cs):
+//   window (TM + 2 halo) CS 2 | xs tile TM CSS 2 | z 2 TM CS 2 |
+//   weights 2 O max(CS, CSS) 2 | edges 16 TM S | masks 4 TM T |
+//   lists 8 nnz + 8 T | tables S T + ks^2 + TM + 2 halo
+// With S 25, T 25, nnz 323, O 64, in KB for block 1 / block 2 of a layer:
+//   level 1 (halo 114, C 82):  TM 32 110 / 97 (two blocks fit an SM's 228),
+//                              TM 16 93 / 79, TM 128 216 / 203
+//   level 2 (halo 58, C 130):  TM 16 97 / 76, TM 32 119 / 96
+//   level 3 (halo 30, C 130):  TM 16 81 / 69
+//   level 4 (halo 16, C 130):  TM 16 72 / 65
+// A tile that does not fit in 227 KB gives way to the next smaller one (128
+// rows at C 130 with a skip of 130 take 32); if 16 rows do not fit the entry
+// refuses the call.  A 64-row tile was measured and paid at no level.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxQ = 4;       // rows per thread: rows * O / kThreads
+using bf16 = __nv_bfloat16;
 
-// destinations per block: at least 8, and enough that every thread owns
-// one (row, output channel) pair
-inline int block_rows(int o_ch) { return o_ch >= 32 ? 8 : kThreads / o_ch; }
+constexpr int kMaxSmem = 232448;     // 227 KB, what a block may ask for
+constexpr uint8_t kNone = 0xff;
 
-__global__ void __launch_bounds__(kThreads) shift_block_kernel(
-    const __nv_bfloat16* __restrict__ src, int c,
-    const float* __restrict__ u, const uint8_t* __restrict__ mq,
-    const uint8_t* __restrict__ node_mask, const int* __restrict__ d_offs,
-    int s_slots, const int* __restrict__ tap_mxy,
-    const int* __restrict__ tap_ptr, const int* __restrict__ tap_slots,
-    int n_taps, const float* __restrict__ w_sel,
-    const float* __restrict__ root, const float* __restrict__ ab,
-    const __nv_bfloat16* __restrict__ xs, int cs,
-    const float* __restrict__ skip_lin, int n, int o_ch, int ks, int act,
-    int rows, __nv_bfloat16* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* s_z = smem;                                   // [rows, c]
-  float* s_fx = s_z + rows * c;                        // [rows, S]
-  float* s_fy = s_fx + rows * s_slots;
-  int* s_ix = reinterpret_cast<int*>(s_fy + rows * s_slots);
-  int* s_iy = s_ix + rows * s_slots;                   // -1: no edge
+struct Params {
+  const bf16* src; int c;
+  const float* u; const uint8_t* mq; const uint8_t* node_mask;
+  const int* d_offs; int s_slots; int halo;
+  const int* tap_mxy; const int* tap_ptr; const int* tap_slots;
+  int n_taps; int nnz;
+  const bf16* wpack; const float* ab;
+  const bf16* xs; int cs; const bf16* skpack;
+  int n; int o; int ks; int act;
+  bf16* out;
+  int cstride; int csstride;     // CS, CSS
+  int src_vw; int xs_vw;         // elements per copy: 8, 2 or 1
+};
 
-  const int n0 = blockIdx.x * rows;
-  for (int i = threadIdx.x; i < rows * s_slots; i += blockDim.x) {
-    const int t = i / s_slots, s = i % s_slots, row = n0 + t;
-    int ix = -1, iy = -1;
-    float fx = 0.f, fy = 0.f;
-    if (row < n && mq[static_cast<long long>(row) * s_slots + s]) {
-      const long long e = static_cast<long long>(row) * s_slots + s;
-      eventad::spline_taps(u[2 * e], ks, &ix, &fx);
-      eventad::spline_taps(u[2 * e + 1], ks, &iy, &fy);
+__host__ __device__ inline int pad_stride(int c) {
+  return (c + 15) / 16 * 16 + 8;
+}
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) / 16 * 16;
+}
+
+// the carve-up of dynamic shared memory, the same on both sides
+struct Layout {
+  size_t win, xs, z, w, edge, list, ptr, mxy, nz, pos, tapof, need, mask,
+      total;
+  int stage;      // elements of one weight stage
+};
+__host__ __device__ inline Layout make_layout(int tm, int c_stride,
+                                              int cs_stride, bool has_skip,
+                                              int o, int halo, int s_slots,
+                                              int nnz, int n_taps, int ks) {
+  Layout l;
+  size_t at = 0;
+  l.win = at; at += align16(static_cast<size_t>(tm + 2 * halo) * c_stride * 2);
+  l.xs = at; at += has_skip ? align16(static_cast<size_t>(tm) * cs_stride * 2)
+                            : 0;
+  l.z = at; at += align16(static_cast<size_t>(2) * tm * c_stride * 2);
+  l.stage = o * (has_skip && cs_stride > c_stride ? cs_stride : c_stride);
+  l.w = at; at += align16(static_cast<size_t>(2) * l.stage * 2);
+  l.edge = at; at += static_cast<size_t>(tm) * s_slots * 16;
+  l.list = at; at += align16(static_cast<size_t>(nnz) * 8);
+  l.ptr = at; at += align16(static_cast<size_t>(n_taps + 1) * 4);
+  l.mxy = at; at += align16(static_cast<size_t>(n_taps) * 4);
+  l.nz = at; at += align16(static_cast<size_t>(tm) * n_taps * 4);
+  l.pos = at; at += align16(static_cast<size_t>(s_slots) * n_taps);
+  l.tapof = at; at += align16(static_cast<size_t>(ks) * ks);
+  l.need = at; at += align16(static_cast<size_t>(tm + 2 * halo));
+  l.mask = at; at += 16;
+  l.total = at;
+  return l;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "n"(kBytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The weight of an edge (x: ix | iy << 8 as bits, -1 none; y: fx; z: fy) on
+// tap (mx, my): (1 - f) on its floor tap and f on the next, per axis
+__device__ __forceinline__ float tap_weight(const float4& e, int mx, int my) {
+  const int code = __float_as_int(e.x);
+  if (code < 0) return 0.f;
+  const int ix = code & 0xff, iy = code >> 8;
+  const float wx = ix == mx ? 1.f - e.y : (ix + 1 == mx ? e.y : 0.f);
+  const float wy = iy == my ? 1.f - e.z : (iy + 1 == my ? e.z : 0.f);
+  return wx * wy;
+}
+
+// Rows [first, first + count) of the [n, c] table `src` into shared rows of
+// `stride` elements; rows outside [0, n) and the columns [c, stride) are
+// zero.  vw elements per copy: 8 and 2 need c and the table's address to
+// divide by them.  With `need`, only the rows it marks are loaded, the others
+// are left as they are.  A warp per row, lanes over the row.
+__device__ void load_rows(bf16* dst, int stride, const bf16* src, int c,
+                          long long first, int n, int count, int vw,
+                          const uint8_t* need, int warp, int lane,
+                          int n_warps) {
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int r = warp; r < count; r += n_warps) {
+    if (need != nullptr && !need[r]) continue;
+    const long long g = first + r;
+    const bool ok = g >= 0 && g < n;
+    bf16* d = dst + static_cast<size_t>(r) * stride;
+    const bf16* s = src + (ok ? g : 0) * c;
+    if (vw == 8) {
+      for (int q = lane * 8; q < stride; q += 32 * 8) {
+        if (ok && q < c) cp_async<16>(d + q, s + q);
+        else *reinterpret_cast<uint4*>(d + q) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    } else if (vw == 2) {
+      for (int q = lane * 2; q < stride; q += 32 * 2) {
+        if (ok && q < c) cp_async<4>(d + q, s + q);
+        else *reinterpret_cast<uint32_t*>(d + q) = 0u;
+      }
+    } else {
+      for (int q = lane; q < stride; q += 32) d[q] = ok && q < c ? s[q] : zero;
     }
-    s_ix[i] = ix;
-    s_iy[i] = iy;
-    s_fx[i] = fx;
-    s_fy[i] = fy;
   }
+}
 
-  const int groups = kThreads / o_ch;        // row groups of the o threads
-  const int q_rows = rows / groups;          // rows per thread
-  const int o = threadIdx.x % o_ch;
-  const int t0 = threadIdx.x / o_ch;
-  float acc[kMaxQ];
+// `elems` bf16 (a multiple of 8, both addresses 16-byte aligned) into shared
+// memory, all threads
+__device__ __forceinline__ void load_weights(bf16* dst, const bf16* src,
+                                             int elems, int tid,
+                                             int n_threads) {
+  for (int q = tid * 8; q < elems; q += n_threads * 8)
+    cp_async<16>(dst + q, src + q);
+}
+
+// acc[j] += A[16 rows of this warp, :] . B[:, n-block wn * NBW + j] over
+// k_blocks blocks of 16 channels; A [rows][a_stride] and B [O][b_stride],
+// both k contiguous, in shared memory
+template <int NBW>
+__device__ __forceinline__ void mma_tile(const bf16* a, int a_stride,
+                                         const bf16* b, int b_stride,
+                                         int k_blocks, int n_blocks, int wm,
+                                         int wn, int lane,
+                                         float (&acc)[NBW][4]) {
+  if (wn * NBW >= n_blocks) return;
+  const uint32_t a_addr = smem_u32(
+      a + static_cast<size_t>(wm * 16 + (lane & 15)) * a_stride +
+      (lane >> 4) * 8);
+  const uint32_t b_addr = smem_u32(
+      b + static_cast<size_t>(wn * NBW * 8 + (lane & 7)) * b_stride +
+      ((lane >> 3) & 1) * 8);
+#pragma unroll 2
+  for (int kb = 0; kb < k_blocks; ++kb) {
+    uint32_t af[4];
+    ldmatrix_x4(af, a_addr + kb * 32);
 #pragma unroll
-  for (int q = 0; q < kMaxQ; ++q) acc[q] = 0.f;
+    for (int j = 0; j < NBW; ++j) {
+      if (wn * NBW + j < n_blocks) {
+        uint32_t bfr[2];
+        ldmatrix_x2(bfr, b_addr + static_cast<uint32_t>(j * 8 * b_stride * 2) +
+                             kb * 32);
+        mma_bf16(acc[j], af, bfr);
+      }
+    }
+  }
+}
+
+// TM rows per block; (TM / 16) x WN warps; a warp owns 16 rows and up to
+// NBW blocks of 8 output channels; registers held to what MINB blocks on an
+// SM leave each
+template <int TM, int WN, int NBW, int MINB>
+__global__ void __launch_bounds__((TM / 16) * WN * 32, MINB)
+shift_block_kernel(const Params p) {
+  constexpr int kWarpsM = TM / 16;
+  constexpr int kWarps = kWarpsM * WN;
+  constexpr int kThreads = kWarps * 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bool has_skip = p.xs != nullptr;
+  const int cstr = p.cstride, csstr = p.csstride;
+  const Layout l = make_layout(TM, cstr, csstr, has_skip, p.o, p.halo,
+                               p.s_slots, p.nnz, p.n_taps, p.ks);
+  bf16* s_win = reinterpret_cast<bf16*>(smem + l.win);
+  bf16* s_xs = reinterpret_cast<bf16*>(smem + l.xs);
+  bf16* s_z = reinterpret_cast<bf16*>(smem + l.z);
+  bf16* s_w = reinterpret_cast<bf16*>(smem + l.w);
+  // per (row, slot): x = ix | iy << 8 as bits (-1: no edge), y = fx, z = fy
+  float4* s_edge = reinterpret_cast<float4*>(smem + l.edge);
+  // per entry of the tap -> slots lists: x = slot, y = its row offset
+  int2* s_list = reinterpret_cast<int2*>(smem + l.list);
+  int* s_ptr = reinterpret_cast<int*>(smem + l.ptr);
+  int* s_mxy = reinterpret_cast<int*>(smem + l.mxy);      // mx | my << 8
+  // per (row, tap): bit j set where entry j of the tap's list has a weight
+  unsigned* s_nz = reinterpret_cast<unsigned*>(smem + l.nz);
+  // per (slot, tap): the slot's place in the tap's list, kNone outside it;
+  // per kernel tap: its index among the T used ones, kNone unused; per
+  // window row: whether any row of the tile reads it
+  uint8_t* s_pos = smem + l.pos;
+  uint8_t* s_tapof = smem + l.tapof;
+  uint8_t* s_need = smem + l.need;
+  unsigned long long* s_mask =
+      reinterpret_cast<unsigned long long*>(smem + l.mask);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
+  const int n0 = blockIdx.x * TM;
+  const int S = p.s_slots, T = p.n_taps, ks = p.ks;
+
+  // the static lists and tables
+  if (tid == 0) *s_mask = 0ull;
+  for (int i = tid; i < p.nnz; i += kThreads) {
+    const int s = p.tap_slots[i];
+    s_list[i] = make_int2(s, p.d_offs[s]);
+  }
+  for (int i = tid; i <= T; i += kThreads) s_ptr[i] = p.tap_ptr[i];
+  for (int i = tid; i < T; i += kThreads)
+    s_mxy[i] = p.tap_mxy[2 * i] | (p.tap_mxy[2 * i + 1] << 8);
+  for (int i = tid; i < S * T; i += kThreads) {
+    const int s = i / T, m = i - s * T;
+    const int p0 = p.tap_ptr[m], p1 = p.tap_ptr[m + 1];
+    uint8_t at = kNone;
+    for (int q = p0; q < p1; ++q)
+      if (p.tap_slots[q] == s) at = static_cast<uint8_t>(q - p0);
+    s_pos[i] = at;
+  }
+  for (int i = tid; i < ks * ks; i += kThreads) {
+    uint8_t m_of = kNone;
+    for (int m = 0; m < T; ++m)
+      if (p.tap_mxy[2 * m + 1] * ks + p.tap_mxy[2 * m] == i)
+        m_of = static_cast<uint8_t>(m);
+    s_tapof[i] = m_of;
+  }
+  for (int i = tid; i < TM * T; i += kThreads) s_nz[i] = 0u;
+  for (int i = tid; i < TM + 2 * p.halo; i += kThreads)
+    s_need[i] = i >= p.halo && i < p.halo + TM;      // the tile's own rows
   __syncthreads();
 
-  for (int m = 0; m < n_taps; ++m) {
-    const int mx = tap_mxy[2 * m], my = tap_mxy[2 * m + 1];
-    const int p0 = tap_ptr[m], p1 = tap_ptr[m + 1];
-    for (int i = threadIdx.x; i < rows * c; i += blockDim.x) {
-      const int t = i / c, ci = i % c, row = n0 + t;
-      float z = 0.f;
-      if (row < n) {
-        for (int p = p0; p < p1; ++p) {
-          const int s = tap_slots[p];
-          const int ce = t * s_slots + s;
-          const int ix = s_ix[ce];
-          if (ix < 0) continue;
-          const int iy = s_iy[ce];
-          const float wx = ix == mx ? 1.f - s_fx[ce]
-                                    : (ix + 1 == mx ? s_fx[ce] : 0.f);
-          const float wy = iy == my ? 1.f - s_fy[ce]
-                                    : (iy + 1 == my ? s_fy[ce] : 0.f);
-          const float cm = wx * wy;
-          const int j = row + d_offs[s];
-          if (cm != 0.f && j >= 0 && j < n)
-            z += cm * eventad::bf(src[static_cast<long long>(j) * c + ci]);
-        }
-      }
-      s_z[i] = z;
-    }
-    __syncthreads();
-    const float* wm = w_sel + static_cast<long long>(m) * c * o_ch + o;
-    for (int ci = 0; ci < c; ++ci) {
-      const float w = __ldg(wm + ci * o_ch);
+  // per edge once: floor taps and fractions; its bit in the mask of each
+  // tap it weighs on; the window row it reads; per block the touched taps
+  unsigned long long touched = 0ull;
+  for (int i = tid; i < TM * S; i += kThreads) {
+    const int t = i / S, s = i - t * S, row = n0 + t;
+    int code = -1;
+    float fx = 0.f, fy = 0.f;
+    // both loads leave together: the coordinates do not wait for the mask
+    const long long e = static_cast<long long>(row < p.n ? row : 0) * S + s;
+    const float2 uv = __ldg(reinterpret_cast<const float2*>(p.u) + e);
+    if (row < p.n && __ldg(p.mq + e)) {
+      int ix, iy;
+      eventad::spline_taps(uv.x, ks, &ix, &fx);
+      eventad::spline_taps(uv.y, ks, &iy, &fy);
+      code = ix | (iy << 8);
+      s_need[p.halo + t + __ldg(p.d_offs + s)] = 1;
 #pragma unroll
-      for (int q = 0; q < kMaxQ; ++q)
-        if (q < q_rows) acc[q] += s_z[(t0 + q * groups) * c + ci] * w;
+      for (int k = 0; k < 4; ++k) {
+        const int dx = k & 1, dy = k >> 1;
+        const float w = (dx ? fx : 1.f - fx) * (dy ? fy : 1.f - fy);
+        const int m = s_tapof[(iy + dy) * ks + ix + dx];
+        if (w == 0.f || m == kNone) continue;
+        const int at = s_pos[s * T + m];      // kNone: outside the window
+        if (at == kNone) continue;
+        atomicOr(s_nz + t * T + m, 1u << at);
+        touched |= 1ull << m;
+      }
     }
+    s_edge[i] = make_float4(__int_as_float(code), fx, fy, 0.f);
+  }
+  const unsigned lo = __reduce_or_sync(0xffffffffu,
+                                       static_cast<unsigned>(touched));
+  const unsigned hi = __reduce_or_sync(0xffffffffu,
+                                       static_cast<unsigned>(touched >> 32));
+  if (lane == 0 && (lo | hi))
+    atomicOr(s_mask, (static_cast<unsigned long long>(hi) << 32) | lo);
+  __syncthreads();
+
+  // the window rows that are read, and the skip tile; the first weights
+  // follow below and land with them
+  load_rows(s_win, cstr, p.src, p.c, static_cast<long long>(n0) - p.halo,
+            p.n, TM + 2 * p.halo, p.src_vw, s_need, warp, lane, kWarps);
+  if (has_skip)
+    load_rows(s_xs, csstr, p.xs, p.cs, n0, p.n, TM, p.xs_vw, nullptr, warp,
+              lane, kWarps);
+
+  // steps: the touched taps in order, then the root (T), then the skip
+  // (T + 1); -1 ends
+  unsigned long long left = *s_mask;
+  auto next_step = [&](int cur) {
+    if (cur < T) {
+      if (left) {
+        const int m = __ffsll(static_cast<long long>(left)) - 1;
+        left &= left - 1;
+        return m;
+      }
+      return T;
+    }
+    return cur == T && has_skip ? T + 1 : -1;
+  };
+  auto weights_of = [&](int step, int* elems) {
+    if (step <= T) {
+      *elems = p.o * cstr;
+      return p.wpack + static_cast<size_t>(step) * p.o * cstr;
+    }
+    *elems = p.o * csstr;
+    return p.skpack;
+  };
+
+  float acc[NBW][4], sk[NBW][4];
+#pragma unroll
+  for (int j = 0; j < NBW; ++j)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[j][k] = sk[j][k] = 0.f;
+
+  const int k_blocks = (cstr - 8) / 16, ks_blocks = (csstr - 8) / 16;
+  const int n_blocks = p.o / 8;
+  const int vecs = (cstr - 8) / 8;         // 8-channel vectors of a z row
+
+  auto fetch_weights = [&](int step, int stage) {
+    int elems;
+    const bf16* w = weights_of(step, &elems);
+    load_weights(s_w + static_cast<size_t>(stage) * l.stage, w, elems, tid,
+                 kThreads);
+    cp_async_commit();
+  };
+  int cur = next_step(-1);
+  fetch_weights(cur, 0);
+  cp_async_wait_all();     // the window, before the first z reads it
+  __syncthreads();
+  for (int it = 0; cur >= 0; ++it) {
+    bf16* zb = s_z + static_cast<size_t>(it & 1) * TM * cstr;
+    if (cur < T) {
+      // z of tap cur: (row, vector) items over the threads, from the last
+      // thread down, so that the warps without a share of the products
+      // (the last ones) build the next z while the first ones multiply
+      const int mx = s_mxy[cur] & 0xff, my = s_mxy[cur] >> 8;
+      const int p0 = s_ptr[cur];
+      for (int i = kThreads - 1 - tid; i < TM * vecs; i += kThreads) {
+        const int t = i / vecs, v = i - t * vecs;
+        const bf16* wrow =
+            s_win + static_cast<size_t>(p.halo + t) * cstr + v * 8;
+        const float4* erow = s_edge + t * S;
+        float z[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) z[k] = 0.f;
+        // only the list entries that weigh in, in list order
+        for (unsigned bits = s_nz[t * T + cur]; bits; bits &= bits - 1) {
+          const int2 le = s_list[p0 + __ffs(bits) - 1];
+          const float cm = tap_weight(erow[le.x], mx, my);
+          const uint4 raw = *reinterpret_cast<const uint4*>(
+              wrow + static_cast<ptrdiff_t>(le.y) * cstr);
+          const __nv_bfloat162* h =
+              reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float2 f = __bfloat1622float2(h[k]);
+            z[2 * k] += cm * f.x;
+            z[2 * k + 1] += cm * f.y;
+          }
+        }
+        uint4 packed;
+        __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          o2[k] = __floats2bfloat162_rn(z[2 * k], z[2 * k + 1]);
+        *reinterpret_cast<uint4*>(zb + static_cast<size_t>(t) * cstr + v * 8) =
+            packed;
+      }
+    }
+    cp_async_wait_all();
     __syncthreads();
+    // the next step's weights into the stage that the previous step has
+    // left: they land while this step multiplies and the next z is built
+    const int nxt = next_step(cur);
+    if (nxt >= 0) fetch_weights(nxt, (it + 1) & 1);
+    const bf16* wst = s_w + static_cast<size_t>(it & 1) * l.stage;
+    if (cur < T)
+      mma_tile<NBW>(zb, cstr, wst, cstr, k_blocks, n_blocks, wm, wn, lane,
+                    acc);
+    else if (cur == T)
+      mma_tile<NBW>(s_win + static_cast<size_t>(p.halo) * cstr, cstr, wst,
+                    cstr, k_blocks, n_blocks, wm, wn, lane, acc);
+    else
+      mma_tile<NBW>(s_xs, csstr, wst, csstr, ks_blocks, n_blocks, wm, wn,
+                    lane, sk);
+    cur = nxt;
   }
 
+  // epilogue from the accumulator fragments: rows g and g + 8 of the warp's
+  // 16, columns 2 (lane % 4) and the next of each block of 8
 #pragma unroll
-  for (int q = 0; q < kMaxQ; ++q) {
-    if (q >= q_rows) continue;
-    const int row = n0 + t0 + q * groups;
-    if (row >= n) continue;
-    const __nv_bfloat16* xo = src + static_cast<long long>(row) * c;
-    float a = acc[q];
-    for (int ci = 0; ci < c; ++ci)
-      a += eventad::bf(xo[ci]) * __ldg(root + ci * o_ch + o);
-    float pre = ab[4 * o] * a + ab[4 * o + 1];
-    if (xs != nullptr) {
-      const __nv_bfloat16* xr = xs + static_cast<long long>(row) * cs;
-      float sk = 0.f;
-      for (int ci = 0; ci < cs; ++ci)
-        sk += eventad::bf(xr[ci]) * __ldg(skip_lin + ci * o_ch + o);
-      pre += ab[4 * o + 2] * sk + ab[4 * o + 3];
+  for (int j = 0; j < NBW; ++j) {
+    const int nb = wn * NBW + j;
+    if (nb >= n_blocks) continue;
+    const int col = nb * 8 + 2 * (lane & 3);
+    const float4 ab0 = __ldg(reinterpret_cast<const float4*>(p.ab) + col);
+    const float4 ab1 = __ldg(reinterpret_cast<const float4*>(p.ab) + col + 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = n0 + wm * 16 + (lane >> 2) + 8 * h;
+      if (row >= p.n) continue;
+      float y0 = ab0.x * acc[j][2 * h] + ab0.y;
+      float y1 = ab1.x * acc[j][2 * h + 1] + ab1.y;
+      if (has_skip) {
+        y0 += ab0.z * sk[j][2 * h] + ab0.w;
+        y1 += ab1.z * sk[j][2 * h + 1] + ab1.w;
+      }
+      const bool on = p.node_mask[row] != 0;
+      y0 = on ? eventad::apply_act(y0, p.act) : 0.f;
+      y1 = on ? eventad::apply_act(y1, p.act) : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(
+          p.out + static_cast<long long>(row) * p.o + col) =
+          __floats2bfloat162_rn(y0, y1);
     }
-    const float y = node_mask[row] ? eventad::apply_act(pre, act) : 0.f;
-    out[static_cast<long long>(row) * o_ch + o] = __float2bfloat16(y);
   }
+}
+
+template <int TM, int WN, int NBW, int MINB>
+int run(const Params& p, size_t smem, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        shift_block_kernel<TM, WN, NBW, MINB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const int blocks = (p.n + TM - 1) / TM;
+  shift_block_kernel<TM, WN, NBW, MINB>
+      <<<blocks, (TM / 16) * WN * 32, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int copy_width(const void* table, int c) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(table);
+  if (c % 8 == 0 && a % 16 == 0) return 8;
+  if (c % 2 == 0 && a % 4 == 0) return 2;
+  return 1;
 }
 
 }  // namespace
 
-// src [N, C] bf16, u [N, S, 2] f32, mq [N, S] uint8, node_mask [N] uint8,
-// d_offs [S] int32, tap_mxy [T, 2] / tap_ptr [T+1] / tap_slots [nnz] int32
-// (the static tap -> slots lists), w_sel [T, C, O] f32, root [C, O] f32, ab
-// [O, 4] f32, xs [N, Cs] bf16 and skip_lin [Cs, O] f32 (NULL without skip)
-// -> out [N, O] bf16.  O must divide 256 and lie in [8, 128].
+// src [N, C] bf16, u [N, S, 2] f32, mq [N, S] and node_mask [N] of one byte
+// each (uint8 or bool), d_offs [S] int32 with halo = max |d_off|, tap_mxy
+// [T, 2] / tap_ptr [T+1] / tap_slots [nnz] int32 (the static tap -> slots
+// lists), wpack [T+1, O, CS] bf16 (the used taps of W then root, each
+// transposed, CS = pad16(C) + 8, pads zero), ab [O, 4] f32 (a, b, a_s, b_s),
+// xs [N, Cs] bf16 and skpack [O, CSS] bf16 (NULL without skip) -> out [N, O]
+// bf16.  O a multiple of 8 up to 128, T at most 64, ks at most 16, S at
+// most 32.
 EVENTAD_API int eventad_shift_block(
     const void* src, int c, const void* u, const void* mq,
-    const void* node_mask, const void* d_offs, int s_slots,
+    const void* node_mask, const void* d_offs, int s_slots, int halo,
     const void* tap_mxy, const void* tap_ptr, const void* tap_slots,
-    int n_taps, const void* w_sel, const void* root, const void* ab,
-    const void* xs, int cs, const void* skip_lin, int n, int o_ch, int ks,
-    int act, void* out, void* stream) {
+    int n_taps, int nnz, const void* wpack, const void* ab, const void* xs,
+    int cs, const void* skpack, int n, int o_ch, int ks, int act,
+    void* out, void* stream) {
   if (n == 0) return 0;
-  if (o_ch < 8 || o_ch > 128 || kThreads % o_ch != 0)
+  if (o_ch < 8 || o_ch > 128 || o_ch % 8 != 0 || n_taps < 0 || n_taps > 64 ||
+      ks < 2 || ks > 16 || c < 1 || halo < 0 || s_slots < 1 || s_slots > 32 ||
+      (xs != nullptr && cs < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = block_rows(o_ch);
-  const size_t smem = sizeof(float) * static_cast<size_t>(rows) *
-                      (c + 4 * static_cast<size_t>(s_slots));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        shift_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  Params p;
+  p.src = static_cast<const bf16*>(src); p.c = c;
+  p.u = static_cast<const float*>(u);
+  p.mq = static_cast<const uint8_t*>(mq);
+  p.node_mask = static_cast<const uint8_t*>(node_mask);
+  p.d_offs = static_cast<const int*>(d_offs);
+  p.s_slots = s_slots; p.halo = halo;
+  p.tap_mxy = static_cast<const int*>(tap_mxy);
+  p.tap_ptr = static_cast<const int*>(tap_ptr);
+  p.tap_slots = static_cast<const int*>(tap_slots);
+  p.n_taps = n_taps; p.nnz = nnz;
+  p.wpack = static_cast<const bf16*>(wpack);
+  p.ab = static_cast<const float*>(ab);
+  p.xs = static_cast<const bf16*>(xs); p.cs = xs != nullptr ? cs : 0;
+  p.skpack = static_cast<const bf16*>(skpack);
+  p.n = n; p.o = o_ch; p.ks = ks; p.act = act;
+  p.out = static_cast<bf16*>(out);
+  p.cstride = pad_stride(c);
+  p.csstride = xs != nullptr ? pad_stride(cs) : 8;
+  p.src_vw = copy_width(src, c);
+  p.xs_vw = xs != nullptr ? copy_width(xs, cs) : 1;
+
+  static int n_sms = 0;
+  if (n_sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
+    if (n_sms <= 0) n_sms = 132;
   }
-  const int blocks = (n + rows - 1) / rows;
-  shift_block_kernel<<<blocks, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(src), c, static_cast<const float*>(u),
-      static_cast<const uint8_t*>(mq), static_cast<const uint8_t*>(node_mask),
-      static_cast<const int*>(d_offs), s_slots,
-      static_cast<const int*>(tap_mxy), static_cast<const int*>(tap_ptr),
-      static_cast<const int*>(tap_slots), n_taps,
-      static_cast<const float*>(w_sel), static_cast<const float*>(root),
-      static_cast<const float*>(ab), static_cast<const __nv_bfloat16*>(xs), cs,
-      static_cast<const float*>(skip_lin), n, o_ch, ks, act, rows,
-      static_cast<__nv_bfloat16*>(out));
-  return static_cast<int>(cudaGetLastError());
+  // by N: 128 rows where that still fills three quarters of the SMs, else
+  // 32 where that gives a block per SM, else 16; a tile that does not fit
+  // in shared memory gives way to the next smaller one
+  int tm = 4 * ((n + 127) / 128) >= 3 * n_sms ? 128
+           : ((n + 31) / 32 >= n_sms ? 32 : 16);
+  auto smem_of = [&](int rows) {
+    return make_layout(rows, p.cstride, p.csstride, xs != nullptr, o_ch, halo,
+                       s_slots, nnz, n_taps, ks).total;
+  };
+  if (tm == 128 && smem_of(128) > static_cast<size_t>(kMaxSmem)) tm = 32;
+  if (tm == 32 && smem_of(32) > static_cast<size_t>(kMaxSmem)) tm = 16;
+  const size_t smem = smem_of(tm);
+  if (smem > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tm == 128) return run<128, 2, 8, 1>(p, smem, s);
+  if (tm == 32) return run<32, 8, 2, 2>(p, smem, s);
+  return run<16, 16, 1, 2>(p, smem, s);
 }

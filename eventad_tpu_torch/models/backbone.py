@@ -42,7 +42,8 @@ from ..ops.spline_basis import ACTS
 from ..ops.spline_conv import (SplineConv, center_index, offset_attr,
                                spline_conv, tap_ranges)
 from ..ops import spline_fused
-from ..ops.spline_shift import prepare_shift, shift_spline_conv
+from ..ops.spline_shift import (pack_shift_weights, prepare_shift,
+                                shift_spline_conv)
 from ..ops.upsample_flat import upsample_rows
 from .graph import Graph, neighbor_rows, sample_image_features, \
     upsample_lookup
@@ -141,6 +142,48 @@ def _fold_bn_affine(bn: BatchNorm, bias, dt):
     return a, b
 
 
+def whole_layer_operands(layer: Layer, dt, tap_idx=None) -> tuple:
+    """What the whole-layer kernels (K2, K3) take from ``layer`` in compute
+    dtype ``dt``: ``(w1, root1, a1, c1, w2, root2, a2, c2, skip_lin, a_s,
+    c_s)``, the weights cast to ``dt`` and the three eval BNs folded into
+    f32 affines; with ``tap_idx`` (a pooled level's used taps,
+    ``ShiftPrep.tap_idx``) followed by the two conv blocks' ``ShiftWeights``
+    for K3.  Kept on the layer while its parameters and buffers (and
+    ``tap_idx``) are the same objects with the same storage and ``_version``
+    (an in-place update makes them anew; a write through ``tensor.data``
+    does not move ``_version`` and is not seen), so a forward with unchanged
+    weights casts, folds and packs nothing."""
+    b1, b2 = layer.block1, layer.block2
+    # what the operands are made from, named one by one: walking the module
+    # tree (parameters(), buffers()) costs more than the casts it saves
+    sources = [b1.conv.weight, b1.conv.root, b2.conv.weight, b2.conv.root,
+               layer.skip_lin, layer.skip_lin_bias]
+    for bn in (b1.bn, b2.bn, layer.skip_bn):
+        sources += [bn.scale, bn.offset, bn.mean, bn.var]
+    if tap_idx is not None:
+        sources.append(tap_idx)
+    key = (dt,) + tuple((id(t), t._version, t.data_ptr()) for t in sources)
+    kept = layer.__dict__.get("_whole_layer_operands")
+    if kept is None or kept[0] != key:
+        with torch.no_grad():
+            a1, c1 = _fold_bn_affine(b1.bn, None, dt)
+            a2, c2 = _fold_bn_affine(b2.bn, None, dt)
+            a_s, c_s = _fold_bn_affine(layer.skip_bn, layer.skip_lin_bias,
+                                       dt)
+            ops = tuple(t.detach() for t in (
+                b1.conv.weight.to(dt), b1.conv.root.to(dt), a1, c1,
+                b2.conv.weight.to(dt), b2.conv.root.to(dt), a2, c2,
+                layer.skip_lin.to(dt), a_s, c_s))
+            if tap_idx is not None:
+                ops += (pack_shift_weights(tap_idx, *ops[:4]),
+                        pack_shift_weights(tap_idx, *ops[4:8],
+                                           (None,) + ops[8:]))
+        # tap_idx is held with the key so that no other tensor takes its id
+        kept = (key, ops, tap_idx)
+        layer.__dict__["_whole_layer_operands"] = kept
+    return kept[1]
+
+
 def level0_attr_range(bc: BackboneConfig):
     """Static level-0 attr bounds from the graph contract (every edge's
     pixel offset satisfies ``|dx|, |dy| <= radius_px``): a narrow band
@@ -231,22 +274,21 @@ def apply_layer(layer: Layer, g: Graph, *, kernel_size: int, aggr: str,
     if use_fused:
         u = torch.clamp(attr_f32, 0.0, 1.0) * (ks - 1)
     if use_fused and use_whole_layer:
-        w1, w2 = b1.conv.weight.to(dt), b2.conv.weight.to(dt)
-        root1, root2 = b1.conv.root.to(dt), b2.conv.root.to(dt)
-        a1, c1 = _fold_bn_affine(b1.bn, None, dt)
-        a2, c2 = _fold_bn_affine(b2.bn, None, dt)
-        a_s, c_s = _fold_bn_affine(layer.skip_bn, layer.skip_lin_bias, dt)
-        skip_lin = layer.skip_lin.to(dt)
         if grid is not None:
             prep = prepare_shift(u, nbr_mask, g.node_mask, grid=grid,
                                  span=span, cart_max=cart_max, width=width,
                                  height=height, kernel_size=ks)
+            (w1, root1, a1, c1, w2, root2, a2, c2, skip_lin, a_s, c_s,
+             pack1, pack2) = whole_layer_operands(layer, dt, prep.tap_idx)
             h = shift_spline_conv(x_in, prep, w1, root1, a1, c1,
-                                  act=activation_name)
+                                  act=activation_name, pack=pack1)
             out = shift_spline_conv(h, prep, w2, root2, a2, c2,
                                     act=activation_name,
-                                    skip=(x_in, skip_lin, a_s, c_s))
+                                    skip=(x_in, skip_lin, a_s, c_s),
+                                    pack=pack2)
         else:
+            (w1, root1, a1, c1, w2, root2, a2, c2, skip_lin, a_s,
+             c_s) = whole_layer_operands(layer, dt)
             ranges = (tap_ranges(ks, attr_range) if attr_range
                       else ((0, ks - 1), (0, ks - 1)))
             if fold_self:
@@ -322,10 +364,14 @@ def backbone_forward(backbone: Backbone, g0: Graph,
         c0 = image_feats[0].shape[-1]
         maps01 = [image_feats[0].to(dt), image_feats[1].to(dt)]
         if bc.bilinear_kernel:
-            rows01 = torch.cat(
-                [sample_bilinear(f, g0.pos, g0.node_mask,
-                                 full_width=bc.width, full_height=bc.height,
-                                 batch=g0.batch) for f in maps01], dim=1)
+            # one table, each map's sampler writes its column range
+            rows01 = torch.empty(
+                (g0.pos.shape[0], c0 + maps01[1].shape[-1]), dtype=dt,
+                device=g0.pos.device)
+            for f, cols in zip(maps01, (rows01[:, :c0], rows01[:, c0:])):
+                sample_bilinear(f, g0.pos, g0.node_mask, full_width=bc.width,
+                                full_height=bc.height, batch=g0.batch,
+                                out=cols)
         elif dt == torch.bfloat16 and not training:
             rows01 = upsample_rows(maps01, g0.pos, g0.batch, bc.width,
                                    bc.height)

@@ -9,7 +9,9 @@ likewise; a tap outside the map counts as zero and a masked row is zero
 ``models/graph.sample_image_features``).  Both versions blend the four taps
 in f32 and round once to ``feat.dtype``.  Any N and any C; the item of a row
 comes from ``batch`` or, without it, from the row's block (``N / B`` rows
-per item).
+per item).  ``out``, where given, is a ``[N, C]`` view with unit channel
+stride and any row stride (a column range of a wider table) that receives
+the result; nothing else of its storage is written.
 """
 from __future__ import annotations
 
@@ -37,10 +39,26 @@ def _items(n: int, b: int, batch, device) -> torch.Tensor:
     return torch.arange(n, device=device) // max(n // b, 1)
 
 
+def _check_out(out, feat, n: int, c: int) -> None:
+    if out.device != feat.device or out.dtype != feat.dtype:
+        raise ValueError(f"out: expected {feat.dtype} on {feat.device}, got "
+                         f"{out.dtype} on {out.device}")
+    if tuple(out.shape) != (n, c):
+        raise ValueError(f"out: expected shape {(n, c)}, got "
+                         f"{tuple(out.shape)}")
+    if c > 1 and out.stride(1) != 1:
+        raise ValueError("out: expected unit channel stride")
+    if n > 1 and out.stride(0) < c:
+        raise ValueError("out: rows overlap")
+
+
 def sample_bilinear_plain(feat, pos, node_mask, *, full_width: int,
-                          full_height: int, batch=None) -> torch.Tensor:
+                          full_height: int, batch=None,
+                          out=None) -> torch.Tensor:
     """Plain PyTorch version: four indexed taps, the blend in f32."""
     b, hp, wp, _ = feat.shape
+    if out is not None:
+        _check_out(out, feat, pos.shape[0], feat.shape[-1])
     x0, tx, okx0, okx1 = _axis(pos[:, 0].float(), full_width, wp)
     y0, ty, oky0, oky1 = _axis(pos[:, 1].float(), full_height, hp)
     bi = _items(pos.shape[0], b, batch, pos.device)
@@ -52,31 +70,36 @@ def sample_bilinear_plain(feat, pos, node_mask, *, full_width: int,
         return torch.where(ok[:, None], v, 0.0)
 
     tx, ty = tx[:, None], ty[:, None]
-    out = ((1 - ty) * ((1 - tx) * tap(y0, x0, oky0 & okx0)
+    res = ((1 - ty) * ((1 - tx) * tap(y0, x0, oky0 & okx0)
                        + tx * tap(y0, x0 + 1, oky0 & okx1))
            + ty * ((1 - tx) * tap(y0 + 1, x0, oky1 & okx0)
                    + tx * tap(y0 + 1, x0 + 1, oky1 & okx1)))
-    return torch.where((node_mask & inside)[:, None], out, 0.0) \
+    res = torch.where((node_mask & inside)[:, None], res, 0.0) \
         .to(feat.dtype)
+    return res if out is None else out.copy_(res)
 
 
 def sample_bilinear_cuda(feat, pos, node_mask, *, full_width: int,
-                         full_height: int, batch=None) -> torch.Tensor:
-    """One launch of ``csrc/bilinear_sample.cu``."""
+                         full_height: int, batch=None,
+                         out=None) -> torch.Tensor:
+    """One launch of ``csrc/bilinear_sample.cu``.  The mask is read as the
+    bytes of the ``bool`` (or ``uint8``) tensor it is."""
     if feat.dim() != 4:
         raise ValueError(f"feat: expected [B, H, W, C], got "
                          f"{tuple(feat.shape)}")
     if feat.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"feat: expected float32 or bfloat16, got "
                          f"{feat.dtype}")
+    if node_mask.dtype not in (torch.bool, torch.uint8):
+        raise ValueError(f"node_mask: expected bool or uint8, got "
+                         f"{node_mask.dtype}")
     b, hp, wp, c = feat.shape
     require(feat, "feat", dtype=feat.dtype)
     if pos.dim() != 2 or pos.shape[1] < 2:
         raise ValueError(f"pos: expected [N, >=2], got {tuple(pos.shape)}")
     n, stride = pos.shape
     require(pos, "pos", dtype=torch.float32, shape=(n, stride))
-    mask_u8 = node_mask.to(torch.uint8).contiguous()
-    require(mask_u8, "node_mask", dtype=torch.uint8, shape=(n,))
+    require(node_mask, "node_mask", dtype=node_mask.dtype, shape=(n,))
     per_item = 0
     if batch is not None:
         require(batch, "batch", dtype=torch.int32, shape=(n,))
@@ -84,12 +107,16 @@ def sample_bilinear_cuda(feat, pos, node_mask, *, full_width: int,
         raise ValueError(f"{n} rows do not split into {b} items: pass batch")
     else:
         per_item = max(n // b, 1)
-    out = torch.empty((n, c), dtype=feat.dtype, device=feat.device)
+    if out is None:
+        out = torch.empty((n, c), dtype=feat.dtype, device=feat.device)
+    else:
+        _check_out(out, feat, n, c)
     if n * c == 0:
         return out
     launch("eventad_bilinear_sample", ptr(feat), b, hp, wp, c,
            feat.element_size(), ptr(pos), stride, ptr(batch), per_item,
-           ptr(mask_u8), n, full_width, full_height, ptr(out))
+           ptr(node_mask), n, full_width, full_height, ptr(out),
+           out.stride(0) if n > 1 else c)
     sample_bilinear_cuda.launches += 1
     return out
 

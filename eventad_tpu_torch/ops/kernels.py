@@ -41,10 +41,11 @@ SIGNATURES = {
     "eventad_fused_spline_conv":
         [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "eventad_bilinear_sample":
-        [_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P],
+        [_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P, _I,
+         _P],
     "eventad_shift_block":
-        [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I,
-         _P, _I, _I, _I, _I, _P, _P],
+        [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P,
+         _I, _P, _I, _I, _I, _I, _P, _P],
     "eventad_gather_window_rows":
         [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "eventad_scatter_window_rows":

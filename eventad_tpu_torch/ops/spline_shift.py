@@ -12,6 +12,14 @@ Computes
                    [+ a_s * (x_skip @ skip_lin) + b_s]) * node_mask)
 
 with ``z_m = sum_{s in slots(m)} mq cy[my] cx[mx] src[n + d_off[s]]``.
+
+The CUDA kernel multiplies on the tensor cores from bf16 operands: ``z_m``
+is rounded to bf16 before its product (as the TPU kernel rounds it), and the
+weights are packed as a :class:`ShiftWeights` (:func:`pack_shift_weights`;
+the owner of the weights keeps the pack, ``models/backbone.
+whole_layer_operands``); the tables that depend on the geometry alone are
+made once per geometry and device (:func:`static_tables`).  The plain
+version sums ``z`` in f32 unless ``kernel_rounding`` is asked for.
 """
 from __future__ import annotations
 
@@ -54,9 +62,11 @@ def tap_windows(grid: tuple, span: int, cart_max: float, width: int,
 
 
 class ShiftPrep(NamedTuple):
-    """Source-independent operands, shared by both conv blocks of a layer."""
+    """Source-independent operands, shared by both conv blocks of a layer.
+    Everything from ``d_offs`` on depends on the geometry alone and is made
+    once per geometry and device (:func:`static_tables`)."""
     u: torch.Tensor          # [N, S, 2] f32 spline coords
-    mq: torch.Tensor         # [N, S] uint8 edge mask
+    mq: torch.Tensor         # [N, S] uint8 edge mask (the bool's own bytes)
     node_mask: torch.Tensor  # [N] bool
     d_offs: torch.Tensor     # [S] int32 flat row offset oy*nx + ox
     tap_mxy: torch.Tensor    # [T, 2] int32 (mx, my) of each used tap
@@ -66,18 +76,19 @@ class ShiftPrep(NamedTuple):
     win_mask: torch.Tensor   # [S, ks*ks] bool: tap inside the slot window
     kernel_size: int
     offsets: Tuple[int, ...]
+    halo: int                # max |offset|: rows a block reads beyond its own
 
 
-def prepare_shift(u: torch.Tensor, nbr_mask: torch.Tensor,
-                  node_mask: torch.Tensor, *, grid: tuple, span: int,
-                  cart_max: float, width: int, height: int,
-                  kernel_size: int) -> ShiftPrep:
-    """``u [N, S, 2]``: spline coords ``clip(attr,0,1)*(ks-1)`` in
-    ``neighbor_rows`` slot order, ``N = batch * ny * nx``."""
+@functools.lru_cache(maxsize=None)
+def static_tables(grid: tuple, span: int, cart_max: float, width: int,
+                  height: int, kernel_size: int, device: str) -> tuple:
+    """The tables of :class:`ShiftPrep` that depend on the geometry alone
+    (``d_offs`` ... ``halo``, in field order), on ``device``.  Cached: a
+    second call returns the same tensors, so no forward after the first
+    copies them to the card."""
     nx, ny = grid
     side = 2 * span + 1
     ks = kernel_size
-    dev = u.device
     offsets = tuple((s // side - span) * nx + (s % side - span)
                     for s in range(side * side))
     wins = tap_windows((nx, ny), span, cart_max, width, height, ks)
@@ -95,14 +106,28 @@ def prepare_shift(u: torch.Tensor, nbr_mask: torch.Tensor,
                 ptrs.append(len(slots))
 
     def i32(v):
-        return torch.tensor(v, dtype=torch.int32, device=dev)
+        return torch.tensor(v, dtype=torch.int32, device=device)
 
+    return (i32(offsets), i32(mxy).reshape(-1, 2), i32(ptrs), i32(slots),
+            torch.tensor([my * ks + mx for mx, my in mxy], device=device),
+            win_mask.to(device), ks, offsets, max(map(abs, offsets)))
+
+
+def prepare_shift(u: torch.Tensor, nbr_mask: torch.Tensor,
+                  node_mask: torch.Tensor, *, grid: tuple, span: int,
+                  cart_max: float, width: int, height: int,
+                  kernel_size: int) -> ShiftPrep:
+    """``u [N, S, 2]``: spline coords ``clip(attr,0,1)*(ks-1)`` in
+    ``neighbor_rows`` slot order, ``N = batch * ny * nx``.  A ``bool`` edge
+    mask is taken as its bytes, an f32 contiguous ``u`` as it is: after the
+    first call for a geometry this launches no device operation for them."""
+    mq = nbr_mask.contiguous()
+    mq = mq.view(torch.uint8) if mq.dtype == torch.bool \
+        else mq.to(torch.uint8)
     return ShiftPrep(
-        u.to(torch.float32).contiguous(),
-        nbr_mask.to(torch.uint8).contiguous(), node_mask, i32(offsets),
-        i32(mxy).reshape(-1, 2), i32(ptrs), i32(slots),
-        torch.tensor([my * ks + mx for mx, my in mxy], device=dev),
-        win_mask.to(dev), ks, offsets)
+        u.to(torch.float32).contiguous(), mq, node_mask,
+        *static_tables(tuple(grid), span, float(cart_max), width, height,
+                       kernel_size, str(u.device)))
 
 
 def _masked_act(pre, node_mask, act):
@@ -112,10 +137,18 @@ def _masked_act(pre, node_mask, act):
 
 def shift_spline_conv_plain(src, prep: ShiftPrep, weight, root, a, b, *,
                             act: Optional[str],
-                            skip: Optional[tuple] = None) -> torch.Tensor:
+                            skip: Optional[tuple] = None,
+                            pack: Optional["ShiftWeights"] = None,
+                            kernel_rounding: bool = False) -> torch.Tensor:
     """Plain PyTorch version.  ``skip = (x_skip, skip_lin, a_s, b_s)``.
     Sums in f32; returns ``[N, O]`` in ``src.dtype`` (bf16 on the kernel's
-    path)."""
+    path).  ``pack`` is the kernel's operand and unused here, so that one
+    call site serves both.  ``kernel_rounding``: round where the kernels do
+    (the TPU's and the card's): ``weight``, ``root`` and ``skip_lin`` to
+    bf16 and each tap's ``z`` to bf16 before its product."""
+    def wt(t):
+        return (t.to(torch.bfloat16) if kernel_rounding else t).float()
+
     n = src.shape[0]
     ks = prep.kernel_size
     pad = max(abs(d) for d in prep.offsets)
@@ -127,63 +160,140 @@ def shift_spline_conv_plain(src, prep: ShiftPrep, weight, root, a, b, *,
                          for mx in range(ks)], -1)       # [N, S, ks*ks]
     coeff = coeff * prep.mq[..., None].float() * prep.win_mask.float()
     z = torch.einsum("nsm,nsc->nmc", coeff, xj)
-    wf = weight.float()
+    if kernel_rounding:
+        z = z.to(torch.bfloat16).float()
+    wf = wt(weight)
     pre = (z.reshape(n, -1) @ wf.reshape(-1, wf.shape[-1])
-           + xf @ root.float()) * a.float() + b.float()
+           + xf @ wt(root)) * a.float() + b.float()
     if skip is not None:
         x_skip, skip_lin, a_s, b_s = skip
-        pre = pre + (x_skip.float() @ skip_lin.float()) * a_s.float() \
+        pre = pre + (x_skip.float() @ wt(skip_lin)) * a_s.float() \
             + b_s.float()
     return _masked_act(pre, prep.node_mask, act).to(src.dtype)
 
 
+class ShiftWeights(NamedTuple):
+    """One conv block's operands in the layout ``csrc/spline_shift.cu``
+    multiplies from."""
+    w: torch.Tensor               # [T + 1, O, CS] bf16: used taps, then root
+    skip: Optional[torch.Tensor]  # [O, CSS] bf16 or None
+    ab: torch.Tensor              # [O, 4] f32: a, b, a_s, b_s
+    c: int
+    cs: int                       # skip channels, 0 without skip
+
+
+def _pad_stride(c: int) -> int:
+    """Row stride of a packed operand: ``c`` padded to the MMA depth of 16,
+    plus 8: an odd number of 16-byte units, so that eight consecutive rows
+    fall into eight different bank groups of shared memory."""
+    return -(-c // 16) * 16 + 8
+
+
+def pack_shift_weights(tap_idx: torch.Tensor, weight, root, a, b,
+                       skip: Optional[tuple] = None) -> ShiftWeights:
+    """``weight [ks*ks, C, O]``, ``root [C, O]``, ``a``/``b [O]`` and
+    ``skip = (_, skip_lin [Cs, O], a_s, b_s)`` as a :class:`ShiftWeights`:
+    each matrix transposed to ``[O, C]`` (channels contiguous), rounded to
+    bf16 and zero-padded to :func:`_pad_stride`."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    c, o = root.shape
+
+    def packed(mats, cin):       # [M, cin, O] -> [M, O, stride]
+        out = torch.zeros((mats.shape[0], o, _pad_stride(cin)), dtype=bf16,
+                          device=mats.device)
+        out[..., :cin] = mats.transpose(1, 2).to(bf16)
+        return out
+
+    w = packed(torch.cat([weight[tap_idx].to(bf16), root[None].to(bf16)]), c)
+    cols = [a.to(f32), b.to(f32)]
+    sk, cs = None, 0
+    if skip is not None:
+        _, skip_lin, a_s, b_s = skip
+        cs = skip_lin.shape[0]
+        sk = packed(skip_lin[None], cs)[0]
+        cols += [a_s.to(f32), b_s.to(f32)]
+    else:
+        cols += [torch.zeros_like(cols[0])] * 2
+    return ShiftWeights(w, sk, torch.stack(cols, 1).contiguous(), c, cs)
+
+
+def unpack_shift_weights(pack: ShiftWeights, prep: ShiftPrep):
+    """``(weight [ks*ks, C, O], root, a, b, skip_lin or None, a_s, b_s)``
+    back from a pack, bf16 weights and f32 affines; taps outside every
+    slot's window, which the pack does not hold, are zero."""
+    t = pack.w.shape[0] - 1
+    ks = prep.kernel_size
+    mats = pack.w[..., :pack.c].transpose(1, 2)         # [T + 1, C, O]
+    weight = torch.zeros((ks * ks,) + tuple(mats.shape[1:]),
+                         dtype=mats.dtype, device=mats.device)
+    weight[prep.tap_idx] = mats[:t]
+    skip_lin = None if pack.skip is None else pack.skip[:, :pack.cs].t()
+    return (weight, mats[t], pack.ab[:, 0], pack.ab[:, 1], skip_lin,
+            pack.ab[:, 2], pack.ab[:, 3])
+
+
+def shift_spline_conv_packed_plain(src, prep: ShiftPrep, pack: ShiftWeights,
+                                   *, act: Optional[str], x_skip=None,
+                                   kernel_rounding: bool = False):
+    """The plain version computed from the packed operands: what the CUDA
+    kernel is given, through :func:`shift_spline_conv_plain`."""
+    weight, root, a, b, skip_lin, a_s, b_s = unpack_shift_weights(pack, prep)
+    if (x_skip is None) != (skip_lin is None):
+        raise ValueError("x_skip and the pack's skip weights go together")
+    skip = None if x_skip is None else (x_skip, skip_lin, a_s, b_s)
+    return shift_spline_conv_plain(src, prep, weight, root, a, b, act=act,
+                                   skip=skip,
+                                   kernel_rounding=kernel_rounding)
+
+
 def shift_spline_conv_cuda(src, prep: ShiftPrep, weight, root, a, b, *,
                            act: Optional[str],
-                           skip: Optional[tuple] = None) -> torch.Tensor:
-    """One launch of ``csrc/spline_shift.cu``."""
+                           skip: Optional[tuple] = None,
+                           pack: Optional[ShiftWeights] = None
+                           ) -> torch.Tensor:
+    """One launch of ``csrc/spline_shift.cu``.  ``pack``: the operands as
+    :func:`pack_shift_weights` packs them for ``prep.tap_idx``, kept by the
+    caller while they are unchanged; without it they are packed here, on
+    every call."""
     n, c = src.shape
     s_slots = len(prep.offsets)
     o = weight.shape[-1]
-    if not (8 <= o <= 128 and 256 % o == 0):
-        raise ValueError(f"output channels must divide 256 and lie in "
+    if not (8 <= o <= 128 and o % 8 == 0):
+        raise ValueError(f"output channels must be a multiple of 8 in "
                          f"[8, 128], got {o}")
     require(src, "src", dtype=torch.bfloat16, shape=(n, c))
     require(prep.u, "prep.u", dtype=torch.float32, shape=(n, s_slots, 2))
     require(prep.mq, "prep.mq", dtype=torch.uint8, shape=(n, s_slots))
+    require(prep.node_mask, "prep.node_mask", dtype=torch.bool, shape=(n,))
     ks = prep.kernel_size
-    if weight.shape != (ks * ks, c, o):
-        raise ValueError(f"weight: expected {(ks * ks, c, o)}, got "
-                         f"{tuple(weight.shape)}")
-    f32 = torch.float32
-    w_sel = weight[prep.tap_idx].to(f32).contiguous()
-    cols = [a.to(f32), b.to(f32)]
-    xs = skl = None
-    cs = 0
+    n_taps = prep.tap_idx.shape[0]
+    if weight.shape != (ks * ks, c, o) or root.shape != (c, o):
+        raise ValueError(f"weight, root: expected {(ks * ks, c, o)} and "
+                         f"{(c, o)}, got {tuple(weight.shape)} and "
+                         f"{tuple(root.shape)}")
+    if n_taps > 64 or ks > 16 or s_slots > 32:
+        raise ValueError(f"at most 64 used taps, a kernel size of 16 and 32 "
+                         f"slots, got {n_taps}, {ks} and {s_slots}")
+    xs = None
     if skip is not None:
-        x_skip, skip_lin, a_s, b_s = skip
-        cs = x_skip.shape[1]
-        xs = x_skip.contiguous()
-        require(xs, "x_skip", dtype=torch.bfloat16, shape=(n, cs))
-        skl = skip_lin.to(f32).contiguous()
-        cols += [a_s.to(f32), b_s.to(f32)]
-    else:
-        cols += [torch.zeros_like(cols[0])] * 2
-    ab = torch.stack(cols, 1).contiguous()
-    root_f = root.to(f32).contiguous()
-    node_u8 = prep.node_mask.to(torch.uint8).contiguous()
-    require(w_sel, "weight", dtype=f32)
-    require(root_f, "root", dtype=f32, shape=(c, o))
-    require(ab, "a/b", dtype=f32, shape=(o, 4))
-    require(node_u8, "prep.node_mask", dtype=torch.uint8, shape=(n,))
-    if skl is not None:
-        require(skl, "skip_lin", dtype=f32, shape=(cs, o))
+        xs = skip[0]
+        require(xs, "x_skip", dtype=torch.bfloat16,
+                shape=(n, skip[1].shape[0]))
+    if pack is None:
+        pack = pack_shift_weights(prep.tap_idx, weight, root, a, b, skip)
+    require(pack.w, "pack.w", dtype=torch.bfloat16,
+            shape=(n_taps + 1, o, _pad_stride(c)))
+    if pack.cs != (skip[1].shape[0] if skip is not None else 0):
+        raise ValueError(f"pack with {pack.cs} skip channels does not "
+                         f"belong to these operands")
     out = torch.empty((n, o), dtype=torch.bfloat16, device=src.device)
     if n:
         launch("eventad_shift_block", ptr(src), c, ptr(prep.u), ptr(prep.mq),
-               ptr(node_u8), ptr(prep.d_offs), s_slots, ptr(prep.tap_mxy),
-               ptr(prep.tap_ptr), ptr(prep.tap_slots), len(prep.tap_idx),
-               ptr(w_sel), ptr(root_f), ptr(ab), ptr(xs), cs, ptr(skl), n, o,
-               ks, ACT_CODES[act], ptr(out))
+               ptr(prep.node_mask), ptr(prep.d_offs), s_slots, prep.halo,
+               ptr(prep.tap_mxy), ptr(prep.tap_ptr), ptr(prep.tap_slots),
+               n_taps, prep.tap_slots.shape[0], ptr(pack.w), ptr(pack.ab),
+               ptr(xs), pack.cs, ptr(pack.skip), n, o, ks, ACT_CODES[act],
+               ptr(out))
         shift_spline_conv_cuda.launches += 1
     return out
 

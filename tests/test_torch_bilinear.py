@@ -117,3 +117,59 @@ def test_cuda_wrapper_refuses_cpu_tensors():
                              torch.from_numpy(mask), full_width=W,
                              full_height=H, batch=torch.from_numpy(batch))
     assert sample_bilinear_cuda.launches == before
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_out_view_receives_the_column_range_and_nothing_else(bf16):
+    """``out=`` a column range of a wider table: the range equals the call
+    without ``out`` (and the Pallas kernel in interpret mode), every other
+    value of the table keeps its sentinel."""
+    b, n_max, hp, wp, c = 2, 128, 30, 45, 64
+    feat, pos, mask, batch = _inputs(b, n_max, hp, wp, c, False, seed=3)
+    jfeat, tfeat = jnp.asarray(feat), torch.from_numpy(feat)
+    if bf16:
+        jfeat, tfeat = jfeat.astype(jnp.bfloat16), tfeat.bfloat16()
+    args = (tfeat, torch.from_numpy(pos), torch.from_numpy(mask))
+    kw = dict(full_width=W, full_height=H, batch=torch.from_numpy(batch))
+    want = sample_bilinear(*args, **kw)
+    table = torch.full((b * n_max, c + 24), 7.0, dtype=tfeat.dtype)
+    got = sample_bilinear(*args, out=table[:, 16:16 + c], **kw)
+    assert got.data_ptr() == table[:, 16:].data_ptr()
+    assert torch.equal(table[:, 16:16 + c], want)
+    assert (table[:, :16] == 7).all() and (table[:, 16 + c:] == 7).all()
+    kernel = sample_bilinear_mxu(jfeat, jnp.asarray(pos), jnp.asarray(mask),
+                                 full_width=W, full_height=H, batch_size=b,
+                                 interpret=True)
+    tol = BF16_TOL if bf16 else F32_TOL
+    np.testing.assert_allclose(
+        table[:, 16:16 + c].float().numpy(),
+        np.asarray(kernel.astype(jnp.float32)), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("dtype", "out: expected"), ("shape", "out: expected shape"),
+    ("stride", "unit channel stride")])
+def test_out_is_checked(fault, match):
+    feat, pos, mask, batch = _inputs(1, 128, 30, 45, 64, False)
+    n, c = 128, 64
+    out = {"dtype": torch.empty(n, c, dtype=torch.bfloat16),
+           "shape": torch.empty(n, c + 1),
+           "stride": torch.empty(c, n).t()}[fault]
+    with pytest.raises(ValueError, match=match):
+        sample_bilinear(torch.from_numpy(feat), torch.from_numpy(pos),
+                        torch.from_numpy(mask), full_width=W, full_height=H,
+                        out=out)
+
+
+def test_cuda_wrapper_takes_the_bool_mask_as_it_is():
+    """The kernel reads the mask's own bytes: a ``bool`` (or ``uint8``) mask
+    passes the wrapper's checks uncast, any other type is refused."""
+    feat, pos, mask, batch = _inputs(1, 128, 30, 45, 64, False)
+    args = (torch.from_numpy(feat), torch.from_numpy(pos))
+    with pytest.raises(ValueError, match="bool or uint8"):
+        sample_bilinear_cuda(*args, torch.from_numpy(mask).float(),
+                             full_width=W, full_height=H)
+    assert torch.from_numpy(mask).element_size() == 1
+    with pytest.raises(ValueError, match="CUDA"):     # past the mask check
+        sample_bilinear_cuda(*args, torch.from_numpy(mask), full_width=W,
+                             full_height=H)

@@ -12,10 +12,12 @@ from eventad_tpu.ops.spline_conv import SplineConvParams, spline_conv
 from eventad_tpu.ops.spline_shift import (prepare_shift as jprep,
                                           shift_spline_conv as jshift,
                                           tap_windows as jwins)
-from eventad_tpu_torch.ops.spline_shift import (prepare_shift,
-                                                shift_spline_conv_cuda,
-                                                shift_spline_conv_plain,
-                                                tap_windows)
+from eventad_tpu_torch.models.backbone import (Layer, _fold_bn_affine,
+                                                whole_layer_operands)
+from eventad_tpu_torch.ops.spline_shift import (
+    pack_shift_weights, prepare_shift, shift_spline_conv,
+    shift_spline_conv_cuda, shift_spline_conv_packed_plain,
+    shift_spline_conv_plain, static_tables, tap_windows)
 from tests.test_spline_shift import _pooled_graph
 
 import _torch_threads  # noqa: F401  (one intra-op thread)
@@ -136,3 +138,168 @@ def test_cuda_wrapper_refuses_what_it_does_not_take(rng):
     with pytest.raises(ValueError, match="output channels"):
         shift_spline_conv_cuda(xt, prep, t["w"][..., :12], t["r"][:, :12],
                                t["a"][:12], t["b"][:12], act="relu")
+
+
+def _bf16_operands(t, xt, skip):
+    """The operands as the bf16 path hands them over: weights in bf16, the
+    affines in f32."""
+    bf = torch.bfloat16
+    sk = (xt, t["sk"].to(bf), t["a_s"], t["b_s"]) if skip else None
+    return (t["w"].to(bf), t["r"].to(bf), t["a"], t["b"]), sk
+
+
+@pytest.mark.parametrize("skip,cin,cout", [(False, 21, 16), (True, 21, 64),
+                                           (True, 5, 24), (False, 32, 128)])
+def test_pack_reproduces_plain_exactly(rng, skip, cin, cout):
+    """The packed operands (transposed, padded, bf16) hold what the plain
+    version is given: computed from the pack, the result is the same bits."""
+    x, nbr, mask, active, attr, arr, geo = _case(rng, cin=cin, cout=cout,
+                                                 skip=skip)
+    prep, xt, t, _ = _port(x, mask, active, attr, arr, geo, skip,
+                           torch.bfloat16)
+    ops, sk = _bf16_operands(t, xt, skip)
+    pack = pack_shift_weights(prep.tap_idx, *ops, sk)
+    n_taps = prep.tap_idx.shape[0]
+    stride = -(-cin // 16) * 16 + 8
+    assert pack.w.shape == (n_taps + 1, cout, stride)
+    assert pack.w.dtype == torch.bfloat16 and pack.ab.shape == (cout, 4)
+    assert (stride * 2 // 16) % 2 == 1 and (pack.w[..., cin:] == 0).all()
+    assert torch.equal(pack.w[n_taps, :, :cin].t(), ops[1])
+    assert (pack.skip is None) == (not skip) and pack.cs == (cin if skip
+                                                              else 0)
+    want = shift_spline_conv_plain(xt, prep, *ops, act="elu", skip=sk)
+    got = shift_spline_conv_packed_plain(xt, prep, pack, act="elu",
+                                         x_skip=xt if skip else None)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("skip", [False, True])
+def test_kernel_rounding_matches_pallas_interpret_bf16(rng, skip):
+    """With ``z`` and the weights rounded to bf16, as the CUDA kernel rounds
+    them, the plain version stays inside the Pallas kernel's band."""
+    x, nbr, mask, active, attr, arr, geo = _case(rng, cout=64, skip=skip)
+    prep, xt, t, sk = _port(x, mask, active, attr, arr, geo, skip,
+                            torch.bfloat16)
+    got = shift_spline_conv_plain(xt, prep, t["w"], t["r"], t["a"], t["b"],
+                                  act="relu", skip=sk, kernel_rounding=True)
+    ops, skb = _bf16_operands(t, xt, skip)
+    same = shift_spline_conv_packed_plain(
+        xt, prep, pack_shift_weights(prep.tap_idx, *ops, skb), act="relu",
+        x_skip=xt if skip else None, kernel_rounding=True)
+    assert torch.equal(got, same)
+    jp = jprep(jnp.asarray(np.clip(attr, 0, 1) * 4), jnp.asarray(mask),
+               jnp.asarray(active), block=128, **geo)
+    jsk = (jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(arr["sk"]),
+           jnp.asarray(arr["a_s"]), jnp.asarray(arr["b_s"])) if skip \
+        else None
+    want = np.asarray(jshift(
+        jnp.asarray(x).astype(jnp.bfloat16), jp, jnp.asarray(arr["w"]),
+        jnp.asarray(arr["r"]), jnp.asarray(arr["a"]), jnp.asarray(arr["b"]),
+        kernel_size=5, act="relu", skip=jsk, interpret=True), np.float32)
+    rel = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
+    assert rel < BF16_TOL, rel
+
+
+def test_static_tables_are_made_once_per_geometry(rng):
+    x, nbr, mask, active, attr, arr, geo = _case(rng)
+    prep, *_ = _port(x, mask, active, attr, arr, geo, False, torch.bfloat16)
+    again, *_ = _port(x, mask, active, attr, arr, geo, False, torch.bfloat16)
+    static = ("d_offs", "tap_mxy", "tap_ptr", "tap_slots", "tap_idx",
+              "win_mask")
+    for name in static:
+        assert getattr(prep, name) is getattr(again, name), name
+    # a bool edge mask is read as its own bytes, not cast
+    assert prep.mq.dtype == torch.uint8
+    assert prep.mq.data_ptr() == torch.from_numpy(mask).data_ptr()
+    other = static_tables((7, 5), 2, geo["cart_max"], geo["width"],
+                          geo["height"], 5, "cpu")
+    assert other[0] is not prep.d_offs
+    assert other[0].tolist() != prep.d_offs.tolist()
+
+
+def test_pack_follows_an_in_place_weight_change(rng):
+    """The layer keeps its two packs beside its cast operands: the same
+    objects while nothing changes, packed anew after an in-place update and
+    for another geometry's taps."""
+    x, nbr, mask, active, attr, arr, geo = _case(rng, skip=True)
+    prep, xt, t, _ = _port(x, mask, active, attr, arr, geo, True,
+                           torch.bfloat16)
+    bf = torch.bfloat16
+    layer = Layer(21, 16, 5, torch.Generator().manual_seed(3))
+    ops = whole_layer_operands(layer, bf, prep.tap_idx)
+    assert len(ops) == 13
+    assert all(p is q for p, q in zip(
+        ops, whole_layer_operands(layer, bf, prep.tap_idx)))
+    pack1, pack2 = ops[11:]
+    h = shift_spline_conv_plain(xt, prep, *ops[:4], act="elu")
+    assert torch.equal(h, shift_spline_conv_packed_plain(xt, prep, pack1,
+                                                         act="elu"))
+    # on the CPU the call site's pack= changes nothing
+    assert torch.equal(h, shift_spline_conv(xt, prep, *ops[:4], act="elu",
+                                            pack=pack1))
+    before = shift_spline_conv_packed_plain(h, prep, pack2, act=None,
+                                            x_skip=xt)
+    assert torch.equal(before, shift_spline_conv_plain(
+        h, prep, *ops[4:8], act=None, skip=(xt,) + ops[8:11]))
+    with torch.no_grad():
+        for changed in (layer.block2.conv.weight, layer.block2.conv.root,
+                        layer.skip_lin):
+            changed.mul_(2)
+        layer.skip_bn.offset.add_(1.0)
+    fresh = whole_layer_operands(layer, bf, prep.tap_idx)
+    assert fresh[12] is not pack2
+    assert torch.equal(fresh[12].w, pack2.w * 2)
+    assert torch.equal(fresh[12].skip, pack2.skip * 2)
+    assert torch.equal(fresh[11].w, pack1.w)
+    after = shift_spline_conv_packed_plain(h, prep, fresh[12], act=None,
+                                           x_skip=xt)
+    want = shift_spline_conv_plain(h, prep, *fresh[4:8], act=None,
+                                   skip=(xt,) + fresh[8:11])
+    assert torch.equal(after, want) and not torch.equal(after, before)
+    assert whole_layer_operands(layer, bf, prep.tap_idx)[12] is fresh[12]
+    other = static_tables((7, 5), 2, geo["cart_max"], geo["width"],
+                          geo["height"], 5, "cpu")[4]
+    assert whole_layer_operands(layer, bf, other)[12] is not fresh[12]
+
+
+@pytest.mark.parametrize("cout", [4, 136])
+def test_cuda_wrapper_refuses_other_output_widths(rng, cout):
+    x, nbr, mask, active, attr, arr, geo = _case(rng, cout=cout)
+    prep, xt, t, sk = _port(x, mask, active, attr, arr, geo, False,
+                            torch.bfloat16)
+    before = shift_spline_conv_cuda.launches
+    with pytest.raises(ValueError, match="output channels"):
+        shift_spline_conv_cuda(xt, prep, t["w"], t["r"], t["a"], t["b"],
+                               act="relu")
+    assert shift_spline_conv_cuda.launches == before
+
+
+def test_whole_layer_operands_follow_in_place_updates():
+    """The layer's cast weights and folded BN affines are kept while its
+    parameters and buffers are unchanged, and made anew after an in-place
+    update of either."""
+    layer = Layer(21, 16, 5, torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        layer.block1.bn.var.uniform_(0.5, 2.0)
+        layer.skip_lin_bias.uniform_(-1.0, 1.0)
+    bf = torch.bfloat16
+    ops = whole_layer_operands(layer, bf)
+    assert all(x is y for x, y in zip(ops, whole_layer_operands(layer, bf)))
+    w1, root1, a1, c1, w2, root2, a2, c2, skip_lin, a_s, c_s = ops
+    assert torch.equal(w1, layer.block1.conv.weight.to(bf))
+    assert torch.equal(skip_lin, layer.skip_lin.to(bf))
+    for got, want in zip((a1, c1, a_s, c_s), _fold_bn_affine(
+            layer.block1.bn, None, bf) + _fold_bn_affine(
+            layer.skip_bn, layer.skip_lin_bias, bf)):
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert not any(t.requires_grad for t in ops)
+    assert whole_layer_operands(layer, torch.float32)[0].dtype \
+        == torch.float32
+    with torch.no_grad():
+        layer.block1.conv.weight.mul_(2)       # a parameter
+        layer.block2.bn.mean.add_(1.0)         # a buffer
+    fresh = whole_layer_operands(layer, bf)
+    assert torch.equal(fresh[0], w1 * 2) and fresh[0] is not w1
+    assert not torch.equal(fresh[7], c2)
+    assert all(x is y for x, y in zip(fresh,
+                                      whole_layer_operands(layer, bf)))
