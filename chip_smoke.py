@@ -18,13 +18,15 @@ exits non-zero without printing a result:
    K1 (neighbour search) exactly, K2-K4 within 2e-2 of the output's scale
    (one bf16 rounding of the outputs and of the block-1 rows they read; K3
    also rounds each tap's ``z`` to bf16, as the TPU kernel does), with
-   median times (CUDA events) at the operating point.  K3 and K7 also run
-   on shapes the path does not reach (``check_shift_general``,
+   median times (CUDA events) at the operating point.  K1, K2, K3 and K7
+   also run on shapes the path does not reach (``check_search_general``,
+   ``check_level0_general``, ``check_shift_general``,
    ``check_bilinear_general``).
-   A second forward must reuse K3's static tables and weight packs, a trace
-   of ``prepare_shift`` and the two blocks of every pooled level must show
-   the eight launches and no other device operation (no copy to the card),
-   and a weight changed in place must reach the kernel's output.
+   A second forward must reuse K2's and K3's weight packs and K3's static
+   tables; a trace of ``prepare_shift`` and the two blocks of every pooled
+   level, one K1 call and one level-0 layer must show K3's eight launches,
+   K1's one and K2's two, and no other device operation (no copy to the
+   card); and a weight changed in place must reach K3's output.
 4. Launch counters are zeroed, the forward runs on several batches (new
    seeds), and the counters are read: every kernel must have launched.
    Logits must be finite and ``[6, 31, 2]``, and agree with the same
@@ -96,8 +98,9 @@ TB/s and its operations on these inputs over the peak rate of their type
 of the one PyTorch call that computes the same function where there is one,
 and ``launch_ms``, the kernels alone: the wrapper's launches, with the
 operands as the wrapper prepared them, captured 20 times into a CUDA graph
-whose replay is timed, summed over the path's calls (K7's
-``library_launch_ms`` likewise for ``F.grid_sample``).  ``ms`` is the
+whose replay is timed, summed over the path's calls (K1-K4's
+``dense_launch_ms`` likewise on the dense / under-filled check batch, K7's
+``library_launch_ms`` for ``F.grid_sample``).  ``ms`` is the
 wrapper, one call per pair of events, the host's share of a call inside.
 
 The second-to-last line is the kernels' JSON record; the last line is
@@ -297,6 +300,142 @@ def check_bilinear_general(dev):
     return worst, cases
 
 
+# K1 on geometries the main path does not reach: (name, items, events per
+# item, width, height, radius, max_neighbors, lookback, change)
+SEARCH_CASES = [
+    ("k_other 1, N 5000 (no multiple of the tile)", 2, 5000, 360, 240, 4, 2,
+     1024, None),
+    ("k_other 8, dense times", 2, 4096, 360, 240, 4, 9, 1024, "dense"),
+    ("k_other 15, radius 100: 64-bit keys", 2, 3000, 360, 240, 100, 16, 1024,
+     None),
+    ("configs/dota.yaml: 320x180, lookback 2048", 2, 32768, 320, 180, 4, 16,
+     2048, None),
+    ("an unsorted item", 2, 4096, 360, 240, 4, 16, 1024, "unsorted"),
+    ("an invalid event between two valid ones whose times fall", 2, 4096,
+     360, 240, 4, 16, 1024, "interior_invalid"),
+    ("an under-filled item, t = 0 tail", 2, 4097, 360, 240, 4, 16, 1024,
+     "tail"),
+]
+
+
+def check_search_general(dev):
+    """K1 on the cases of ``SEARCH_CASES``, events from a seeded generator
+    over 1 s with delta_t 10 ms and Q 128: kernel equal to the plain
+    version exactly.  Returns the number of cases."""
+    from eventad_tpu_torch.ops import event_graph as eg
+    gen = torch.Generator(device=dev).manual_seed(41)
+    for name, b, n, w, h, radius, k, lookback, change in SEARCH_CASES:
+        pos = torch.stack([
+            torch.randint(0, w, (b, n), generator=gen, device=dev),
+            torch.randint(0, h, (b, n), generator=gen, device=dev),
+            torch.randint(0, 1_000_000, (b, n), generator=gen,
+                          device=dev).sort(1).values], -1).to(torch.int32)
+        valid = torch.ones((b, n), dtype=torch.bool, device=dev)
+        if change == "dense":
+            pos[..., 2] //= 50
+        elif change == "unsorted":
+            pos[0] = pos[0, torch.randperm(n, generator=gen, device=dev)]
+        elif change == "interior_invalid":
+            for at in (300, 2000, 2001):
+                valid[0, at] = False
+                pos[0, at + 1, 2] = pos[0, at - 1, 2] - 30_000
+        elif change == "tail":
+            pos[0, n // 3:] = 0
+            valid[0, n // 3:] = False
+        ranks = torch.stack([eg.queue_rank(pos[i, :, 1] * 2**15 + pos[i, :, 0],
+                                           valid[i]) for i in range(b)])
+        kw = dict(radius=radius, delta_t_us=10_000, max_neighbors=k,
+                  max_queue_size=128, lookback=lookback)
+        wide = eg.search_key_bits(radius, 128, min(lookback, n))[1] > 32
+        if wide != (radius == 100):
+            raise AssertionError(f"K1 ({name}): 64-bit keys {wide}")
+        got = eg.build_graph_cuda(pos, valid, ranks, **kw)
+        want = eg.build_graph(pos, valid, ranks, **kw)
+        torch.cuda.synchronize()
+        for g, wt, what in zip(got, want, ("nbr", "mask", "doff")):
+            if g.dtype != wt.dtype or not torch.equal(g, wt):
+                raise AssertionError(f"event_graph_search ({name}): {what} "
+                                     f"!= plain version")
+        if not bool(want[1][..., 1:].any()):
+            raise AssertionError(f"K1 ({name}): no edge at all")
+    return len(SEARCH_CASES)
+
+
+# K2 on shapes the main path does not reach: (C, O1, O2, activation, taps
+# (the sub-rectangle's (x, y) ranges of the 5 x 5 kernel), the centre tap
+# folded, share of slots that hold an edge).  The last two reach the widest
+# instantiation (O 40 to 64) and C above 32; their taps are as many as fit
+# in shared memory beside the weights of 64 channels
+FULL, SUB, SUB3 = ((0, 4), (0, 4)), ((1, 3), (0, 4)), ((1, 3), (1, 3))
+LEVEL0_CASES = [
+    (1, 8, 8, "relu", SUB, True, 0.15),
+    (19, 16, 16, "elu", SUB, True, 0.85),
+    (33, 32, 32, "hardtanh", FULL, False, 0.3),
+    (19, 32, 8, "silu", FULL, True, 0.5),
+    (33, 8, 16, None, SUB, False, 1.0),
+    (1, 16, 32, "relu", FULL, True, 0.0),          # no edge at all
+    (64, 64, 40, "elu", SUB3, True, 0.5),
+    (40, 40, 64, "relu", SUB, False, 0.3),
+]
+
+
+def check_level0_general(dev):
+    """K2 on the shapes of ``LEVEL0_CASES``: 997 rows (the last 16-row
+    tile holds 5), 15 slots, neighbours up to 64 rows back, the first 70
+    rows without an edge (whole tiles), inputs from a seeded generator;
+    block 1 runs without and block 2 with the skip.  ``h`` and the output
+    against the plain version from the same packs within ``KERNEL_TOL`` of
+    scale.  Returns the worst error of scale and the number of cases."""
+    from eventad_tpu_torch.ops import spline_fused as sfm
+    gen = torch.Generator(device=dev).manual_seed(51)
+    bf, ks, n, k = torch.bfloat16, 5, 997, 15
+    worst = 0.0
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    for c, o1, o2, act, ranges, fold, share in LEVEL0_CASES:
+        rows = torch.arange(n, device=dev)[:, None]
+        back = torch.randint(1, 65, (n, k), generator=gen, device=dev)
+        edges = (torch.rand((n, k), generator=gen, device=dev) < share) \
+            & (rows - back >= 0)
+        edges[:70] = False
+        u = torch.rand((n, k, 2), generator=gen, device=dev) * (ks - 1)
+        prep = sfm.prepare_fused((rows - back).to(torch.int32), edges, u)
+        nodes = torch.rand((n,), generator=gen, device=dev) > 0.1
+        src = rand(n, c).to(bf)
+        kw = dict(kernel_size=ks, ranges=ranges, fold_center=fold)
+
+        def affine(o):
+            return torch.rand(o, generator=gen, device=dev) + 0.5, \
+                rand(o) * 0.1
+        pack1 = sfm.pack_level0_block(
+            (rand(ks * ks, c, o1) / (4 * c) ** 0.5).to(bf),
+            (rand(c, o1) / c ** 0.5).to(bf), *affine(o1), **kw)
+        pack2 = sfm.pack_level0_block(
+            (rand(ks * ks, o1, o2) / (4 * o1) ** 0.5).to(bf),
+            (rand(o1, o2) / o1 ** 0.5).to(bf), *affine(o2), **kw,
+            skip=((rand(c, o2) / c ** 0.5).to(bf), *affine(o2)))
+        got = sfm.fused_two_block_cuda(src, prep, pack1, pack2, nodes,
+                                       act=act)
+        want = sfm.fused_two_block_plain(src, prep, pack1, pack2, nodes,
+                                         act=act)
+        torch.cuda.synchronize()
+        for g, wt, what in zip(got, want, ("out", "h")):
+            scale = wt.float().abs().max().item() + 1e-6
+            err = (g.float() - wt.float()).abs().max().item() / scale
+            if g.dtype != bf or g.shape != wt.shape \
+                    or not bool((g[~nodes] == 0).all()) \
+                    or not err <= KERNEL_TOL:
+                raise AssertionError(
+                    f"fused_two_block (C {c}, O {o1}/{o2}, {act}, taps "
+                    f"{ranges}, {what}): {g.dtype} {tuple(g.shape)}, max "
+                    f"abs err {err} of scale (tolerance {KERNEL_TOL}), or a "
+                    f"masked row not zero")
+            worst = max(worst, err)
+    return worst, len(LEVEL0_CASES)
+
+
 # K3 on shapes the main path does not reach: (C, O, Cs or None, activation,
 # grid, items, share of slots that hold an edge).  The kernel picks its row
 # tile by N and by what fits in shared memory; the last three cases make it
@@ -426,8 +565,8 @@ def search_ops(a, kw, out):
 def level0_ops(a, kw, out):
     """K2: per edge four bilinear taps of both blocks' contractions, per
     valid node the two root products and the skip product."""
-    src, prep, w1, w2, node_mask = a[0], a[1], a[2], a[6], a[8]
-    c, c1, c2 = src.shape[1], w1.shape[-1], w2.shape[-1]
+    src, prep, pack1, pack2, node_mask = a
+    c, c1, c2 = src.shape[1], pack1.ab.shape[0], pack2.ab.shape[0]
     edges, nodes = int((prep.nbr >= 0).sum()), int(node_mask.sum())
     return 2 * (edges * 4 * (c * c1 + c1 * c2)
                 + nodes * (c * c1 + c1 * c2 + c * c2)), PEAK_BF16
@@ -467,11 +606,17 @@ def all_bytes(a, kw, out):
 
 
 def level0_bytes(a, kw, out):
-    """K2: coordinates only of the slots that hold an edge (an empty slot's
-    are never read)."""
-    prep = a[1]
-    return all_bytes(a, kw, out) \
-        - int((prep.nbr < 0).sum()) * 2 * prep.u.element_size()
+    """K2: the source rows, the neighbour table, coordinates only of the
+    slots that hold an edge (an empty slot's are never read), the node mask,
+    of each pack the values of its used taps, root and skip (not the pads of
+    the kernel's layout) and its affines, both outputs."""
+    src, prep, pack1, pack2, node_mask = a
+    packs = sum((pk.taps.shape[0] + 1) * pk.c * pk.ab.shape[0]
+                * pk.taps.element_size()
+                + pk.cs * pk.ab.shape[0] * pk.taps.element_size()
+                + tensor_bytes(pk.ab) for pk in (pack1, pack2))
+    return (tensor_bytes((src, prep.nbr, node_mask, out)) + packs
+            + int((prep.nbr >= 0).sum()) * 2 * prep.u.element_size())
 
 
 def shift_bytes(a, kw, out):
@@ -599,21 +744,26 @@ def main():
             n_ops, peak = OPS[name](a, kw, got)
             ops += n_ops
         bound_ms, bound_by = bound(nbytes, ops, peak)
-        dense_err = max(compare(name, cuda_fn(*a, **kw), plain_fn(*a, **kw))
-                        for a, kw in dense_calls[name])
+        dense_err, dense_alone_ms = 0.0, 0.0
+        for a, kw in dense_calls[name]:
+            dense_err = max(dense_err, compare(name, cuda_fn(*a, **kw),
+                                               plain_fn(*a, **kw)))
+            dense_alone_ms += launch_ms(mods[mod],
+                                        lambda: cuda_fn(*a, **kw))
         shapes = [tuple(t.shape) for t in op_calls[name][0][0]
                   if isinstance(t, torch.Tensor)]
         log(f"{name}: {len(op_calls[name])} call(s) per forward, first input"
             f" shapes {shapes}; max abs err {err:.3g} (dense / under-filled"
             f" batch {dense_err:.3g}); kernel {ms:.4f} ms (launches alone "
-            f"{alone_ms:.4f} ms), plain "
+            f"{alone_ms:.4f} ms; dense batch {dense_alone_ms:.4f}), plain "
             f"{plain_ms:.4f} ms per forward; bound {bound_ms:.5f} ms by "
             f"{bound_by} ({nbytes} bytes, {ops} operations); no single "
             f"PyTorch call computes it")
         records.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces,
                             max_abs_err=max(err, dense_err), ms=ms,
-                            launch_ms=alone_ms, plain_ms=plain_ms,
+                            launch_ms=alone_ms,
+                            dense_launch_ms=dense_alone_ms, plain_ms=plain_ms,
                             bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=None))
 
@@ -624,9 +774,21 @@ def main():
         f"{edges_per_event(op_calls):.3f}, dense batch "
         f"{edges_per_event(dense_calls):.3f}")
 
-    # K3 and K7 on shapes the path does not reach
+    # K1, K2, K3 and K7 on shapes the path does not reach
     ssm, bb = mods["spline_shift"], importlib.import_module(
         "eventad_tpu_torch.models.backbone")
+    s_cases = check_search_general(dev)
+    log(f"event_graph_search, general geometries: {s_cases} cases (k_other "
+        f"1, 8, 15; 64-bit keys at radius 100; lookback 2048 at "
+        f"configs/dota.yaml's 320x180; an unsorted item; invalid events "
+        f"between valid ones whose times fall; a t = 0 tail; N 5000, 4097): "
+        f"equal to the plain version exactly")
+    l_err, l_cases = check_level0_general(dev)
+    log(f"spline_fused_level0, general shapes: {l_cases} cases (C 1, 19, 33,"
+        f" 40, 64; O 8, 16, 32, 40, 64; block 1 without, block 2 with the "
+        f"skip; every activation; full and sub-rectangle taps; tiles without"
+        f" an edge, 997 rows): max abs err {l_err:.3g} of scale (tolerance "
+        f"{KERNEL_TOL}), h and output")
     g_err, g_err_rounded, g_runs = check_shift_general(dev)
     log(f"spline_shift_pooled, general shapes: {g_runs} runs ("
         f"cases of (C, O, Cs, act, N); O 8-128, odd C, every activation, "
@@ -660,9 +822,15 @@ def main():
         return orig_prepare(*a, **kw)
     bb.prepare_shift = rec_prepare
     try:
-        again_calls = recorded_forward(batches[0])["spline_shift_pooled"]
+        again = recorded_forward(batches[0])
     finally:
         bb.prepare_shift = orig_prepare
+    again_calls = again["spline_shift_pooled"]
+    k2_call, k2_again = (c["spline_fused_level0"][0]
+                         for c in (op_calls, again))
+    if k2_call[0][2] is not k2_again[0][2] \
+            or k2_call[0][3] is not k2_again[0][3]:
+        raise AssertionError("K2: operands were packed anew")
     if len(preps) != 4 or len(again_calls) != 8:
         raise AssertionError(f"{len(preps)} prepare_shift and "
                              f"{len(again_calls)} shift_spline_conv calls")
@@ -678,25 +846,34 @@ def main():
     # (the only trace of this run, and early in it: later in a process
     # the tracing layer was seen to lose device events)
     from torch.profiler import ProfilerActivity, profile
+    k1_a, k1_kw = again["event_graph_search"][0]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i, (pa, pkw) in enumerate(preps):
             prep = bb.prepare_shift(*pa, **pkw)
             for a, kw in again_calls[2 * i:2 * i + 2]:
                 ssm.shift_spline_conv_cuda(a[0], prep, *a[2:], **kw)
+        mods["event_graph"].build_graph_cuda(*k1_a, **k1_kw)
+        mods["spline_fused"].fused_two_block_cuda(*k2_again[0],
+                                                  **k2_again[1])
         torch.cuda.synchronize()
     dev_ops = {e.key: e.count for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")
                and not getattr(e, "is_user_annotation", False)}
+    traced = {"shift_block_kernel": 8, "search_kernel": 1,
+              "level0_block_kernel": 2}
+    seen = {name: sum(v for k, v in dev_ops.items() if name in k)
+            for name in traced}
     others = {k: v for k, v in dev_ops.items()
-              if "shift_block_kernel" not in k}
-    n_k3 = sum(v for k, v in dev_ops.items() if "shift_block_kernel" in k)
-    if others or n_k3 != 8:
-        raise AssertionError(f"K3 path of one forward: {n_k3} launches and "
-                             f"other device operations {others}")
-    log(f"spline_shift_pooled: second forward reuses the static tables and "
-        f"the packs (same objects); traced prepare_shift + 2 blocks x 4 "
-        f"levels: {n_k3} kernel launches, no copy to the card and no other "
+              if not any(name in k for name in traced)}
+    if others or seen != traced:
+        raise AssertionError(f"traced K1, K2 and K3 calls of one forward: "
+                             f"launches {seen}, other device operations "
+                             f"{others}")
+    log(f"spline_shift_pooled / spline_fused_level0: a second forward "
+        f"reuses the static tables and the packs (same objects); traced "
+        f"prepare_shift + 2 blocks x 4 levels, one K1 call and one level-0 "
+        f"layer: kernel launches {seen}, no copy to the card and no other "
         f"device operation")
 
     # a weight changed in place reaches the kernel: the pack is not stale

@@ -10,132 +10,535 @@
 // rounding the TPU applies to hh_bf; launch 2 (block 2 with the skip
 // epilogue) gathers h.  Per destination n and output channel o:
 //
-//   acc = sum_k sum_{taps (mx,my) of edge k in the sub-rectangle}
-//           cy[my] cx[mx] * (src[nbr[n,k]] . W[my*nxs+mx][:, o])
-//         + src[n] . root[:, o]
-//   pre = a[o] acc + b[o]  (+ a_s[o] (xs[n] . skip[:, o]) + b_s[o])
+//   z_m[n, :] = sum_{edges k of n} cy[my] cx[mx] src[nbr[n, k], :]
+//   acc       = sum_m bf16(z_m[n, :]) . W[m][:, o] + src[n] . root[:, o]
+//   pre       = a[o] acc + b[o]  (+ a_s[o] (xs[n] . skip[:, o]) + b_s[o])
 //   out[n, o] = bf16(act(pre) * node_mask[n])
 //
-// The self edge is folded into root by the caller (slot 0 is dropped), and
-// the taps are the static sub-rectangle of tap_ranges(level0_attr_range)
-// (3 x 5 of the 5 x 5 kernel at 360 x 240).  f32 accumulation.
+// over the taps m of the static sub-rectangle of tap_ranges(
+// level0_attr_range) (3 x 5 of the 5 x 5 kernel at 360 x 240), the self
+// edge folded into root by the pack (ops/spline_fused.pack_level0_block).
+// Rounding points, those of the TPU kernel: src, xs and the weights are
+// bf16, z_m is summed in f32 and rounded to bf16 once, every product sums in
+// f32, the affine, activation and mask run in f32 and the output is rounded
+// to bf16 once.
 //
-// What bounds it on the H100: bytes.  The level-0 graph is sparse in time
-// (about 0.15 edges per event at the operating point), so per row the work
-// is the root product (19 x 16 FMAs) and the traffic a 38 B source row in and
-// a 32 B row out.  Design: one thread per (row, output channel); the tap and
-// root weights sit in shared memory as f32; the edge loop skips empty slots,
-// and each present edge touches only its 2 x 2 taps (degree-1 spline) with a
-// direct indexed load of the source row.  The TPU's one-hot-on-MXU gather is
-// a TPU workaround and is not carried.
+// What bounds it on the H100: by bytes, 16 MB for the two launches at the
+// operating point (a 38-byte source row and a 60-byte neighbour row of
+// every destination in, a 32-byte row out), 0.005 ms; by tensor-core
+// operations much less.  In fact the instructions a 16-row tile issues: the
+// level-0 graph holds ~0.15 edges a row (0.85 on the dense batch), so per
+// row the work is the root (and on block 2 the skip) product, and for the
+// few rows with an edge a sparse, data-dependent build of z.  Design:
+//
+// * The operands are packed once per layer on the host (taps and root
+//   transposed and padded for the B fragments, root with the centre tap,
+//   skip likewise, affines [O][4]; kept by models/backbone.
+//   whole_layer_operands), so a call casts, slices and uploads nothing.
+// * Persistent blocks of 8 warps, as many as fit on the SMs; each loads
+//   the packed weights (~25 KB) into shared memory once and its warps then
+//   walk 16-row tiles on their own (no block barrier in the loop).  A warp's
+//   next tile (its source rows, skip rows and neighbour rows, each one
+//   contiguous run of the table) arrives by cp.async into the second of two
+//   buffers while it works on the current one.
+// * Root and skip products of a tile are mma.sync.m16n8k16: A fragments
+//   from the tile's rows as they lie in the table (any C, zero beyond it),
+//   B fragments straight from the packed weights.
+// * The edges: a ballot per row finds them; the tile's edges (in groups of
+//   whole rows, at most 32) are listed, one lane an edge: its row (binary
+//   search over the rows' first edges), slot, coordinates, taps and their
+//   weights (a [edge][tap] table) and its neighbour row (eight edges' rows
+//   loaded before any is stored, so the loads are in flight together).
+//   Then per tap that an edge touches, its product is one more
+//   mma.sync.m16n8k16 into the root's accumulators: each lane builds its A
+//   fragment in registers, z of its two rows and four channels summed in
+//   f32 over the row's edges in slot order and rounded to bf16, zero for a
+//   row with no edge on the tap.
+// * The epilogue runs from the accumulator registers: the affines, the
+//   activation and the node mask (read as its bytes), a bf16 pair a lane.
+//
+// Measured on the way (PERF.md, section 6): one edge row at a time on the
+// CUDA cores, z per tap through shared memory, and 4 warps a block were
+// slower, most of all on the dense batch; 16 warps a block were 1-5 %
+// faster but leave the larger shapes (C 33, O 32, all 25 taps) no room.
 #include "common.cuh"
 
 namespace {
 
-__global__ void level0_block_kernel(
-    const __nv_bfloat16* __restrict__ src, int c,
-    const int* __restrict__ nbr, int k, const float* __restrict__ u,
-    const float* __restrict__ w_sub, const float* __restrict__ root,
-    const float* __restrict__ ab, const __nv_bfloat16* __restrict__ xs,
-    int cs, const float* __restrict__ skip_lin,
-    const uint8_t* __restrict__ node_mask, int n, int o_ch, int ks, int mx0,
-    int nxs, int my0, int nys, int act, __nv_bfloat16* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int m_sub = nxs * nys;
-  float* s_w = smem;                         // [m_sub, c, o]
-  float* s_root = s_w + m_sub * c * o_ch;    // [c, o]
-  float* s_skip = s_root + c * o_ch;         // [cs, o]
-  const int n_w = m_sub * c * o_ch;
-  for (int i = threadIdx.x; i < n_w; i += blockDim.x) s_w[i] = w_sub[i];
-  for (int i = threadIdx.x; i < c * o_ch; i += blockDim.x) s_root[i] = root[i];
-  if (xs != nullptr)
-    for (int i = threadIdx.x; i < cs * o_ch; i += blockDim.x)
-      s_skip[i] = skip_lin[i];
-  __syncthreads();
+using bf16 = __nv_bfloat16;
+using eventad::align16;
+using eventad::cp_async;
+using eventad::cp_async_commit;
+using eventad::cp_async_wait;
+using eventad::cp_async_wait_all;
+using eventad::mma_bf16;
+using eventad::pad_stride;
 
-  const int rows_per_block = blockDim.x / o_ch;
-  const int o = threadIdx.x % o_ch;
-  const int row = blockIdx.x * rows_per_block + threadIdx.x / o_ch;
-  if (threadIdx.x >= rows_per_block * o_ch || row >= n) return;
+constexpr int kWarps = 8;
+constexpr int kGroup = 32;          // edges a group of rows holds at most
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxSmem = 232448;     // 227 KB, what a block may ask for
+constexpr unsigned kFull = 0xffffffffu;
 
-  float acc = 0.f;
-  for (int kk = 0; kk < k; ++kk) {
-    const long long e = static_cast<long long>(row) * k + kk;
-    const int j = nbr[e];
-    if (j < 0) continue;
-    int ix0, iy0;
-    float frx, fry;
-    eventad::spline_taps(u[2 * e], ks, &ix0, &frx);
-    eventad::spline_taps(u[2 * e + 1], ks, &iy0, &fry);
-    const __nv_bfloat16* xj = src + static_cast<long long>(j) * c;
+struct Params {
+  const bf16* src; int c;               // [N, C]
+  const int* nbr; int k;                // [N, K], -1 = no edge
+  const float* u;                       // [N, K, 2]
+  const uint8_t* node_mask;             // [N]
+  const bf16* taps;                     // [M, O, CS]
+  const bf16* root;                     // [O, CS]
+  const bf16* xs; int cs;               // [N, Cs] or NULL
+  const bf16* skip;                     // [O, CSS]
+  const float* ab;                      // [O, 4]
+  int n, o, ks, mx0, nxs, my0, nys, act;
+  bf16* out;                            // [N, O]
+  int cstride, csstride;                // CS, CSS
+};
+
+// the carve-up of dynamic shared memory, the same on both sides: the
+// weights, then per warp two tile buffers (source rows, skip rows,
+// neighbour rows), the edge records of a group of rows, their neighbour
+// rows, the taps each row of the group touches
+struct Layout {
+  size_t taps, root, skip, warps, src, xs, nbr, tile, wt, et, x, rowmask,
+      warp, total;
+};
+__host__ __device__ inline Layout make_layout(const Params& p) {
+  Layout l;
+  const int m = p.nxs * p.nys;
+  size_t at = 0;
+  l.taps = at; at += align16(static_cast<size_t>(m) * p.o * p.cstride * 2);
+  l.root = at; at += align16(static_cast<size_t>(p.o) * p.cstride * 2);
+  l.skip = at; at += p.xs != nullptr
+                         ? align16(static_cast<size_t>(p.o) * p.csstride * 2)
+                         : 0;
+  l.warps = at;
+  size_t w = 0;
+  l.src = w; w += align16(static_cast<size_t>(16) * p.c * 2);
+  l.xs = w; w += p.xs != nullptr ? align16(static_cast<size_t>(16) * p.cs * 2)
+                                 : 0;
+  l.nbr = w; w += align16(static_cast<size_t>(16) * p.k * 4);
+  l.tile = w;                                  // one buffer of the three
+  w *= 2;
+  l.wt = w; w += align16(static_cast<size_t>(kGroup) * m * 4);
+  l.et = w; w += kGroup * 16;
+  l.x = w; w += align16(static_cast<size_t>(kGroup) * p.c * 2);
+  l.rowmask = w; w += 16 * 8;
+  l.warp = w;
+  l.total = at + kWarps * w;
+  return l;
+}
+
+// `bytes` (even) from global `g` to shared `s` (16-byte aligned), by the
+// lanes of one warp: 16-byte cp.async where `g` is 16-byte aligned, the
+// rest by 2-byte loads
+__device__ __forceinline__ void copy_run(unsigned char* s,
+                                         const unsigned char* g, int bytes,
+                                         int lane) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(g) & 15) == 0) {
+    done = bytes / 16 * 16;
+    for (int q = lane * 16; q < done; q += 32 * 16) cp_async<16>(s + q, g + q);
+  }
+  for (int q = done + lane * 2; q < bytes; q += 32 * 2)
+    *reinterpret_cast<uint16_t*>(s + q) =
+        *reinterpret_cast<const uint16_t*>(g + q);
+}
+
+// channels q, q + 1 of row r of a [rows, c] tile, zero beyond it
+__device__ __forceinline__ uint32_t pair(const bf16* t, int c, int rows,
+                                         int r, int q) {
+  const bf16 zero = __float2bfloat16(0.f);
+  const bf16 lo = r < rows && q < c ? t[r * c + q] : zero;
+  const bf16 hi = r < rows && q + 1 < c ? t[r * c + q + 1] : zero;
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// acc[j] += tile[16 rows, :c] . w[8 j + (0..7), :c] for the first nb blocks
+// of 8 output channels; w [O][stride] (k contiguous) in shared memory
+template <int NB>
+__device__ __forceinline__ void tile_product(const bf16* t, int c, int rows,
+                                             const bf16* w, int stride,
+                                             int nb, int lane,
+                                             float (&acc)[NB][4]) {
+  const int g = lane >> 2, q2 = 2 * (lane & 3);
+  for (int k0 = 0; k0 < c; k0 += 16) {
+    uint32_t a[4];
+    a[0] = pair(t, c, rows, g, k0 + q2);
+    a[1] = pair(t, c, rows, g + 8, k0 + q2);
+    a[2] = pair(t, c, rows, g, k0 + 8 + q2);
+    a[3] = pair(t, c, rows, g + 8, k0 + 8 + q2);
 #pragma unroll
-    for (int by = 0; by < 2; ++by) {
-      const int my = iy0 + by - my0;
-      if (my < 0 || my >= nys) continue;
-      const float wy = by ? fry : 1.f - fry;
-#pragma unroll
-      for (int bx = 0; bx < 2; ++bx) {
-        const int mx = ix0 + bx - mx0;
-        if (mx < 0 || mx >= nxs) continue;
-        const float wx = bx ? frx : 1.f - frx;
-        const float* wm = s_w + (my * nxs + mx) * c * o_ch + o;
-        float dot = 0.f;
-        for (int ci = 0; ci < c; ++ci)
-          dot += eventad::bf(xj[ci]) * wm[ci * o_ch];
-        acc += wy * wx * dot;
+    for (int j = 0; j < NB; ++j) {
+      if (j < nb) {
+        const bf16* wr = w + static_cast<size_t>(8 * j + g) * stride + k0 + q2;
+        uint32_t b[2];
+        b[0] = *reinterpret_cast<const uint32_t*>(wr);
+        b[1] = *reinterpret_cast<const uint32_t*>(wr + 8);
+        mma_bf16(acc[j], a, b);
       }
     }
   }
-  const __nv_bfloat16* xo = src + static_cast<long long>(row) * c;
-  for (int ci = 0; ci < c; ++ci)
-    acc += eventad::bf(xo[ci]) * s_root[ci * o_ch + o];
-  float pre = ab[4 * o] * acc + ab[4 * o + 1];
-  if (xs != nullptr) {
-    const __nv_bfloat16* xr = xs + static_cast<long long>(row) * cs;
-    float sk = 0.f;
-    for (int ci = 0; ci < cs; ++ci)
-      sk += eventad::bf(xr[ci]) * s_skip[ci * o_ch + o];
-    pre += ab[4 * o + 2] * sk + ab[4 * o + 3];
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kThreads)
+level0_block_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout l = make_layout(p);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool has_skip = p.xs != nullptr;
+  const int m_taps = p.nxs * p.nys;
+  bf16* s_taps = reinterpret_cast<bf16*>(smem + l.taps);
+  bf16* s_root = reinterpret_cast<bf16*>(smem + l.root);
+  bf16* s_skip = reinterpret_cast<bf16*>(smem + l.skip);
+  unsigned char* wb = smem + l.warps + static_cast<size_t>(warp) * l.warp;
+  // per edge of a group: its weight on each tap [kGroup][M]; its row,
+  // four tap indices and neighbour
+  float* s_wt = reinterpret_cast<float*>(wb + l.wt);
+  int4* s_et = reinterpret_cast<int4*>(wb + l.et);
+  bf16* s_x = reinterpret_cast<bf16*>(wb + l.x);       // [kGroup][C]
+  // per row of the tile: the taps its edges touch
+  unsigned long long* s_rowmask =
+      reinterpret_cast<unsigned long long*>(wb + l.rowmask);
+
+  // the packed weights, once per block
+  {
+    const int sizes[3] = {m_taps * p.o * p.cstride * 2, p.o * p.cstride * 2,
+                          has_skip ? p.o * p.csstride * 2 : 0};
+    const unsigned char* from[3] = {
+        reinterpret_cast<const unsigned char*>(p.taps),
+        reinterpret_cast<const unsigned char*>(p.root),
+        reinterpret_cast<const unsigned char*>(p.skip)};
+    unsigned char* to[3] = {smem + l.taps, smem + l.root, smem + l.skip};
+    for (int a = 0; a < 3; ++a)
+      for (int q = tid * 16; q < sizes[a]; q += kThreads * 16)
+        cp_async<16>(to[a] + q, from[a] + q);
+    cp_async_commit();
   }
-  const float y = node_mask[row] ? eventad::apply_act(pre, act) : 0.f;
-  out[static_cast<long long>(row) * o_ch + o] = __float2bfloat16(y);
+
+  const int n_tiles = (p.n + 15) / 16;
+  const int stride = gridDim.x * kWarps;
+  auto fetch = [&](int tile, int buf) {
+    const long long n0 = static_cast<long long>(tile) * 16;
+    const int rows = min(16, p.n - static_cast<int>(n0));
+    unsigned char* b = wb + buf * l.tile;
+    copy_run(b + l.src,
+             reinterpret_cast<const unsigned char*>(p.src + n0 * p.c),
+             rows * p.c * 2, lane);
+    if (has_skip)
+      copy_run(b + l.xs,
+               reinterpret_cast<const unsigned char*>(p.xs + n0 * p.cs),
+               rows * p.cs * 2, lane);
+    copy_run(b + l.nbr,
+             reinterpret_cast<const unsigned char*>(p.nbr + n0 * p.k),
+             rows * p.k * 4, lane);
+  };
+
+  int tile = blockIdx.x * kWarps + warp;
+  if (tile < n_tiles) fetch(tile, 0);
+  cp_async_commit();
+  cp_async_wait<1>();      // the weights (this thread's share)
+  __syncthreads();         // everyone's share
+
+  const int nb = p.o / 8;
+  const int g = lane >> 2, q2 = 2 * (lane & 3);
+  for (int it = 0; tile < n_tiles; tile += stride, ++it) {
+    const int buf = it & 1;
+    if (tile + stride < n_tiles) fetch(tile + stride, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();    // this tile's rows
+    __syncwarp();
+    const unsigned char* b = wb + buf * l.tile;
+    const bf16* t_src = reinterpret_cast<const bf16*>(b + l.src);
+    const bf16* t_xs = reinterpret_cast<const bf16*>(b + l.xs);
+    const int* t_nbr = reinterpret_cast<const int*>(b + l.nbr);
+    const int n0 = tile * 16;
+    const int rows = min(16, p.n - n0);
+
+    float acc[NB][4], sk[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] = sk[j][q] = 0.f;
+
+    // ---- root and skip products on the tensor cores ----
+    tile_product<NB>(t_src, p.c, rows, s_root, p.cstride, nb, lane, acc);
+    if (has_skip)
+      tile_product<NB>(t_xs, p.cs, rows, s_skip, p.csstride, nb, lane, sk);
+
+    // ---- the edges: lane r < 16 holds row r's slots that hold an edge,
+    // their count and the place of its first edge in the tile's list
+    // (row-major, slots in order) ----
+    unsigned myb = 0u;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      if (r < rows) {
+        const unsigned bits =
+            __ballot_sync(kFull, lane < p.k && t_nbr[r * p.k + lane] >= 0);
+        if (lane == r) myb = bits;
+      }
+    }
+    const int cnt = __popc(myb);
+    int first = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, first, o);
+      if (lane >= o) first += y;
+    }
+    first -= cnt;
+    // groups of whole rows with at most kGroup edges (a row has at most
+    // K <= kGroup)
+    const int total = __shfl_sync(kFull, first + cnt, 15);
+    for (int r0 = 0; r0 < rows;) {
+      const int e0 = __shfl_sync(kFull, first, r0);
+      int r1 = rows, n_e = total - e0;        // the rest, where it fits
+      if (n_e > kGroup) {
+        r1 = r0;
+        n_e = 0;
+        while (r1 < rows) {
+          const int c_r = __shfl_sync(kFull, cnt, r1);
+          if (n_e + c_r > kGroup) break;
+          n_e += c_r;
+          ++r1;
+        }
+      }
+      r0 = r1;
+      if (n_e == 0) continue;
+      // lane e < n_e: edge e0 + e, its row and slot, its taps and weights
+      // its row: the last whose first edge is not after it (binary search
+      // over the rows' first edges); its slot: the row's set bit of that
+      // rank
+      const int e = e0 + lane;
+      int row = 0;
+#pragma unroll
+      for (int step = 8; step > 0; step >>= 1)
+        if (__shfl_sync(kFull, first, row + step) <= e) row += step;
+      const int slot = static_cast<int>(__fns(
+          __shfl_sync(kFull, myb, row), 0,
+          e - __shfl_sync(kFull, first, row) + 1));
+      unsigned long long touched = 0ull;      // this lane's edge's taps
+      uint32_t taps = 0xffffffffu;             // its four, 0xff none
+      float wt[4] = {0.f, 0.f, 0.f, 0.f};     // and their weights
+      int jn = -1;
+      if (lane < n_e) {
+        jn = t_nbr[row * p.k + slot];
+        const float2 uv = __ldg(reinterpret_cast<const float2*>(p.u) +
+                                (static_cast<long long>(n0 + row) * p.k +
+                                 slot));
+        int ix0, iy0;
+        float fx, fy;
+        eventad::spline_taps(uv.x, p.ks, &ix0, &fx);
+        eventad::spline_taps(uv.y, p.ks, &iy0, &fy);
+        taps = 0u;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int bx = q & 1, by = q >> 1;
+          const int mx = ix0 + bx - p.mx0, my = iy0 + by - p.my0;
+          const bool in = mx >= 0 && mx < p.nxs && my >= 0 && my < p.nys;
+          const int m = in ? my * p.nxs + mx : 0xff;
+          taps |= static_cast<uint32_t>(m) << (8 * q);
+          wt[q] = (by ? fy : 1.f - fy) * (bx ? fx : 1.f - fx);
+          if (in) touched |= 1ull << m;
+        }
+        s_et[lane] = make_int4(row, static_cast<int>(taps), jn, 0);
+      }
+      // the group's weights, [edge][tap], zero where an edge has no weight
+      for (int i = lane; i < n_e * m_taps; i += 32) s_wt[i] = 0.f;
+      __syncwarp();
+      if (lane < n_e) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int m = (taps >> (8 * q)) & 0xff;
+          if (m != 0xff) s_wt[lane * m_taps + m] = wt[q];
+        }
+      }
+      // the taps each row of the group touches, and any edge
+      if (lane < 16) s_rowmask[lane] = 0ull;
+      __syncwarp();
+      if (lane < n_e) atomicOr(s_rowmask + row, touched);
+      const unsigned long long tmask =
+          (static_cast<unsigned long long>(__reduce_or_sync(
+               kFull, static_cast<unsigned>(touched >> 32))) << 32) |
+          __reduce_or_sync(kFull, static_cast<unsigned>(touched));
+      // the group's neighbour rows, [edge][channel], lanes over channels
+      // lane and lane + 32, eight edges at a time: every load of a lane
+      // issued before its stores
+      for (int b0 = 0; b0 < n_e; b0 += 8) {
+        bf16 v[8][2];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int j = __shfl_sync(kFull, jn, (b0 + q) & 31);
+          const bf16* xj = p.src + static_cast<long long>(j) * p.c;
+          const bool on = b0 + q < n_e;
+          v[q][0] = on && lane < p.c ? __ldg(xj + lane)
+                                     : __float2bfloat16(0.f);
+          v[q][1] = on && lane + 32 < p.c ? __ldg(xj + lane + 32)
+                                          : __float2bfloat16(0.f);
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          if (b0 + q >= n_e) break;
+          if (lane < p.c) s_x[(b0 + q) * p.c + lane] = v[q][0];
+          if (lane + 32 < p.c) s_x[(b0 + q) * p.c + lane + 32] = v[q][1];
+        }
+      }
+      __syncwarp();
+      // per touched tap, its product on the tensor cores, the A fragment
+      // computed in registers: each lane's z values (rows g and g + 8,
+      // four channels) summed in f32 over its row's edges in slot order
+      // and rounded to bf16; a row without an edge on the tap gives zeros
+      const unsigned long long mask_a = s_rowmask[g], mask_b = s_rowmask[g + 8];
+      const int fa = __shfl_sync(kFull, first, g) - e0;
+      const int ca = __shfl_sync(kFull, cnt, g);
+      const int fb = __shfl_sync(kFull, first, g + 8) - e0;
+      const int cb = __shfl_sync(kFull, cnt, g + 8);
+      // channels q, q + 1 of z of tap m, row with edges [f, f + n)
+      auto zpair = [&](unsigned long long rmask, int f, int n, int m,
+                       int q) -> uint32_t {
+        float z0 = 0.f, z1 = 0.f;
+        if ((rmask >> m) & 1ull) {
+          for (int e = f; e < f + n; ++e) {
+            const float w = s_wt[e * m_taps + m];
+            const bf16* xe = s_x + e * p.c;
+            if (q < p.c) z0 += w * eventad::bf(xe[q]);
+            if (q + 1 < p.c) z1 += w * eventad::bf(xe[q + 1]);
+          }
+        }
+        return static_cast<uint32_t>(
+                   __bfloat16_as_ushort(__float2bfloat16(z0))) |
+               (static_cast<uint32_t>(
+                    __bfloat16_as_ushort(__float2bfloat16(z1))) << 16);
+      };
+      for (unsigned long long tb = tmask; tb; tb &= tb - 1) {
+        const int m = __ffsll(static_cast<long long>(tb)) - 1;
+        const bf16* wm = s_taps + static_cast<size_t>(m) * p.o * p.cstride;
+        for (int k0 = 0; k0 < p.c; k0 += 16) {
+          uint32_t a[4];
+          a[0] = zpair(mask_a, fa, ca, m, k0 + q2);
+          a[1] = zpair(mask_b, fb, cb, m, k0 + q2);
+          a[2] = zpair(mask_a, fa, ca, m, k0 + 8 + q2);
+          a[3] = zpair(mask_b, fb, cb, m, k0 + 8 + q2);
+#pragma unroll
+          for (int j = 0; j < NB; ++j) {
+            if (j < nb) {
+              const bf16* wr =
+                  wm + static_cast<size_t>(8 * j + g) * p.cstride + k0 + q2;
+              uint32_t bb[2];
+              bb[0] = *reinterpret_cast<const uint32_t*>(wr);
+              bb[1] = *reinterpret_cast<const uint32_t*>(wr + 8);
+              mma_bf16(acc[j], a, bb);
+            }
+          }
+        }
+      }
+      __syncwarp();        // the group's records are the next group's
+    }
+
+    // ---- epilogue from the accumulators: rows g and g + 8, columns
+    // 8 j + 2 (lane % 4) and the next ----
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (j >= nb) continue;
+      const int col = 8 * j + q2;
+      const float4 ab0 = __ldg(reinterpret_cast<const float4*>(p.ab) + col);
+      const float4 ab1 =
+          __ldg(reinterpret_cast<const float4*>(p.ab) + col + 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = g + 8 * h;
+        if (r >= rows) continue;
+        float y0 = ab0.x * acc[j][2 * h] + ab0.y;
+        float y1 = ab1.x * acc[j][2 * h + 1] + ab1.y;
+        if (has_skip) {
+          y0 += ab0.z * sk[j][2 * h] + ab0.w;
+          y1 += ab1.z * sk[j][2 * h + 1] + ab1.w;
+        }
+        const long long row = n0 + r;
+        const bool on = p.node_mask[row] != 0;
+        y0 = on ? eventad::apply_act(y0, p.act) : 0.f;
+        y1 = on ? eventad::apply_act(y1, p.act) : 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(p.out + row * p.o + col) =
+            __floats2bfloat162_rn(y0, y1);
+      }
+    }
+    __syncwarp();          // the buffers are the tile after next's
+  }
+  cp_async_wait_all();
+}
+
+template <int NB>
+int run(const Params& p, size_t smem, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        level0_block_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  // as many blocks as the SMs hold at this shared memory size
+  int per_sm = 0, dev = 0, n_sms = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, level0_block_kernel<NB>, kThreads, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1 || n_sms < 1)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int n_tiles = (p.n + 15) / 16;
+  const int blocks = min((n_tiles + kWarps - 1) / kWarps, per_sm * n_sms);
+  level0_block_kernel<NB><<<blocks, kThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // src [N, C] bf16, nbr [N, K] int32 (absolute rows, -1 = no edge), u [N, K,
-// 2] f32, w_sub [nxs*nys, C, O] f32, root [C, O] f32, ab [O, 4] f32 (a, b,
-// a_s, b_s), xs [N, Cs] bf16 and skip_lin [Cs, O] f32 (both NULL without
-// skip), node_mask [N] uint8 -> out [N, O] bf16.
+// 2] f32, node_mask [N] one byte each (bool), taps [nxs*nys, O, CS] and
+// root [O, CS] bf16 (transposed, CS = pad16(C) + 8, pads zero), ab [O, 4]
+// f32 (a, b, a_s, b_s), xs [N, Cs] bf16 and skip [O, CSS] bf16 (both NULL
+// without skip) -> out [N, O] bf16.  O a multiple of 8 up to 64, C at most
+// 64, K at most 32, at most 64 taps, the weights and eight warps' buffers
+// within 227 KB of shared memory; the packed weights 16-byte aligned.
 EVENTAD_API int eventad_level0_block(
     const void* src, int c, const void* nbr, int k, const void* u,
-    const void* w_sub, const void* root, const void* ab, const void* xs,
-    int cs, const void* skip_lin, const void* node_mask, int n, int o_ch,
-    int ks, int mx0, int nxs, int my0, int nys, int act, void* out,
+    const void* node_mask, const void* taps, const void* root,
+    const void* ab, const void* xs, int cs, const void* skip, int n,
+    int o_ch, int ks, int mx0, int nxs, int my0, int nys, int act, void* out,
     void* stream) {
   if (n == 0) return 0;
-  if (o_ch < 1 || o_ch > 256) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows_per_block = 256 / o_ch;
-  const int threads = rows_per_block * o_ch;
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(nxs) * nys * c * o_ch +
-                       static_cast<size_t>(c) * o_ch +
-                       (xs != nullptr ? static_cast<size_t>(cs) * o_ch : 0));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        level0_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int blocks = (n + rows_per_block - 1) / rows_per_block;
-  level0_block_kernel<<<blocks, threads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(src), c, static_cast<const int*>(nbr),
-      k, static_cast<const float*>(u), static_cast<const float*>(w_sub),
-      static_cast<const float*>(root), static_cast<const float*>(ab),
-      static_cast<const __nv_bfloat16*>(xs), cs,
-      static_cast<const float*>(skip_lin),
-      static_cast<const uint8_t*>(node_mask), n, o_ch, ks, mx0, nxs, my0, nys,
-      act, static_cast<__nv_bfloat16*>(out));
-  return static_cast<int>(cudaGetLastError());
+  if (o_ch < 8 || o_ch > 64 || o_ch % 8 != 0 || c < 1 || c > 64 || k < 1 ||
+      k > 32 ||
+      nxs < 1 || nys < 1 || nxs * nys > 64 || ks < 2 ||
+      (xs != nullptr && (cs < 1 || skip == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  p.src = static_cast<const bf16*>(src); p.c = c;
+  p.nbr = static_cast<const int*>(nbr); p.k = k;
+  p.u = static_cast<const float*>(u);
+  p.node_mask = static_cast<const uint8_t*>(node_mask);
+  p.taps = static_cast<const bf16*>(taps);
+  p.root = static_cast<const bf16*>(root);
+  p.xs = static_cast<const bf16*>(xs); p.cs = xs != nullptr ? cs : 0;
+  p.skip = static_cast<const bf16*>(skip);
+  p.ab = static_cast<const float*>(ab);
+  p.n = n; p.o = o_ch; p.ks = ks; p.mx0 = mx0; p.nxs = nxs; p.my0 = my0;
+  p.nys = nys; p.act = act;
+  p.out = static_cast<bf16*>(out);
+  p.cstride = pad_stride(c);
+  p.csstride = xs != nullptr ? pad_stride(cs) : 8;
+  if (((reinterpret_cast<uintptr_t>(taps) | reinterpret_cast<uintptr_t>(root) |
+        reinterpret_cast<uintptr_t>(skip)) & 15) != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const size_t smem = make_layout(p).total;
+  if (smem > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (o_ch <= 8) return run<1>(p, smem, s);
+  if (o_ch <= 16) return run<2>(p, smem, s);
+  if (o_ch <= 32) return run<4>(p, smem, s);
+  return run<8>(p, smem, s);
 }

@@ -116,12 +116,8 @@ struct Params {
   int src_vw; int xs_vw;         // elements per copy: 8, 2 or 1
 };
 
-__host__ __device__ inline int pad_stride(int c) {
-  return (c + 15) / 16 * 16 + 8;
-}
-__host__ __device__ inline size_t align16(size_t x) {
-  return (x + 15) / 16 * 16;
-}
+using eventad::align16;
+using eventad::pad_stride;
 
 // the carve-up of dynamic shared memory, the same on both sides
 struct Layout {
@@ -154,43 +150,13 @@ __host__ __device__ inline Layout make_layout(int tm, int c_stride,
   return l;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-template <int kBytes>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "n"(kBytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using eventad::cp_async;
+using eventad::cp_async_commit;
+using eventad::cp_async_wait_all;
+using eventad::ldmatrix_x2;
+using eventad::ldmatrix_x4;
+using eventad::mma_bf16;
+using eventad::smem_u32;
 
 // The weight of an edge (x: ix | iy << 8 as bits, -1 none; y: fx; z: fy) on
 // tap (mx, my): (1 - f) on its floor tap and f on the next, per axis

@@ -45,6 +45,7 @@ from ..ops import spline_fused
 from ..ops.spline_shift import (pack_shift_weights, prepare_shift,
                                 shift_spline_conv)
 from ..ops.upsample_flat import upsample_rows
+from ..utils.tensors import constant
 from .graph import Graph, neighbor_rows, sample_image_features, \
     upsample_lookup
 
@@ -142,17 +143,20 @@ def _fold_bn_affine(bn: BatchNorm, bias, dt):
     return a, b
 
 
-def whole_layer_operands(layer: Layer, dt, tap_idx=None) -> tuple:
+def whole_layer_operands(layer: Layer, dt, tap_idx=None,
+                         level0=None) -> tuple:
     """What the whole-layer kernels (K2, K3) take from ``layer`` in compute
     dtype ``dt``: ``(w1, root1, a1, c1, w2, root2, a2, c2, skip_lin, a_s,
     c_s)``, the weights cast to ``dt`` and the three eval BNs folded into
     f32 affines; with ``tap_idx`` (a pooled level's used taps,
     ``ShiftPrep.tap_idx``) followed by the two conv blocks' ``ShiftWeights``
-    for K3.  Kept on the layer while its parameters and buffers (and
-    ``tap_idx``) are the same objects with the same storage and ``_version``
-    (an in-place update makes them anew; a write through ``tensor.data``
-    does not move ``_version`` and is not seen), so a forward with unchanged
-    weights casts, folds and packs nothing."""
+    for K3; with ``level0 = (kernel_size, ranges, fold_center)`` followed by
+    the two conv blocks' ``Level0Weights`` for K2.  Kept on the layer while
+    its parameters and buffers (and ``tap_idx``, ``level0``) are the same
+    objects with the same storage and ``_version`` (an in-place update makes
+    them anew; a write through ``tensor.data`` does not move ``_version``
+    and is not seen), so a forward with unchanged weights casts, folds and
+    packs nothing."""
     b1, b2 = layer.block1, layer.block2
     # what the operands are made from, named one by one: walking the module
     # tree (parameters(), buffers()) costs more than the casts it saves
@@ -162,7 +166,8 @@ def whole_layer_operands(layer: Layer, dt, tap_idx=None) -> tuple:
         sources += [bn.scale, bn.offset, bn.mean, bn.var]
     if tap_idx is not None:
         sources.append(tap_idx)
-    key = (dt,) + tuple((id(t), t._version, t.data_ptr()) for t in sources)
+    key = (dt, level0) + tuple((id(t), t._version, t.data_ptr())
+                               for t in sources)
     kept = layer.__dict__.get("_whole_layer_operands")
     if kept is None or kept[0] != key:
         with torch.no_grad():
@@ -178,6 +183,12 @@ def whole_layer_operands(layer: Layer, dt, tap_idx=None) -> tuple:
                 ops += (pack_shift_weights(tap_idx, *ops[:4]),
                         pack_shift_weights(tap_idx, *ops[4:8],
                                            (None,) + ops[8:]))
+            if level0 is not None:
+                ks, ranges, fold = level0
+                kw = dict(kernel_size=ks, ranges=ranges, fold_center=fold)
+                ops += (spline_fused.pack_level0_block(*ops[:4], **kw),
+                        spline_fused.pack_level0_block(*ops[4:8], **kw,
+                                                       skip=ops[8:]))
         # tap_idx is held with the key so that no other tensor takes its id
         kept = (key, ops, tap_idx)
         layer.__dict__["_whole_layer_operands"] = kept
@@ -253,8 +264,7 @@ def apply_layer(layer: Layer, g: Graph, *, kernel_size: int, aggr: str,
         attr = offset_attr(offk, nbr_mask, cart_max, width, height)
         if not use_fused:
             x_j1 = rows_of(x_in)
-        wh = torch.tensor([width, height], dtype=torch.float32,
-                          device=x_in.device)
+        wh = constant((width, height), torch.float32, x_in.device)
         ipos = torch.round(g.pos[:, :2] * wh).to(torch.int32)
         pos_nbr = (ipos[:, None, :] - offk).to(torch.float32) / wh
     elif use_fused:
@@ -287,19 +297,13 @@ def apply_layer(layer: Layer, g: Graph, *, kernel_size: int, aggr: str,
                                     skip=(x_in, skip_lin, a_s, c_s),
                                     pack=pack2)
         else:
-            (w1, root1, a1, c1, w2, root2, a2, c2, skip_lin, a_s,
-             c_s) = whole_layer_operands(layer, dt)
             ranges = (tap_ranges(ks, attr_range) if attr_range
                       else ((0, ks - 1), (0, ks - 1)))
-            if fold_self:
-                ci = center_index(ks)
-                root1 = root1 + w1[ci]
-                root2 = root2 + w2[ci]
+            *_, pack1, pack2 = whole_layer_operands(
+                layer, dt, level0=(ks, ranges, fold_self))
             out, _ = spline_fused.fused_two_block(
-                x_in, spline_fused.prepare_fused(nbr, nbr_mask, u), w1, root1,
-                a1, c1, w2, root2, g.node_mask, kernel_size=ks,
-                ranges=ranges, act=activation_name,
-                epilogue=(skip_lin, a2, c2, a_s, c_s))
+                x_in, spline_fused.prepare_fused(nbr, nbr_mask, u), pack1,
+                pack2, g.node_mask, act=activation_name)
         return g._replace(x=out), pos_nbr
 
     if use_fused:

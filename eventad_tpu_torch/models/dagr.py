@@ -17,6 +17,7 @@ from torch import nn
 from ..config import Config
 from ..data.batching import EventBatch
 from ..ops.event_graph import build_graph_auto
+from ..utils.tensors import constant
 from .backbone import (Backbone, BackboneConfig, backbone_forward,
                        make_backbone_config)
 from .eventad import (EventADConfig, EventADHead, EventADOutputs,
@@ -97,8 +98,7 @@ def build_level0_graph(pos: torch.Tensor, polarity: torch.Tensor,
     dev = pos.device
     off = (torch.arange(b, dtype=torch.int32, device=dev) * n)[:, None, None]
     nbr_f = (nbr + off).reshape(b * n, -1)
-    denom = torch.tensor([width, height, time_window], dtype=torch.float32,
-                         device=dev)
+    denom = constant((width, height, time_window), torch.float32, dev)
     posn = (pos.to(torch.float32) / denom).reshape(b * n, 3)
     vm = valid.reshape(b * n)
     pol = torch.where(vm[:, None], polarity.reshape(b * n, 1), 0.0)
@@ -134,8 +134,8 @@ def model_forward(model: EventADModel, batch: EventBatch, bc: BackboneConfig,
         feats = extract_box_features(out4, batch.boxes, batch.box_present,
                                      bc.batch_size, bc.width, bc.height)
         feats = feats.to(torch.float32)
-        denom = torch.tensor([bc.width, bc.height, bc.width, bc.height],
-                             dtype=torch.float32, device=feats.device)
+        denom = constant((bc.width, bc.height, bc.width, bc.height),
+                         torch.float32, feats.device)
         coords = batch.boxes[:, 1] / denom
     with torch.set_grad_enabled(training):
         return eventad_forward(model.head, mc, feats, coords,

@@ -172,32 +172,51 @@ def build_graph(pos: torch.Tensor, valid: torch.Tensor, ranks=None, *,
 # ---------------------------------------------------------------------------
 # K1: the CUDA kernel
 # ---------------------------------------------------------------------------
+def search_key_bits(radius: int, max_queue_size: int, lookback: int):
+    """``(dbits, bits)`` of the kernel's packed key ``(spiral_index * Q +
+    rank) << dbits | d``: ``dbits`` holds any ``d <= lookback``, ``bits``
+    any key; 32-bit keys where ``bits <= 32``, else 64-bit."""
+    side = 2 * radius + 1
+    dbits = max(int(lookback).bit_length(), 1)
+    return dbits, ((side * side * max_queue_size) << dbits).bit_length()
+
+
 def build_graph_cuda(pos: torch.Tensor, valid: torch.Tensor, ranks=None, *,
                      radius: int, delta_t_us: int, max_neighbors: int = 16,
                      max_queue_size: int = 128, lookback: int = 1024):
     """Same contract as :func:`build_graph`, one launch of
-    ``csrc/event_graph_search.cu``."""
+    ``csrc/event_graph_search.cu``.  ``valid`` (``torch.bool``) is read as
+    its bytes, ``ranks`` (int32, the queue ranks) as given and the mask is
+    written as a ``torch.bool`` tensor, so with ``ranks`` given the call
+    launches the kernel and nothing else; without, the ranks are computed
+    first by :func:`queue_rank`."""
     b, n, _ = pos.shape
     k_other = max_neighbors - 1
     if not 1 <= k_other <= 16:
         raise ValueError(f"max_neighbors must be in [2, 17], got "
                          f"{max_neighbors}")
-    ranks = _ranks_or_default(pos, valid, ranks).contiguous()
-    valid_u8 = valid.to(torch.uint8).contiguous()
+    if ranks is None:
+        ranks = _ranks_or_default(pos, valid, None)
     require(pos, "pos", dtype=torch.int32, shape=(b, n, 3))
-    require(valid_u8, "valid", dtype=torch.uint8, shape=(b, n))
+    require(valid, "valid", dtype=torch.bool, shape=(b, n))
     require(ranks, "ranks", dtype=torch.int32, shape=(b, n))
+    lookback = int(min(lookback, n))
+    dbits, bits = search_key_bits(radius, max_queue_size, lookback)
+    if bits > 64 or not -2**31 <= delta_t_us < 2**31:
+        raise ValueError(f"radius {radius}, max_queue_size {max_queue_size}"
+                         f" and lookback {lookback} need {bits}-bit keys, or"
+                         f" delta_t_us {delta_t_us} is not a 32-bit int")
     k = k_other + 1
     nbr = torch.empty((b, n, k), dtype=torch.int32, device=pos.device)
-    mask = torch.empty((b, n, k), dtype=torch.uint8, device=pos.device)
+    mask = torch.empty((b, n, k), dtype=torch.bool, device=pos.device)
     doff = torch.empty((b, n, k, 2), dtype=torch.int32, device=pos.device)
     if b * n:
-        launch("eventad_event_graph_search", ptr(pos), ptr(valid_u8),
+        launch("eventad_event_graph_search", ptr(pos), ptr(valid),
                ptr(ranks), b, n, int(radius), int(delta_t_us), k_other,
-               int(max_queue_size), int(min(lookback, n)), ptr(nbr),
-               ptr(mask), ptr(doff))
+               int(max_queue_size), lookback, dbits, int(bits > 32),
+               ptr(nbr), ptr(mask), ptr(doff))
         build_graph_cuda.launches += 1
-    return nbr, mask.bool(), doff
+    return nbr, mask, doff
 
 
 build_graph_cuda.launches = 0

@@ -32,11 +32,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argument types (the stream is always last)
 SIGNATURES = {
     "eventad_event_graph_search":
-        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "eventad_upsample_rows":
         [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "eventad_level0_block":
-        [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+        [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
          _I, _I, _I, _I, _P, _P],
     "eventad_fused_spline_conv":
         [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],

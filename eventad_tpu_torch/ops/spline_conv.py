@@ -17,6 +17,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.tensors import constant
+
 
 class SplineConv(nn.Module):
     """PyG ``SplineConv`` parameters: ``weight [K*K, Cin, Cout]`` (x tap
@@ -111,9 +113,9 @@ def offset_attr(off: torch.Tensor, nbr_mask: torch.Tensor, max_value: float,
     """Pseudo-coordinates from integer ``dst - src`` pixel offsets
     ``off [N, K, 2]``: ``off / (2 max size) + 0.5``, clipped, 0.5 where
     masked."""
-    s = torch.tensor([1.0 / (2.0 * max_value * width),
-                      1.0 / (2.0 * max_value * height)],
-                     dtype=torch.float32, device=off.device)
+    s = constant((1.0 / (2.0 * max_value * width),
+                  1.0 / (2.0 * max_value * height)), torch.float32,
+                 off.device)
     a = torch.clamp(off.to(torch.float32) * s + 0.5, 0.0, 1.0)
     return torch.where(nbr_mask[..., None], a, 0.5)
 

@@ -6,15 +6,20 @@ with root, eval-BN affines, activation, linear skip and skip-BN
 (``fused_two_block_prepared`` there; kernel ``csrc/spline_fused.cu``,
 launched once per block).
 
-Computes, with the self edge folded into ``root1``/``root2`` by the caller
-and the taps restricted to the static sub-rectangle ``ranges``:
+Computes, with the self edge folded into ``root1``/``root2`` and the taps
+restricted to the static sub-rectangle ``ranges``, both by the pack
+(:func:`pack_level0_block`, made once per layer by its owner, ``models/
+backbone.whole_layer_operands``):
 
-    h   = bf16(act(a1 * (conv1(src) + src @ root1) + b1) * node_mask)
-    out = bf16(act(a2 * (conv2(h) + h @ root2) + b2
+    z_m = sum_k coeff[n, k, m] * x[nbr[n, k]]          (rounded, see below)
+    h   = bf16(act(a1 * (sum_m z_m @ W1[m] + src @ root1) + b1) * node_mask)
+    out = bf16(act(a2 * (sum_m z_m @ W2[m] + h @ root2) + b2
                    + a_s * (src @ skip_lin) + b_s) * node_mask)
 
-``h`` is rounded to bf16 before block 2 gathers it, as the TPU kernel
-rounds it.  Sums run in f32 in both versions, in different orders.
+In the pack's type: with bf16 packs (the kernel's) each ``z_m`` is rounded
+to bf16 before its product, as the TPU kernel rounds it, and ``h`` to bf16
+before block 2 gathers it.  Sums run in f32 in both versions, in different
+orders.
 
 K5, ``fused_spline_conv``: one generic conv block, the neighbour
 aggregation alone (``fused_spline_conv_prepared`` there; kernel
@@ -29,13 +34,14 @@ activation, mask and skip stay with the caller.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from .kernels import launch, ptr, require
 from .spline_basis import ACT_CODES, ACTS, axis_weights
-from .spline_conv import sub_kernel_index
+from .spline_conv import center_index, sub_kernel_index
+from .spline_shift import pack_skip_affines, pad_stride, transpose_padded
 
 
 class FusedPrep(NamedTuple):
@@ -67,81 +73,118 @@ def _masked_act(pre, node_mask, act):
                        torch.zeros((), device=pre.device))
 
 
-def fused_two_block_plain(src, prep: FusedPrep, w1, root1, a1, b1, w2, root2,
-                          node_mask, *, kernel_size: int, ranges,
-                          act: str = "relu", epilogue):
-    """Plain PyTorch version.  ``epilogue = (skip_lin, a2, b2, a_s, b_s)``.
+class Level0Weights(NamedTuple):
+    """One conv block of the level-0 layer in the layout
+    ``csrc/spline_fused.cu`` multiplies from."""
+    taps: torch.Tensor            # [M, O, CS]: the sub-rectangle's taps
+    root: torch.Tensor            # [O, CS]: root (+ centre tap), transposed
+    skip: Optional[torch.Tensor]  # [O, CSS] or None
+    ab: torch.Tensor              # [O, 4] f32: a, b, a_s, b_s
+    c: int
+    cs: int                       # skip channels, 0 without skip
+    kernel_size: int
+    ranges: tuple
+
+
+def pack_level0_block(weight, root, a, b, *, kernel_size: int, ranges,
+                      fold_center: bool,
+                      skip: Optional[tuple] = None) -> Level0Weights:
+    """``weight [ks*ks, C, O]``, ``root [C, O]``, ``a``/``b [O]`` and
+    ``skip = (skip_lin [Cs, O], a_s, b_s)`` as a :class:`Level0Weights`, in
+    ``weight``'s type: the taps of the sub-rectangle ``ranges`` (x fastest;
+    a slice, no index tensor), the root with the centre tap added where
+    ``fold_center`` (the self edge, in ``weight``'s type as the layer has
+    always added it), each matrix laid out by :func:`spline_shift.
+    transpose_padded`, skip and affines by :func:`spline_shift.
+    pack_skip_affines`."""
+    ks = kernel_size
+    (mx0, mx1), (my0, my1) = ranges
+    dt = weight.dtype
+    c, o = root.shape
+    taps = weight.reshape(ks, ks, c, o)[my0:my1 + 1, mx0:mx1 + 1] \
+        .reshape(-1, c, o)
+    r = root.to(dt) + weight[center_index(ks)] if fold_center else root.to(dt)
+    sk, cs, ab = pack_skip_affines(a, b, skip, dt)
+    return Level0Weights(transpose_padded(taps, dt),
+                         transpose_padded(r[None], dt)[0], sk, ab, c, cs, ks,
+                         tuple(map(tuple, ranges)))
+
+
+def _level0_block_plain(x, prep: FusedPrep, pack: Level0Weights,
+                        node_mask, act, x_skip=None):
+    n, o = x.shape[0], pack.ab.shape[0]
+    xf = x.float()
+    coeff = _tap_coeff(prep, pack.kernel_size, pack.ranges)     # [N, K, M]
+    z = torch.einsum("nkm,nkc->nmc", coeff, xf[prep.nbr.clamp(min=0).long()])
+    z = z.to(pack.taps.dtype).float()        # the kernel's rounding point
+    taps = pack.taps[..., :pack.c].float().transpose(1, 2)       # [M, C, O]
+    acc = z.reshape(n, -1) @ taps.reshape(-1, o) \
+        + xf @ pack.root[:, :pack.c].float().t()
+    pre = acc * pack.ab[:, 0] + pack.ab[:, 1]
+    if x_skip is not None:
+        pre = pre + (x_skip.float() @ pack.skip[:, :pack.cs].float().t()) \
+            * pack.ab[:, 2] + pack.ab[:, 3]
+    return _masked_act(pre, node_mask, act).to(x.dtype)
+
+
+def fused_two_block_plain(src, prep: FusedPrep, pack1: Level0Weights,
+                          pack2: Level0Weights, node_mask, *,
+                          act: str = "relu"):
+    """Plain PyTorch version from the packs (``pack2`` with the skip).
     Sums in f32; ``h`` and the output are emitted in ``src.dtype`` (bf16 on
     the kernel's path).  Returns ``(out [N, O], h [N, C1])``."""
-    ks = kernel_size
-    n = src.shape[0]
-    sub = torch.as_tensor(sub_kernel_index(ks, ranges), device=src.device)
-    coeff = _tap_coeff(prep, ks, ranges)                    # [N, K, M]
-    idx = prep.nbr.clamp(min=0).long()
-
-    def block(x, w, root):
-        xf = x.float()
-        z = torch.einsum("nkm,nkc->nmc", coeff, xf[idx])
-        ws = w[sub].float()
-        return z.reshape(n, -1) @ ws.reshape(-1, ws.shape[-1]) \
-            + xf @ root.float()
-
-    h = _masked_act(block(src, w1, root1) * a1.float() + b1.float(),
-                    node_mask, act).to(src.dtype)
-    skip_lin, a2, b2, a_s, b_s = (t.float() for t in epilogue)
-    pre = block(h, w2, root2) * a2 + b2 + (src.float() @ skip_lin) * a_s + b_s
-    return _masked_act(pre, node_mask, act).to(src.dtype), h
+    h = _level0_block_plain(src, prep, pack1, node_mask, act)
+    return _level0_block_plain(h, prep, pack2, node_mask, act,
+                               x_skip=src), h
 
 
-def fused_two_block_cuda(src, prep: FusedPrep, w1, root1, a1, b1, w2, root2,
-                         node_mask, *, kernel_size: int, ranges,
-                         act: str = "relu", epilogue):
+def fused_two_block_cuda(src, prep: FusedPrep, pack1: Level0Weights,
+                         pack2: Level0Weights, node_mask, *,
+                         act: str = "relu"):
     """Two launches of ``csrc/spline_fused.cu``: block 1 writes ``h``,
-    block 2 gathers it and runs the skip epilogue."""
+    block 2 gathers it and runs the skip epilogue.  Takes every operand as
+    it is: the ``bool`` node mask as its bytes, the packs as packed, so the
+    call launches the two kernels and nothing else."""
     n, c = src.shape
     k = prep.nbr.shape[1]
     require(src, "src", dtype=torch.bfloat16, shape=(n, c))
     require(prep.nbr, "prep.nbr", dtype=torch.int32, shape=(n, k))
     require(prep.u, "prep.u", dtype=torch.float32, shape=(n, k, 2))
-    (mx0, mx1), (my0, my1) = ranges
-    nxs, nys = mx1 - mx0 + 1, my1 - my0 + 1
-    sub = torch.as_tensor(sub_kernel_index(kernel_size, ranges),
-                          device=src.device)
-    f32 = torch.float32
-
-    def f(t):
-        return t.to(f32).contiguous()
-
-    skip_lin, a2, b2, a_s, b_s = epilogue
-    c1, c2 = w1.shape[-1], w2.shape[-1]
-    m_sub = nxs * nys
-    zeros = torch.zeros(c1, dtype=f32, device=src.device)
-    w1s, w2s = f(w1[sub]), f(w2[sub])
-    r1, r2, skl = f(root1), f(root2), f(skip_lin)
-    ab1 = f(torch.stack([a1.to(f32), b1.to(f32), zeros, zeros], 1))
-    ab2 = f(torch.stack([a2, b2, a_s, b_s], 1))
-    for t, name, shape in ((w1s, "w1", (m_sub, c, c1)),
-                           (w2s, "w2", (m_sub, c1, c2)),
-                           (r1, "root1", (c, c1)), (r2, "root2", (c1, c2)),
-                           (skl, "skip_lin", (c, c2)),
-                           (ab1, "a1/b1", (c1, 4)),
-                           (ab2, "a2/b2/a_s/b_s", (c2, 4))):
-        require(t, name, dtype=f32, shape=shape)
-    mask_u8 = node_mask.to(torch.uint8).contiguous()
-    require(mask_u8, "node_mask", dtype=torch.uint8, shape=(n,))
+    require(node_mask, "node_mask", dtype=torch.bool, shape=(n,))
+    c1, c2 = pack1.ab.shape[0], pack2.ab.shape[0]
+    for pk, cin, cs, name in ((pack1, c, 0, "pack1"), (pack2, c1, c, "pack2")):
+        o = pk.ab.shape[0]
+        m = pk.taps.shape[0]
+        if not (8 <= o <= 64 and o % 8 == 0) or cin > 64 or m > 64 \
+                or k > 32:
+            raise ValueError(f"{name}: output channels must be a multiple "
+                             f"of 8 in [8, 64], with at most 64 input "
+                             f"channels, 64 taps and 32 slots, got {o}, "
+                             f"{cin}, {m} and {k}")
+        if pk.c != cin or pk.cs != cs \
+                or pk.kernel_size != pack1.kernel_size \
+                or pk.ranges != pack1.ranges:
+            raise ValueError(f"{name} does not belong to these operands")
+        require(pk.taps, f"{name}.taps", dtype=torch.bfloat16,
+                shape=(m, o, pad_stride(cin)))
+        require(pk.root, f"{name}.root", dtype=torch.bfloat16,
+                shape=(o, pad_stride(cin)))
+        require(pk.ab, f"{name}.ab", dtype=torch.float32, shape=(o, 4))
+    require(pack2.skip, "pack2.skip", dtype=torch.bfloat16,
+            shape=(c2, pad_stride(c)))
     h = torch.empty((n, c1), dtype=torch.bfloat16, device=src.device)
     out = torch.empty((n, c2), dtype=torch.bfloat16, device=src.device)
     if n == 0:
         return out, h
+    ks = pack1.kernel_size
+    (mx0, mx1), (my0, my1) = pack1.ranges
+    nxs, nys = mx1 - mx0 + 1, my1 - my0 + 1
     code = ACT_CODES[act]
-    launch("eventad_level0_block", ptr(src), c, ptr(prep.nbr), k,
-           ptr(prep.u), ptr(w1s), ptr(r1), ptr(ab1), ptr(None), 0,
-           ptr(None), ptr(mask_u8), n, c1, kernel_size, mx0, nxs, my0, nys,
-           code, ptr(h))
-    launch("eventad_level0_block", ptr(h), c1, ptr(prep.nbr), k,
-           ptr(prep.u), ptr(w2s), ptr(r2), ptr(ab2), ptr(src), c, ptr(skl),
-           ptr(mask_u8), n, c2, kernel_size, mx0, nxs, my0, nys, code,
-           ptr(out))
+    for x, pk, xs, y in ((src, pack1, None, h), (h, pack2, src, out)):
+        launch("eventad_level0_block", ptr(x), x.shape[1], ptr(prep.nbr), k,
+               ptr(prep.u), ptr(node_mask), ptr(pk.taps), ptr(pk.root),
+               ptr(pk.ab), ptr(xs), pk.cs, ptr(pk.skip), n, pk.ab.shape[0],
+               ks, mx0, nxs, my0, nys, code, ptr(y))
     fused_two_block_cuda.launches += 2
     return out, h
 

@@ -182,39 +182,50 @@ class ShiftWeights(NamedTuple):
     cs: int                       # skip channels, 0 without skip
 
 
-def _pad_stride(c: int) -> int:
+def pad_stride(c: int) -> int:
     """Row stride of a packed operand: ``c`` padded to the MMA depth of 16,
     plus 8: an odd number of 16-byte units, so that eight consecutive rows
     fall into eight different bank groups of shared memory."""
     return -(-c // 16) * 16 + 8
 
 
+def transpose_padded(mats: torch.Tensor, dtype=torch.bfloat16):
+    """``[M, C, O] -> [M, O, pad_stride(C)]`` in ``dtype``, zero-padded:
+    each matrix transposed (channels contiguous), the layout from which the
+    kernels read their B fragments."""
+    m, c, o = mats.shape
+    out = torch.zeros((m, o, pad_stride(c)), dtype=dtype, device=mats.device)
+    out[..., :c] = mats.transpose(1, 2).to(dtype)
+    return out
+
+
+def pack_skip_affines(a, b, skip: Optional[tuple] = None,
+                      dtype=torch.bfloat16):
+    """What the packs of K2 and K3 share: ``(skip, cs, ab)``, from ``skip =
+    (skip_lin [Cs, O], a_s, b_s)`` the skip matrix laid out by
+    :func:`transpose_padded` in ``dtype`` and its channels (None and 0
+    without a skip), and ``ab [O, 4]`` f32: ``a, b, a_s, b_s``, the last
+    two zero without a skip."""
+    f32 = torch.float32
+    cols = [a.to(f32), b.to(f32)]
+    if skip is None:
+        return None, 0, torch.stack(cols + [torch.zeros_like(cols[0])] * 2,
+                                    1)
+    skip_lin, a_s, b_s = skip
+    return (transpose_padded(skip_lin[None], dtype)[0], skip_lin.shape[0],
+            torch.stack(cols + [a_s.to(f32), b_s.to(f32)], 1))
+
+
 def pack_shift_weights(tap_idx: torch.Tensor, weight, root, a, b,
                        skip: Optional[tuple] = None) -> ShiftWeights:
     """``weight [ks*ks, C, O]``, ``root [C, O]``, ``a``/``b [O]`` and
     ``skip = (_, skip_lin [Cs, O], a_s, b_s)`` as a :class:`ShiftWeights`:
-    each matrix transposed to ``[O, C]`` (channels contiguous), rounded to
-    bf16 and zero-padded to :func:`_pad_stride`."""
-    bf16, f32 = torch.bfloat16, torch.float32
-    c, o = root.shape
-
-    def packed(mats, cin):       # [M, cin, O] -> [M, O, stride]
-        out = torch.zeros((mats.shape[0], o, _pad_stride(cin)), dtype=bf16,
-                          device=mats.device)
-        out[..., :cin] = mats.transpose(1, 2).to(bf16)
-        return out
-
-    w = packed(torch.cat([weight[tap_idx].to(bf16), root[None].to(bf16)]), c)
-    cols = [a.to(f32), b.to(f32)]
-    sk, cs = None, 0
-    if skip is not None:
-        _, skip_lin, a_s, b_s = skip
-        cs = skip_lin.shape[0]
-        sk = packed(skip_lin[None], cs)[0]
-        cols += [a_s.to(f32), b_s.to(f32)]
-    else:
-        cols += [torch.zeros_like(cols[0])] * 2
-    return ShiftWeights(w, sk, torch.stack(cols, 1).contiguous(), c, cs)
+    each matrix rounded to bf16 and laid out by :func:`transpose_padded`."""
+    bf16 = torch.bfloat16
+    w = transpose_padded(torch.cat([weight[tap_idx].to(bf16),
+                                    root[None].to(bf16)]))
+    sk, cs, ab = pack_skip_affines(a, b, None if skip is None else skip[1:])
+    return ShiftWeights(w, sk, ab, root.shape[0], cs)
 
 
 def unpack_shift_weights(pack: ShiftWeights, prep: ShiftPrep):
@@ -282,7 +293,7 @@ def shift_spline_conv_cuda(src, prep: ShiftPrep, weight, root, a, b, *,
     if pack is None:
         pack = pack_shift_weights(prep.tap_idx, weight, root, a, b, skip)
     require(pack.w, "pack.w", dtype=torch.bfloat16,
-            shape=(n_taps + 1, o, _pad_stride(c)))
+            shape=(n_taps + 1, o, pad_stride(c)))
     if pack.cs != (skip[1].shape[0] if skip is not None else 0):
         raise ValueError(f"pack with {pack.cs} skip channels does not "
                          f"belong to these operands")

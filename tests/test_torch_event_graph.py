@@ -1,7 +1,10 @@
 """K1, the level-0 neighbour search: the port's plain version equals the
 JAX package's XLA formulation, the numpy oracle and the Pallas kernel in
 interpret mode, exactly (integer outputs, ties included).  The CUDA kernel
-is held against this plain version on the card by ``chip_smoke.py``."""
+is held against this plain version on the card by ``chip_smoke.py``; here
+a numpy mirror of the kernel's scan (its tiles, the running-max proof of
+sorted times, the time cutoff, the packed keys) is held against the
+contract."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -119,3 +122,132 @@ def test_dispatch_by_device_and_wrapper_checks(rng):
     with pytest.raises(ValueError, match="max_neighbors"):
         teg.build_graph_cuda(p, v, radius=2, delta_t_us=10_000,
                              max_neighbors=40)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's scan, re-stated in numpy
+# ---------------------------------------------------------------------------
+TILE = 128       # destinations a block of csrc/event_graph_search.cu
+INT_MIN = -2**31
+
+
+def _kernel_mirror(pos, valid, ranks, *, radius, delta_t_us, max_neighbors,
+                   max_queue_size, lookback):
+    """What ``csrc/event_graph_search.cu`` computes, step for step, over
+    the destinations of an item at once: per tile of ``TILE`` destinations
+    the proof that valid times never fall below the running maximum of the
+    valid times before them over the tile's window ``[i0 - lookback, i0 +
+    TILE)`` and, proven, the window's floor (above the last valid row too
+    old for the tile's earliest destination) and the cutoff at the first
+    valid candidate too old; keys ``(spiral * Q + rank) << dbits | d``.
+    Returns ``(nbr, mask, doff, proven)``, ``proven`` per (item, tile)."""
+    b, n, _ = pos.shape
+    ko, q = max_neighbors - 1, max_queue_size
+    lookback = min(lookback, n)
+    dbits, bits = teg.search_key_bits(radius, q, lookback)
+    assert bits <= 64
+    sent = np.uint64(2**64 - 1)
+    nbr = np.zeros((b, n, ko + 1), np.int32)
+    mask = np.zeros((b, n, ko + 1), bool)
+    doff = np.zeros((b, n, ko + 1, 2), np.int32)
+    proven = np.zeros((b, -(-n // TILE)), bool)
+    for it in range(b):
+        x, y, t = (pos[it, :, c].astype(np.int64) for c in range(3))
+        v, rk = valid[it], ranks[it].astype(np.int64)
+        ii = np.arange(n)
+        jst = np.zeros(n, np.int64)
+        cut = np.zeros(n, bool)
+        for tile, i0 in enumerate(range(0, n, TILE)):
+            hi, lo = min(n, i0 + TILE), max(0, i0 - lookback)
+            if not v[i0:hi].any():
+                continue
+            tv = np.where(v[lo:hi], t[lo:hi], INT_MIN)
+            before = np.concatenate([[INT_MIN],
+                                     np.maximum.accumulate(tv)[:-1]])
+            ok = not np.any(v[lo:hi] & (t[lo:hi] < before))
+            floor = lo
+            if ok:
+                old = np.flatnonzero(v[lo:hi] & (t[lo:hi] < t[i0:hi][
+                    v[i0:hi]].min() - delta_t_us))
+                floor = lo + old.max() + 1 if old.size else lo
+            proven[it, tile] = ok
+            jst[i0:hi], cut[i0:hi] = floor, ok
+        thr = t - delta_t_us
+        jmin = np.maximum(ii - np.minimum(lookback, ii), jst)
+        active = v.copy()
+        keys = np.full((n, ko), sent)
+        for d in range(1, lookback + 1):
+            j = ii - d
+            jc = np.maximum(j, 0)
+            cand = active & (j >= jmin) & v[jc]
+            old = cand & (t[jc] < thr)
+            dx, dy = x[jc] - x, y[jc] - y
+            ok = cand & ~old & (np.abs(dx) <= radius) & (np.abs(dy) <= radius) \
+                & (rk[jc] >= 0) & (rk[jc] < q)
+            spiral = teg.spiral_index(torch.from_numpy(dx),
+                                      torch.from_numpy(dy)).numpy()
+            key = (((spiral * q + rk[jc]).astype(np.uint64) << np.uint64(dbits))
+                   | np.uint64(d))
+            keys = np.sort(np.concatenate(
+                [keys, np.where(ok, key, sent)[:, None]], 1), 1)[:, :ko]
+            active &= ~(old & cut)
+        found = keys != sent
+        jn = ii[:, None] - (keys & np.uint64(2**dbits - 1)).astype(np.int64)
+        jn = np.where(found, jn, 0)
+        nbr[it, :, 0] = np.where(v, ii, 0)
+        mask[it, :, 0] = v
+        nbr[it, :, 1:] = jn
+        mask[it, :, 1:] = found
+        for c, coord in enumerate((x, y)):
+            doff[it, :, 1:, c] = np.where(found, coord[:, None] - coord[jn], 0)
+    return nbr, mask, doff, proven
+
+
+def _mirror_case(rng, case):
+    """Two items of 1024 events in the fixture geometry, one changed by
+    ``case``; returns ``(pos, valid, tiles the proof must fail, tiles it
+    must hold)``, each a list of ``(item, tile)``."""
+    pos, valid = _fixture_events(rng, n=1024)
+    bad, good = [], [(1, 3), (1, 7)]
+    if case == "unsorted":
+        perm = rng.permutation(1024)
+        pos[0] = pos[0, perm]
+        bad = [(0, 0), (0, 5)]
+    elif case == "interior_invalid":
+        # event 300 invalid between two valid ones whose times fall
+        k = 300
+        valid[0, k] = False
+        pos[0, k, 2] = pos[0, k - 1, 2]
+        pos[0, k + 1, 2] = pos[0, k - 1, 2] - 50_000
+        bad = [(0, k // TILE)]
+        good.append((0, 0))
+    elif case == "zero_time_tail":
+        pos, valid = _fixture_events(rng, n=1024, n_valid=[300, 1024])
+        good.append((0, 1))
+    return pos, valid, bad, good
+
+
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "interior_invalid",
+                                  "zero_time_tail"])
+def test_kernel_mirror_matches_contract(rng, case):
+    """The kernel's scan, mirrored in numpy, equals the XLA formulation at
+    a lookback of 256 (tiles whose windows start above 0) and the numpy
+    oracle at a lookback that covers the item, exactly; the proof holds
+    and fails where the input says it must."""
+    pos, valid, bad, good = _mirror_case(rng, case)
+    ranks = teg._ranks_or_default(torch.from_numpy(pos),
+                                  torch.from_numpy(valid), None).numpy()
+    kw = dict(KW, max_neighbors=9)
+    got = _kernel_mirror(pos, valid, ranks, lookback=256, **kw)
+    want = jeg.build_graph(jnp.asarray(pos), jnp.asarray(valid),
+                           lookback=256, **kw)
+    _assert_same(got[:3], want)
+    assert got[1][:, :, 1:].sum() > 100
+    full = _kernel_mirror(pos, valid, ranks, lookback=1024, **kw)
+    for it in range(2):
+        nv = int(valid[it].sum()) if case == "zero_time_tail" else 1024
+        ref = jeg.build_graph_numpy(pos[it, :nv], valid[it, :nv], **kw)
+        _assert_same([g[it, :nv] for g in full[:3]], ref)
+    for proven in (got[3], full[3]):
+        assert all(not proven[t] for t in bad), proven
+        assert all(proven[t] for t in good), proven

@@ -22,6 +22,7 @@ from eventad_tpu_torch.data.synthetic import make_synthetic_batch
 from eventad_tpu_torch.ops.spline_conv import center_index, tap_ranges
 from eventad_tpu_torch.ops.spline_fused import (fused_two_block_cuda,
                                                 fused_two_block_plain,
+                                                pack_level0_block,
                                                 prepare_fused)
 
 import _torch_threads  # noqa: F401  (one intra-op thread)
@@ -97,7 +98,9 @@ def _fixture(rng, batch_size=2, events=4096, lookback=512, cin=19, cout=16):
 
 
 def _prep_and_params(g, layer, bc, dt=torch.float32):
-    """The operands apply_layer hands the fused layer (self edge folded)."""
+    """The operands apply_layer hands the fused layer (self edge folded
+    into the roots), unpacked as the JAX kernel takes them, and the two
+    packs the port's versions take."""
     from eventad_tpu_torch.ops.spline_conv import offset_attr
     attr = offset_attr(g.off[:, 1:], g.nbr_mask[:, 1:], bc.cart_max[0],
                        bc.width, bc.height)
@@ -112,7 +115,12 @@ def _prep_and_params(g, layer, bc, dt=torch.float32):
     a_s, c_s = tbb._fold_bn_affine(layer.skip_bn, layer.skip_lin_bias, dt)
     args = (w1, b1.conv.root.to(dt) + w1[ci], a1, c1, w2,
             b2.conv.root.to(dt) + w2[ci])
-    return prep, ranges, args, (layer.skip_lin.to(dt), a2, c2, a_s, c_s)
+    epi = (layer.skip_lin.to(dt), a2, c2, a_s, c_s)
+    kw = dict(kernel_size=KS, ranges=ranges, fold_center=True)
+    packs = (pack_level0_block(w1, b1.conv.root.to(dt), a1, c1, **kw),
+             pack_level0_block(w2, b2.conv.root.to(dt), a2, c2, **kw,
+                               skip=(epi[0], a_s, c_s)))
+    return prep, ranges, args, epi, packs
 
 
 def _rel(got, want):
@@ -142,10 +150,9 @@ def test_plain_layer_matches_jax_apply_layer_f32(rng):
     want = np.asarray(want.x)
 
     layer = _torch_layer(arrays, 19, 16)
-    prep, ranges, args, epi = _prep_and_params(g, layer, bc)
-    out, h = fused_two_block_plain(torch.from_numpy(x), prep, *args,
-                                   g.node_mask, kernel_size=KS,
-                                   ranges=ranges, act="relu", epilogue=epi)
+    prep, _, _, _, packs = _prep_and_params(g, layer, bc)
+    out, h = fused_two_block_plain(torch.from_numpy(x), prep, *packs,
+                                   g.node_mask, act="relu")
     assert out.dtype == torch.float32
     assert _rel(out, want) < F32_TOL, _rel(out, want)
     assert (want != 0).mean() > 0.2
@@ -159,43 +166,82 @@ def test_plain_layer_matches_jax_apply_layer_f32(rng):
     assert _rel(g2.x, want) < F32_TOL, _rel(g2.x, want)
 
 
-def test_plain_layer_matches_pallas_interpret_bf16(rng):
+def _pallas_interpret_bf16(g, x, prep, ranges, args, epi):
+    """The JAX package's K2 in interpret mode, bf16: ``(out, h)``."""
     from eventad_tpu.ops.spline_fused import (fused_two_block_prepared,
                                               prepare_fused as jprep)
-    cfg, b, g, x, bc, arrays = _fixture(rng, batch_size=1, events=1024,
-                                        lookback=128)
-    layer = _torch_layer(arrays, 19, 16)
-    bf16 = torch.bfloat16
-    prep, ranges, args, epi = _prep_and_params(g, layer, bc, dt=bf16)
-    xb = torch.from_numpy(x).to(bf16)
-    out, h = fused_two_block_plain(xb, prep, *args, g.node_mask,
-                                   kernel_size=KS, ranges=ranges, act="relu",
-                                   epilogue=epi)
-    assert out.dtype == bf16 and h.dtype == bf16
 
     def j(t):
         return jnp.asarray(t.float().numpy())
     mask = g.nbr_mask[:, 1:]
     jp = jprep(jnp.asarray(g.nbr[:, 1:].numpy()), jnp.asarray(mask.numpy()),
                j(prep.u), lookback=128, lookahead=0, block=128)
-    want, want_h = fused_two_block_prepared(
+    return fused_two_block_prepared(
         jnp.asarray(x).astype(jnp.bfloat16), jp, *map(j, args),
         jnp.asarray(g.node_mask.numpy()), kernel_size=KS, ranges=ranges,
         act="relu", epilogue=tuple(map(j, epi)), interpret=True)
+
+
+def test_plain_layer_matches_pallas_interpret_bf16(rng):
+    cfg, b, g, x, bc, arrays = _fixture(rng, batch_size=1, events=1024,
+                                        lookback=128)
+    layer = _torch_layer(arrays, 19, 16)
+    bf16 = torch.bfloat16
+    prep, ranges, args, epi, packs = _prep_and_params(g, layer, bc, dt=bf16)
+    xb = torch.from_numpy(x).to(bf16)
+    out, h = fused_two_block_plain(xb, prep, *packs, g.node_mask,
+                                   act="relu")
+    assert out.dtype == bf16 and h.dtype == bf16
+    want, want_h = _pallas_interpret_bf16(g, x, prep, ranges, args, epi)
     assert _rel(h.float(), want_h) < BF16_TOL, _rel(h.float(), want_h)
     assert _rel(out.float(), want) < BF16_TOL, _rel(out.float(), want)
+
+
+def test_layer_pack_matches_pallas_and_follows_weights(rng):
+    """K2's operands as the layer keeps them (``whole_layer_operands`` with
+    ``level0``): fed to the plain version they give the Pallas kernel's
+    output in bf16; a second forward gets the same pack objects, and
+    ``weight.mul_(2)`` makes them anew with the doubled taps."""
+    cfg, b, g, x, bc, arrays = _fixture(rng, batch_size=1, events=1024,
+                                        lookback=128)
+    layer = _torch_layer(arrays, 19, 16)
+    bf16 = torch.bfloat16
+    prep, ranges, args, epi, _ = _prep_and_params(g, layer, bc, dt=bf16)
+    level0 = (KS, ranges, True)
+    ops = tbb.whole_layer_operands(layer, bf16, level0=level0)
+    pack1, pack2 = ops[-2:]
+    (mx0, mx1), (my0, my1) = ranges
+    m = (mx1 - mx0 + 1) * (my1 - my0 + 1)
+    assert m < KS * KS
+    assert pack1.taps.shape == (m, 16, 40) and pack1.taps.dtype == bf16
+    assert pack2.skip is not None and pack2.cs == 19
+    xb = torch.from_numpy(x).to(bf16)
+    out, h = fused_two_block_plain(xb, prep, pack1, pack2, g.node_mask,
+                                   act="relu")
+    want, want_h = _pallas_interpret_bf16(g, x, prep, ranges, args, epi)
+    assert _rel(h.float(), want_h) < BF16_TOL, _rel(h.float(), want_h)
+    assert _rel(out.float(), want) < BF16_TOL, _rel(out.float(), want)
+
+    again = tbb.whole_layer_operands(layer, bf16, level0=level0)
+    assert again[-2] is pack1 and again[-1] is pack2
+    with torch.no_grad():
+        layer.block1.conv.weight.mul_(2)
+    fresh = tbb.whole_layer_operands(layer, bf16, level0=level0)
+    assert fresh[-2] is not pack1
+    assert torch.equal(fresh[-2].taps.float(), 2 * pack1.taps.float())
+    moved, _ = fused_two_block_plain(xb, prep, *fresh[-2:], g.node_mask,
+                                     act="relu")
+    assert not torch.equal(moved, out)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors(rng):
     _, _, g, x, bc, arrays = _fixture(rng, batch_size=1, events=256,
                                       lookback=64)
     layer = _torch_layer(arrays, 19, 16)
-    prep, ranges, args, epi = _prep_and_params(g, layer, bc,
-                                               dt=torch.bfloat16)
+    prep, _, _, _, packs = _prep_and_params(g, layer, bc, dt=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
-        fused_two_block_cuda(torch.from_numpy(x).bfloat16(), prep, *args,
-                             g.node_mask, kernel_size=KS, ranges=ranges,
-                             act="relu", epilogue=epi)
+        fused_two_block_cuda(torch.from_numpy(x).bfloat16(), prep, *packs,
+                             g.node_mask, act="relu")
 
 
 @pytest.mark.parametrize("aggr", ["sum", "mean"])
