@@ -18,10 +18,12 @@ exits non-zero without printing a result:
    K1 (neighbour search) exactly, K2-K4 within 2e-2 of the output's scale
    (one bf16 rounding of the outputs and of the block-1 rows they read; K3
    also rounds each tap's ``z`` to bf16, as the TPU kernel does), with
-   median times (CUDA events) at the operating point.  K1, K2, K3 and K7
-   also run on shapes the path does not reach (``check_search_general``,
-   ``check_level0_general``, ``check_shift_general``,
-   ``check_bilinear_general``).
+   median times (CUDA events) at the operating point; K4 also within 2e-2
+   of ``models.graph.upsample_lookup``, its plain version before the tap
+   tables.  K1, K2, K3, K7 and K6a also run on shapes the path does not
+   reach (``check_search_general``, ``check_level0_general``,
+   ``check_shift_general``, ``check_bilinear_general``,
+   ``check_gather_wide``: an output of 2^31 elements or more).
    A second forward must reuse K2's and K3's weight packs and K3's static
    tables; a trace of ``prepare_shift`` and the two blocks of every pooled
    level, one K1 call and one level-0 layer must show K3's eight launches,
@@ -92,16 +94,21 @@ exits non-zero without printing a result:
 
 Each kernel's record also holds ``bound_ms``, the least time the card could
 take for the same work: the larger of its bytes (every input read once,
-every output written once; for K6b only the unmasked edge rows) over 3.35
+every output written once; for K6a and K6b ``nbr`` and the rows that
+only the unmasked edges read) over 3.35
 TB/s and its operations on these inputs over the peak rate of their type
 (989 TFLOP/s bf16, 67 TFLOP/s f32 and integer), ``library_ms``, the time
 of the one PyTorch call that computes the same function where there is one,
 and ``launch_ms``, the kernels alone: the wrapper's launches, with the
 operands as the wrapper prepared them, captured 20 times into a CUDA graph
-whose replay is timed, summed over the path's calls (K1-K4's
-``dense_launch_ms`` likewise on the dense / under-filled check batch, K7's
-``library_launch_ms`` for ``F.grid_sample``).  ``ms`` is the
-wrapper, one call per pair of events, the host's share of a call inside.
+whose replay is timed, summed over the path's calls (K1-K4's and K6a's
+``dense_launch_ms`` likewise on the dense / under-filled check batch;
+``library_launch_ms`` the library call by the same replay: ``F.grid_sample``
+for K4 and K7, ``src[idx]`` for K6a, ``index_add_`` for K6b; K4's
+``library_max_abs_diff`` its library call's difference from the plain
+version, ``lookup_max_abs_err`` the kernel's from ``upsample_lookup``).
+``ms`` is the wrapper, one call per pair of events, the host's share of a
+call inside.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -363,9 +370,12 @@ def check_search_general(dev):
 
 # K2 on shapes the main path does not reach: (C, O1, O2, activation, taps
 # (the sub-rectangle's (x, y) ranges of the 5 x 5 kernel), the centre tap
-# folded, share of slots that hold an edge).  The last two reach the widest
-# instantiation (O 40 to 64) and C above 32; their taps are as many as fit
-# in shared memory beside the weights of 64 channels
+# folded, share of slots that hold an edge).  Cases 7 and 8 reach the
+# widest tile (O 40 to 64) and C above 32 with the weights in shared
+# memory; the last five take widths the kernel reaches by padding O to 8,
+# column groups and weights in device memory: base_width 0.125 (level-0 C
+# 7, O 4), O 12 and an odd O, base_width 2.0 (C 67, O 64 with 15 taps:
+# 180 KB of weights), O 136 and 256, and C and Cs 256 (fewer warps a block)
 FULL, SUB, SUB3 = ((0, 4), (0, 4)), ((1, 3), (0, 4)), ((1, 3), (1, 3))
 LEVEL0_CASES = [
     (1, 8, 8, "relu", SUB, True, 0.15),
@@ -376,6 +386,11 @@ LEVEL0_CASES = [
     (1, 16, 32, "relu", FULL, True, 0.0),          # no edge at all
     (64, 64, 40, "elu", SUB3, True, 0.5),
     (40, 40, 64, "relu", SUB, False, 0.3),
+    (7, 4, 4, "relu", SUB, True, 0.15),            # base_width 0.125
+    (19, 12, 13, "elu", FULL, True, 0.5),          # O 12, an odd O
+    (67, 64, 64, "relu", SUB, True, 0.3),          # base_width 2.0
+    (40, 136, 256, "silu", SUB, True, 0.4),        # column groups
+    (256, 256, 12, "hardtanh", SUB, True, 0.3),    # C and Cs 256
 ]
 
 
@@ -438,8 +453,13 @@ def check_level0_general(dev):
 
 # K3 on shapes the main path does not reach: (C, O, Cs or None, activation,
 # grid, items, share of slots that hold an edge).  The kernel picks its row
-# tile by N and by what fits in shared memory; the last three cases make it
-# pick 32 rows, 128 rows, and 32 because 128 do not fit (the others get 16)
+# tile by N and by what fits in shared memory; three cases make it pick 32
+# rows, 128 rows, and 32 because 128 do not fit (the others get 16).  The
+# last five take widths the kernel reaches by padding O to 8 and walking
+# column groups: O 20, an odd O, O 256 from C 256 with a skip of 256
+# (net_stem_width 2.0), two groups of 128, O 136 in a group of 128 and a
+# ragged one of 8, and O 136 from C 256 on a grid whose window does not fit
+# the 16-row tile beside a 128-column stage (groups of 64, 64 and 8)
 SHIFT_CASES = [
     (5, 8, None, None, (7, 5), 3, 0.5),
     (82, 24, 82, "relu", (13, 9), 5, 0.3),
@@ -450,6 +470,11 @@ SHIFT_CASES = [
     (82, 64, 82, "relu", (28, 20), 9, 0.1),        # 5 040 rows: 32 a block
     (82, 64, None, "elu", (57, 40), 6, 0.08),      # 13 680 rows: 128
     (130, 64, 130, "relu", (57, 40), 6, 0.08),     # 13 680 rows: 128 -> 32
+    (82, 20, 82, "elu", (13, 9), 3, 0.3),          # O 20
+    (5, 5, 7, "relu", (7, 5), 3, 0.5),             # an odd O
+    (256, 256, 256, "relu", (14, 10), 3, 0.3),     # O 256, C 256
+    (64, 136, None, "relu", (13, 9), 3, 0.3),      # O 136: 128 + 8
+    (256, 136, 256, "elu", (28, 20), 3, 0.2),      # 64 + 64 + 8
 ]
 
 
@@ -459,12 +484,17 @@ def check_shift_general(dev):
     inputs from a seeded generator.  Against the plain version (f32 ``z``)
     within ``KERNEL_TOL``
     of the output's scale; the error against the plain version that rounds
-    where the kernel rounds is returned beside it (both of scale)."""
+    where the kernel rounds is returned beside it (both of scale), and the
+    (C, O, Cs, N, row tile, column group) the launch picked for each case.
+    Fails unless some case walks a last column group narrower than the
+    others and some case has its groups narrowed below 128 by shared
+    memory."""
     from eventad_tpu_torch.ops import spline_shift as ssm
     gen = torch.Generator(device=dev).manual_seed(31)
     bf = torch.bfloat16
     worst = worst_rounded = 0.0
     runs = 0
+    plans = []
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=dev)
@@ -495,6 +525,7 @@ def check_shift_general(dev):
             kernel_rounding=True).float()
         scale = want.abs().max().item() + 1e-6
         got = ssm.shift_spline_conv_cuda(src, prep, *ops, act=act, skip=skip)
+        plans.append((c, o, cs, n) + ssm.shift_tiles(n, c, cs or 0, o, prep))
         torch.cuda.synchronize()
         if got.dtype != bf or got.shape != want.shape \
                 or not bool((got[~nodes] == 0).all()):
@@ -511,7 +542,48 @@ def check_shift_general(dev):
         worst, worst_rounded = max(worst, err), max(worst_rounded, err_r)
         runs += 1
         del want, rounded, got
-    return worst, worst_rounded, runs
+    pads = [(-(-o // 8) * 8, og) for _, o, _, _, _, og in plans]
+    if not any(op % og for op, og in pads) \
+            or not any(og < min(op, 128) for op, og in pads):
+        raise AssertionError(f"SHIFT_CASES no longer reach a ragged last "
+                             f"column group and a group narrowed by shared "
+                             f"memory: {plans}")
+    return worst, worst_rounded, runs, plans
+
+
+def check_gather_wide(dev):
+    """K6a's 64-bit instantiation (the rule for an output of 2^31 elements
+    or more): one bf16 gather of C 19, K 15 and 2^31 + 2^20 elements or
+    more (4.3 GB), neighbours up to 1023 rows back, half the slots edges,
+    from a seeded generator; the output's rows at 8192 random rows, the 128
+    rows around flat index 2^31 and the last 64 rows must equal the plain
+    version's exactly.  Returns the rows checked and the element count."""
+    from eventad_tpu_torch.ops import gather_window as gw
+    c, k = 19, 15
+    n = -(-(2 ** 31 + 2 ** 20) // (k * c))
+    gen = torch.Generator(device=dev).manual_seed(71)
+    src = torch.randn((n, c), generator=gen, device=dev).to(torch.bfloat16)
+    back = torch.randint(0, 1024, (n, k), generator=gen, device=dev,
+                         dtype=torch.int32)
+    nbr = (torch.arange(n, device=dev, dtype=torch.int32)[:, None]
+           - back).clamp_(min=0)
+    del back
+    mask = torch.rand((n, k), generator=gen, device=dev) < 0.5
+    out = gw.gather_window_rows_cuda(src, nbr, mask, lookback=1023)
+    edge_row = 2 ** 31 // (k * c)
+    pick = torch.cat([
+        torch.randint(0, n, (8192,), generator=gen, device=dev),
+        torch.arange(edge_row - 64, edge_row + 64, device=dev),
+        torch.arange(n - 64, n, device=dev)])
+    want = gw.gather_window_rows_plain(src, nbr[pick], mask[pick])
+    torch.cuda.synchronize()
+    if out.shape != (n, k, c) or not torch.equal(out[pick], want):
+        raise AssertionError("gather_window_rows (64-bit, bf16): kernel != "
+                             "plain version")
+    total = out.numel()
+    del out, src, nbr, mask
+    torch.cuda.empty_cache()
+    return pick.numel(), total
 
 
 def compare(name, got, want):
@@ -566,7 +638,7 @@ def level0_ops(a, kw, out):
     """K2: per edge four bilinear taps of both blocks' contractions, per
     valid node the two root products and the skip product."""
     src, prep, pack1, pack2, node_mask = a
-    c, c1, c2 = src.shape[1], pack1.ab.shape[0], pack2.ab.shape[0]
+    c, c1, c2 = src.shape[1], pack1.o, pack2.o
     edges, nodes = int((prep.nbr >= 0).sum()), int(node_mask.sum())
     return 2 * (edges * 4 * (c * c1 + c1 * c2)
                 + nodes * (c * c1 + c1 * c2 + c * c2)), PEAK_BF16
@@ -586,6 +658,52 @@ def shift_ops(a, kw, out):
 def upsample_ops(a, kw, out):
     """K4: three interpolations of three operations per output value."""
     return 9 * out.numel(), PEAK_F32
+
+
+def upsample_library(a, out):
+    """K4's library column: ``F.grid_sample(mode="bilinear",
+    align_corners=True)`` of each map at the events' normalised pixel
+    coordinates ``2 xi / (W - 1) - 1``, which samples the same align-corners
+    taps as K4 (the rows grouped by item, as the main path has them).
+    Returns ``(max abs diff, ms, alone ms)``: the difference of the library
+    in f32, rounded to bf16, from the plain version's output ``out``; the
+    wrapper median in the maps' type including what it needs around the
+    call (the pixel rounding and the grid, the NCHW copies, the output's
+    transpose into one table); and its ``grid_sample`` calls alone, on
+    prepared maps and grid, by the graph replay of K7's library column."""
+    import torch.nn.functional as F
+
+    from eventad_tpu_torch.models.graph import pixel_index
+    feats, pos, batch, width, height = a
+    b, n = feats[0].shape[0], pos.shape[0]
+    items = torch.arange(b, dtype=batch.dtype, device=batch.device)
+    if n % b or not torch.equal(batch, items.repeat_interleave(n // b)):
+        raise AssertionError("upsample_rows: the library call needs the "
+                             "rows grouped by item")
+
+    def grid_of(dtype):
+        xi, yi = pixel_index(pos, width, height)
+        gx = xi.float() * 2 / max(width - 1, 1) - 1
+        gy = yi.float() * 2 / max(height - 1, 1) - 1
+        return torch.stack([gx, gy], -1).reshape(b, 1, n // b, 2).to(dtype)
+
+    def sample(maps, grid):
+        return [F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                              align_corners=True) for x in maps]
+
+    def library(dtype):
+        maps = [f.to(dtype).permute(0, 3, 1, 2).contiguous() for f in feats]
+        outs = sample(maps, grid_of(dtype))
+        return torch.cat([o[:, :, 0].permute(0, 2, 1).reshape(n, -1)
+                          for o in outs], 1)
+    diff = (library(torch.float32).to(out.dtype).float()
+            - out.float()).abs().max().item()
+    dtype = feats[0].dtype
+    ms = median_ms(lambda: library(dtype))
+    maps = [f.permute(0, 3, 1, 2).contiguous() for f in feats]
+    grid = grid_of(dtype)
+    alone = graph_ms(lambda: sample(maps, grid))
+    return diff, ms, alone
 
 
 def bound(nbytes, ops, peak):
@@ -608,13 +726,13 @@ def all_bytes(a, kw, out):
 def level0_bytes(a, kw, out):
     """K2: the source rows, the neighbour table, coordinates only of the
     slots that hold an edge (an empty slot's are never read), the node mask,
-    of each pack the values of its used taps, root and skip (not the pads of
-    the kernel's layout) and its affines, both outputs."""
+    of each pack the values of its used taps, root and skip and its affines
+    (not the pads of the kernel's layout, neither columns nor rows), both
+    outputs."""
     src, prep, pack1, pack2, node_mask = a
-    packs = sum((pk.taps.shape[0] + 1) * pk.c * pk.ab.shape[0]
+    packs = sum(((pk.taps.shape[0] + 1) * pk.c + pk.cs) * pk.o
                 * pk.taps.element_size()
-                + pk.cs * pk.ab.shape[0] * pk.taps.element_size()
-                + tensor_bytes(pk.ab) for pk in (pack1, pack2))
+                + pk.o * 4 * pk.ab.element_size() for pk in (pack1, pack2))
     return (tensor_bytes((src, prep.nbr, node_mask, out)) + packs
             + int((prep.nbr >= 0).sum()) * 2 * prep.u.element_size())
 
@@ -652,6 +770,7 @@ def main():
 
     from eventad_tpu_torch.config import Config
     from eventad_tpu_torch.data.synthetic import make_synthetic_batch
+    from eventad_tpu_torch.models.graph import upsample_lookup
     from eventad_tpu_torch.models.dagr import (graph_static_config,
                                                init_model, model_forward)
     from eventad_tpu_torch.ops import kernels
@@ -752,20 +871,46 @@ def main():
                                         lambda: cuda_fn(*a, **kw))
         shapes = [tuple(t.shape) for t in op_calls[name][0][0]
                   if isinstance(t, torch.Tensor)]
+        record = dict(name=name, route="cuda", source=src, replaces=replaces,
+                      max_abs_err=max(err, dense_err), ms=ms,
+                      launch_ms=alone_ms, dense_launch_ms=dense_alone_ms,
+                      plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, library_ms=None)
+        library = "no single PyTorch call computes it"
+        if name == "upsample_rows":
+            # against the plain version before the tap tables as well
+            # (two interpolation products in the maps' type, W then H)
+            lookup = 0.0
+            for a, kw in op_calls[name] + dense_calls[name]:
+                feats, pos, batch, width, height = a
+                want = upsample_lookup(feats, pos, batch, None, width,
+                                       height, mask_rows=False)
+                d = (cuda_fn(*a, **kw).float() - want.float()).abs().max()
+                scale = want.float().abs().max().item() + 1e-6
+                if not d.item() <= KERNEL_TOL * scale:
+                    raise AssertionError(f"upsample_rows vs upsample_lookup"
+                                         f": max abs err {d.item()} > "
+                                         f"{KERNEL_TOL} x {scale}")
+                lookup = max(lookup, d.item())
+            record.update(lookup_max_abs_err=lookup)
+            lib = [upsample_library(a, plain_fn(*a, **kw))
+                   for a, kw in op_calls[name]]
+            record.update(library_ms=sum(x[1] for x in lib),
+                          library_launch_ms=sum(x[2] for x in lib),
+                          library_max_abs_diff=max(x[0] for x in lib))
+            library = (f"max abs err vs upsample_lookup {lookup:.3g}; "
+                       f"F.grid_sample (align_corners) of each map "
+                       f"{record['library_ms']:.4f} ms with its layout "
+                       f"copies, alone {record['library_launch_ms']:.4f} ms"
+                       f", max abs diff from the plain version "
+                       f"{record['library_max_abs_diff']:.3g}")
         log(f"{name}: {len(op_calls[name])} call(s) per forward, first input"
             f" shapes {shapes}; max abs err {err:.3g} (dense / under-filled"
             f" batch {dense_err:.3g}); kernel {ms:.4f} ms (launches alone "
             f"{alone_ms:.4f} ms; dense batch {dense_alone_ms:.4f}), plain "
             f"{plain_ms:.4f} ms per forward; bound {bound_ms:.5f} ms by "
-            f"{bound_by} ({nbytes} bytes, {ops} operations); no single "
-            f"PyTorch call computes it")
-        records.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces,
-                            max_abs_err=max(err, dense_err), ms=ms,
-                            launch_ms=alone_ms,
-                            dense_launch_ms=dense_alone_ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=None))
+            f"{bound_by} ({nbytes} bytes, {ops} operations); {library}")
+        records.append(record)
 
     def edges_per_event(calls):
         nbr = calls["spline_fused_level0"][0][0][1].nbr
@@ -784,14 +929,18 @@ def main():
         f"between valid ones whose times fall; a t = 0 tail; N 5000, 4097): "
         f"equal to the plain version exactly")
     l_err, l_cases = check_level0_general(dev)
-    log(f"spline_fused_level0, general shapes: {l_cases} cases (C 1, 19, 33,"
-        f" 40, 64; O 8, 16, 32, 40, 64; block 1 without, block 2 with the "
-        f"skip; every activation; full and sub-rectangle taps; tiles without"
-        f" an edge, 997 rows): max abs err {l_err:.3g} of scale (tolerance "
-        f"{KERNEL_TOL}), h and output")
-    g_err, g_err_rounded, g_runs = check_shift_general(dev)
+    log(f"spline_fused_level0, general shapes: {l_cases} cases (C 1, 7, 19, "
+        f"33, 40, 64, 67, 256; O 4, 8, 12, 13, 16, 32, 40, 64, 136, 256; "
+        f"block 1 without, block 2 with the skip; every activation; full "
+        f"and sub-rectangle taps; weights in shared and in device memory; "
+        f"tiles without an edge, 997 rows): max abs err {l_err:.3g} of "
+        f"scale (tolerance {KERNEL_TOL}), h and output")
+    g_err, g_err_rounded, g_runs, g_plans = check_shift_general(dev)
     log(f"spline_shift_pooled, general shapes: {g_runs} runs ("
-        f"cases of (C, O, Cs, act, N); O 8-128, odd C, every activation, "
+        f"cases of (C, O, Cs, act, N); O 5-256, odd C and O, C 256 with "
+        f"two column groups, O 136 with a ragged last group, groups of 64 "
+        f"where 128 do not fit; (C, O, Cs, N, row tile, column group) "
+        f"{g_plans}; every activation, "
         f"row tiles of 16, 32 and 128 by N, tiles with no edge, every slot "
         f"an edge): max abs err {g_err:.3g} of scale against the "
         f"plain version (tolerance {KERNEL_TOL}), {g_err_rounded:.3g} "
@@ -801,6 +950,11 @@ def main():
         f"997 rows; f32 and bf16; dense and out= column ranges at offsets "
         f"8 and 3): worst error {b_err:.3g} of its tolerance; nothing "
         f"written outside a column range")
+    w_rows, w_total = check_gather_wide(dev)
+    log(f"gather_window_rows, 64-bit instantiation: bf16, C 19, K 15, "
+        f"{w_total} output elements (2^31 = {2 ** 31}); {w_rows} sampled "
+        f"rows (random, around flat index 2^31, the last) equal to the "
+        f"plain version exactly")
 
     k3_calls = op_calls["spline_shift_pooled"]
     per_row = [round(float(a[1].mq.sum()) / a[1].mq.shape[0], 3)
@@ -1031,7 +1185,7 @@ def main():
         return err, bool(torch.equal(got.cpu(), seq)), g
 
     g_ms = g_plain = g_lib = s_ms = s_plain = s_lib = 0.0
-    g_alone = s_alone = 0.0
+    g_alone = s_alone = g_lib_alone = s_lib_alone = g_dense_alone = 0.0
     g_bytes = s_bytes = s_ops = 0
     s_err, s_seq = 0.0, True
     for a, kw in op_g:
@@ -1047,17 +1201,25 @@ def main():
             g, nbr, mask, n_src, **kw))
         g_plain += median_ms(lambda: gw.gather_window_rows_plain(*a))
         g_lib += median_ms(lambda: src[idx])
+        g_lib_alone += graph_ms(lambda: src[idx])
         s_ms += median_ms(lambda: gw.scatter_window_rows_cuda(
             g, nbr, mask, n_src, **kw))
         s_plain += median_ms(lambda: gw.scatter_window_rows_plain(
             g, nbr, mask, n_src))
         flat_idx = idx.reshape(-1)
         gm = torch.where(mask[..., None], g, 0.0).reshape(-1, c)
-        s_lib += median_ms(lambda: torch.zeros(
-            (n_src, c), device=dev).index_add_(0, flat_idx, gm))
+        def index_add():
+            return torch.zeros((n_src, c), device=dev).index_add_(
+                0, flat_idx, gm)
+        s_lib += median_ms(index_add)
+        s_lib_alone += graph_ms(index_add)
         edges = int(mask.sum())
         out_bytes = mask.numel() * c * src.element_size()
-        g_bytes += tensor_bytes(a) + out_bytes
+        # the gather needs the mask whole, nbr only at its edges and each
+        # source row an edge points to once, and writes the output
+        rows_read = int(torch.unique(nbr[mask]).numel())
+        g_bytes += (tensor_bytes(mask) + edges * nbr.element_size()
+                    + rows_read * c * src.element_size() + out_bytes)
         # the scatter needs only the unmasked edge rows of the cotangent
         s_bytes += (tensor_bytes((nbr, mask)) + edges * c * g.element_size()
                     + n_src * c * src.element_size())
@@ -1067,22 +1229,25 @@ def main():
         check_gather(a, kw)
         err, seq, _ = check_scatter(a, kw)
         s_err, s_seq = max(s_err, err), s_seq and seq
+        g_dense_alone += launch_ms(gw, lambda: gw.gather_window_rows_cuda(
+            *a, **kw))
     g_bound, g_by = bound(g_bytes, 0, PEAK_F32)
     s_bound, s_by = bound(s_bytes, s_ops, PEAK_F32)
     shapes = [tuple(t.shape) for t in op_g[0][0]]
     log(f"gather_window_rows: 2 calls per f32 forward, first input shapes "
         f"{shapes}; equal to the plain version exactly (f32 and bf16, both "
-        f"batches); kernel {g_ms:.4f} ms (launches alone {g_alone:.4f} ms), "
-        f"plain {g_plain:.4f} ms, indexed "
-        f"gather src[idx] {g_lib:.4f} ms per forward; bound {g_bound:.5f} "
-        f"ms by {g_by} ({g_bytes} bytes)")
+        f"batches); kernel {g_ms:.4f} ms (launches alone {g_alone:.4f} ms; "
+        f"dense batch {g_dense_alone:.4f}), plain {g_plain:.4f} ms, indexed "
+        f"gather src[idx] {g_lib:.4f} ms (alone {g_lib_alone:.4f}) per "
+        f"forward; bound {g_bound:.5f} ms by {g_by} ({g_bytes} bytes)")
     log(f"scatter_window_rows: cotangents of the same shapes; max abs err "
         f"vs index_add_ {s_err:.3g} (tolerance {SCATTER_TOL} of scale); two "
         f"runs bit-identical; equal to the CPU's sequential index_add_ "
         f"exactly: {s_seq}; kernel {s_ms:.4f} ms (launches alone "
         f"{s_alone:.4f} ms), plain "
         f"{s_plain:.4f} ms, "
-        f"index_add_ {s_lib:.4f} ms for both; bound {s_bound:.5f} ms by "
+        f"index_add_ {s_lib:.4f} ms (alone {s_lib_alone:.4f}) for both; "
+        f"bound {s_bound:.5f} ms by "
         f"{s_by} ({s_bytes} bytes, {s_ops} additions)")
 
     # gradient of the level-0 layer's input, kernels against plain versions
@@ -1164,15 +1329,16 @@ def main():
         name="gather_window_rows", route="cuda", source=gather_src,
         replaces="eventad_tpu/ops/gather_window.py:41",
         launches=f32_launches["gather_window_rows"], max_abs_err=0.0,
-        ms=g_ms, launch_ms=g_alone, plain_ms=g_plain,
-        bound_ms=g_bound, bound_by=g_by, library_ms=g_lib))
+        ms=g_ms, launch_ms=g_alone, dense_launch_ms=g_dense_alone,
+        plain_ms=g_plain, bound_ms=g_bound, bound_by=g_by, library_ms=g_lib,
+        library_launch_ms=g_lib_alone))
     records.append(dict(
         name="scatter_window_rows", route="cuda", source=gather_src,
         replaces="eventad_tpu/ops/gather_window.py:169",
         launches=grad_launches[1], max_abs_err=s_err, ms=s_ms,
         launch_ms=s_alone,
         plain_ms=s_plain, bound_ms=s_bound, bound_by=s_by,
-        library_ms=s_lib))
+        library_ms=s_lib, library_launch_ms=s_lib_alone))
 
     # ---- 6. head training at full width ----
     from eventad_tpu_torch.data.synthetic import synthetic_loader
@@ -1251,7 +1417,7 @@ def main():
             ("bfloat16", dict(event_graph_search=TRAIN_STEPS,
                               spline_fused_level0=2 * TRAIN_STEPS,
                               spline_shift_pooled=8 * TRAIN_STEPS,
-                              upsample_rows=2 * TRAIN_STEPS))):
+                              upsample_rows=TRAIN_STEPS))):
         for fn in all_counters.values():
             fn.launches = 0
         losses = run_steps(dtype, batches[:TRAIN_STEPS], drop_gen)
@@ -1546,8 +1712,8 @@ def main():
     n = FLAVOUR_RUNS
     flavour_launches = {}
     default_expect = dict(event_graph_search=n, spline_fused_level0=2 * n,
-                          spline_shift_pooled=8 * n, upsample_rows=2 * n)
-    base_expect = dict(event_graph_search=n, upsample_rows=2 * n,
+                          spline_shift_pooled=8 * n, upsample_rows=n)
+    base_expect = dict(event_graph_search=n, upsample_rows=n,
                        fused_spline_conv=10 * n)
     # default and base run twice, in mirrored order, so that their batch
     # times can be compared within this call
@@ -1647,7 +1813,7 @@ def main():
     n_anchors = sum(nx * ny for nx, ny in bc.grids[2:4])
     for name, bcx, expect in (
             ("default", bc, dict(event_graph_search=1, spline_fused_level0=2,
-                                 spline_shift_pooled=8, upsample_rows=2)),
+                                 spline_shift_pooled=8, upsample_rows=1)),
             ("base+bilinear", bc._replace(**BASE, **BILINEAR),
              dict(event_graph_search=1, fused_spline_conv=10,
                   bilinear_sample=2))):

@@ -19,12 +19,23 @@
 // (112 MB at 98 304 x 15 x 19 f32) and reads at most as many; the scatter
 // reads the unmasked edge rows of g and writes N_src x C.
 //
-// Gather design: one thread per output element over the flat [N*K*C]
-// output, channel fastest, so a warp writes contiguous values and reads
-// runs of C contiguous values of one source row.  C is arbitrary (19 and 16
-// on the f32 path): no vector width is assumed.  The element is moved as a
-// 2- or 4-byte word, so f32 and bf16 share one kernel and the result equals
-// the indexed copy bit for bit.
+// Gather design: the gather's time is its write, N x K x C values in a
+// flat [N*K*C] output, channel fastest; the masked slots, almost all of
+// them at the operating point (0.15 edges a row of 15 slots), are zeros.  Each
+// thread writes one 16-byte word of the flat output (4 f32 or 8 bf16), so a
+// warp stores 512 contiguous bytes.  The word's first (edge, channel) comes
+// from one division of its flat index by C, a multiply by a magic
+// reciprocal of C (div_magic on the host: (idx * m) >> s, exact for every
+// idx < 2^31); the thread then walks its 4 or 8 elements, stepping to the
+// next edge where the channel reaches C (rows of 19 values are not 16-byte
+// aligned, so a word may span two edges, or more where C < 8).  An edge's
+// mask byte is read first and its nbr only where it is set; each source
+// element is read as the aligned 2- or 4-byte word it is.  The tail of the
+// flat array (the element count need not divide by the word) is stored
+// element by element.  C is arbitrary; f32 and bf16 share the kernel, which
+// moves bits, so the result equals the indexed copy bit for bit.  An output
+// of 2^31 elements or more goes, by an explicit rule, to a 64-bit
+// instantiation of the same kernel that divides in 64 bits.
 //
 // Scatter design: deterministic, no atomics.  The graph contract
 // i - lookback <= nbr[i, k] <= i means that only destinations
@@ -45,20 +56,81 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;
 
+// idx / c for idx < 2^31 by a multiply (div_magic); a 64-bit index
+// divides as it is
+struct Div32 {
+  unsigned m; int s;
+  __device__ __forceinline__ unsigned operator()(unsigned idx) const {
+    return static_cast<unsigned>(
+        (static_cast<unsigned long long>(idx) * m) >> s);
+  }
+};
+struct Div64 {
+  long long c;
+  __device__ __forceinline__ long long operator()(long long idx) const {
+    return idx / c;
+  }
+};
+
+template <typename W, typename I, typename D>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_kernel(const W* __restrict__ src, const int* __restrict__ nbr,
+                   const uint8_t* __restrict__ mask, I total, int c, D div,
+                   W* __restrict__ out) {
+  constexpr int kV = 16 / sizeof(W);           // elements a 16-byte word
+  const I i0 = (static_cast<I>(blockIdx.x) * kThreads + threadIdx.x) * kV;
+  if (i0 >= total) return;
+  I e = div(i0);                               // edge of the first element
+  int ch = static_cast<int>(i0 - e * c);
+  const int n = total - i0 < kV ? static_cast<int>(total - i0) : kV;
+  const W* row = nullptr;                      // the edge's source row
+  if (mask[e]) row = src + static_cast<long long>(nbr[e]) * c;
+  union {
+    uint4 word;
+    W el[kV];
+  } v;
+#pragma unroll
+  for (int j = 0; j < kV; ++j) {
+    if (j < n) {
+      if (ch == c) {                           // the next edge's first
+        ++e;
+        ch = 0;
+        row = mask[e] ? src + static_cast<long long>(nbr[e]) * c : nullptr;
+      }
+      v.el[j] = row != nullptr ? row[ch] : W(0);
+      ++ch;
+    } else {
+      v.el[j] = W(0);
+    }
+  }
+  if (n == kV) {
+    *reinterpret_cast<uint4*>(out + i0) = v.word;
+  } else {
+    for (int j = 0; j < n; ++j) out[i0 + j] = v.el[j];
+  }
+}
+
 template <typename W>
-__global__ void gather_rows_kernel(const W* __restrict__ src,
-                                   const int* __restrict__ nbr,
-                                   const uint8_t* __restrict__ mask,
-                                   long long total, int c,
-                                   W* __restrict__ out) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const long long e = idx / c;
-  const int ch = static_cast<int>(idx - e * c);
-  W v = 0;
-  if (mask[e]) v = src[static_cast<long long>(nbr[e]) * c + ch];
-  out[idx] = v;
+int launch_gather(const void* src, const void* nbr, const void* mask,
+                  long long total, int c, unsigned magic, int shift,
+                  void* out, cudaStream_t stream) {
+  constexpr int kV = 16 / sizeof(W);
+  const long long blocks = (total + kThreads * kV - 1) / (kThreads * kV);
+  const W* s = static_cast<const W*>(src);
+  const int* nb = static_cast<const int*>(nbr);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  W* o = static_cast<W*>(out);
+  if (total < (1ll << 31)) {
+    gather_rows_kernel<W, unsigned, Div32>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+            s, nb, m, static_cast<unsigned>(total), c, Div32{magic, shift},
+            o);
+  } else {
+    gather_rows_kernel<W, long long, Div64>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+            s, nb, m, total, c, Div64{c}, o);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
@@ -157,31 +229,25 @@ int launch_scatter(const void* g, const void* nbr, const void* mask,
 
 // src [n_src, c] of elem_size-byte values (4: f32, 2: bf16), nbr [n_dst, k]
 // int32, mask [n_dst, k] bool (one byte each) -> out [n_dst, k, c] of the
-// same element type.
+// same element type, 16-byte aligned.  (magic, shift) = div_magic(c): idx /
+// c == (idx * magic) >> shift for idx < 2^31; unused for a larger output.
 EVENTAD_API int eventad_gather_window_rows(const void* src, const void* nbr,
                                            const void* mask, int n_dst, int k,
-                                           int c, int elem_size, void* out,
-                                           void* stream) {
+                                           int c, int elem_size,
+                                           unsigned magic, int shift,
+                                           void* out, void* stream) {
   const long long total = static_cast<long long>(n_dst) * k * c;
   if (total == 0) return 0;
-  const long long blocks = (total + kThreads - 1) / kThreads;
+  if ((reinterpret_cast<uintptr_t>(out) & 15) != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (elem_size == 4) {
-    gather_rows_kernel<uint32_t><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                   st>>>(
-        static_cast<const uint32_t*>(src), static_cast<const int*>(nbr),
-        static_cast<const uint8_t*>(mask), total, c,
-        static_cast<uint32_t*>(out));
-  } else if (elem_size == 2) {
-    gather_rows_kernel<uint16_t><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                   st>>>(
-        static_cast<const uint16_t*>(src), static_cast<const int*>(nbr),
-        static_cast<const uint8_t*>(mask), total, c,
-        static_cast<uint16_t*>(out));
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (elem_size == 4)
+    return launch_gather<uint32_t>(src, nbr, mask, total, c, magic, shift,
+                                   out, st);
+  if (elem_size == 2)
+    return launch_gather<uint16_t>(src, nbr, mask, total, c, magic, shift,
+                                   out, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // g [n_dst, k, c] f32 or bf16 (g_bf16), nbr / mask [n_dst, k], every

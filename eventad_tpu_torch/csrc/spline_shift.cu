@@ -91,8 +91,18 @@
 //   level 3 (halo 30, C 130):  TM 16 81 / 69
 //   level 4 (halo 16, C 130):  TM 16 72 / 65
 // A tile that does not fit in 227 KB gives way to the next smaller one (128
-// rows at C 130 with a skip of 130 take 32); if 16 rows do not fit the entry
-// refuses the call.  A 64-row tile was measured and paid at no level.
+// rows at C 130 with a skip of 130 take 32).  A 64-row tile was measured and
+// paid at no level.
+//
+// Any width the Pallas kernel takes (it pads C and O to 8; VMEM is its only
+// limit): O is padded to a multiple of 8 in the pack (zero rows; the
+// epilogue writes only the first O columns, pairs where O is even, else one
+// value at a time).  The tiles hold 128 output columns; a wider O, or a
+// stage of weights that does not fit, is walked in column groups: the
+// steps (z build and products) run once per group of og columns, each group
+// with its own accumulators, weights and epilogue.  og is 128 where that
+// fits, else halved down to 8 at the 16-row tile; only if that does not fit
+// either the entry refuses the call.
 #include "common.cuh"
 
 namespace {
@@ -113,6 +123,7 @@ struct Params {
   int n; int o; int ks; int act;
   bf16* out;
   int cstride; int csstride;     // CS, CSS
+  int o_pad; int og;             // O padded to 8; columns of a group
   int src_vw; int xs_vw;         // elements per copy: 8, 2 or 1
 };
 
@@ -127,7 +138,7 @@ struct Layout {
 };
 __host__ __device__ inline Layout make_layout(int tm, int c_stride,
                                               int cs_stride, bool has_skip,
-                                              int o, int halo, int s_slots,
+                                              int og, int halo, int s_slots,
                                               int nnz, int n_taps, int ks) {
   Layout l;
   size_t at = 0;
@@ -135,7 +146,7 @@ __host__ __device__ inline Layout make_layout(int tm, int c_stride,
   l.xs = at; at += has_skip ? align16(static_cast<size_t>(tm) * cs_stride * 2)
                             : 0;
   l.z = at; at += align16(static_cast<size_t>(2) * tm * c_stride * 2);
-  l.stage = o * (has_skip && cs_stride > c_stride ? cs_stride : c_stride);
+  l.stage = og * (has_skip && cs_stride > c_stride ? cs_stride : c_stride);
   l.w = at; at += align16(static_cast<size_t>(2) * l.stage * 2);
   l.edge = at; at += static_cast<size_t>(tm) * s_slots * 16;
   l.list = at; at += align16(static_cast<size_t>(nnz) * 8);
@@ -254,7 +265,7 @@ shift_block_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const bool has_skip = p.xs != nullptr;
   const int cstr = p.cstride, csstr = p.csstride;
-  const Layout l = make_layout(TM, cstr, csstr, has_skip, p.o, p.halo,
+  const Layout l = make_layout(TM, cstr, csstr, has_skip, p.og, p.halo,
                                p.s_slots, p.nnz, p.n_taps, p.ks);
   bf16* s_win = reinterpret_cast<bf16*>(smem + l.win);
   bf16* s_xs = reinterpret_cast<bf16*>(smem + l.xs);
@@ -358,8 +369,9 @@ shift_block_kernel(const Params p) {
               lane, kWarps);
 
   // steps: the touched taps in order, then the root (T), then the skip
-  // (T + 1); -1 ends
-  unsigned long long left = *s_mask;
+  // (T + 1); -1 ends.  Per column group [og0, og0 + cols) the steps run
+  // once, from the weights of those columns
+  unsigned long long left = 0ull;
   auto next_step = [&](int cur) {
     if (cur < T) {
       if (left) {
@@ -371,120 +383,134 @@ shift_block_kernel(const Params p) {
     }
     return cur == T && has_skip ? T + 1 : -1;
   };
-  auto weights_of = [&](int step, int* elems) {
+  auto weights_of = [&](int step, int og0, int cols, int* elems) {
     if (step <= T) {
-      *elems = p.o * cstr;
-      return p.wpack + static_cast<size_t>(step) * p.o * cstr;
+      *elems = cols * cstr;
+      return p.wpack + (static_cast<size_t>(step) * p.o_pad + og0) * cstr;
     }
-    *elems = p.o * csstr;
-    return p.skpack;
+    *elems = cols * csstr;
+    return p.skpack + static_cast<size_t>(og0) * csstr;
   };
-
-  float acc[NBW][4], sk[NBW][4];
-#pragma unroll
-  for (int j = 0; j < NBW; ++j)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[j][k] = sk[j][k] = 0.f;
 
   const int k_blocks = (cstr - 8) / 16, ks_blocks = (csstr - 8) / 16;
-  const int n_blocks = p.o / 8;
   const int vecs = (cstr - 8) / 8;         // 8-channel vectors of a z row
 
-  auto fetch_weights = [&](int step, int stage) {
-    int elems;
-    const bf16* w = weights_of(step, &elems);
-    load_weights(s_w + static_cast<size_t>(stage) * l.stage, w, elems, tid,
-                 kThreads);
-    cp_async_commit();
-  };
-  int cur = next_step(-1);
-  fetch_weights(cur, 0);
-  cp_async_wait_all();     // the window, before the first z reads it
-  __syncthreads();
-  for (int it = 0; cur >= 0; ++it) {
-    bf16* zb = s_z + static_cast<size_t>(it & 1) * TM * cstr;
-    if (cur < T) {
-      // z of tap cur: (row, vector) items over the threads, from the last
-      // thread down, so that the warps without a share of the products
-      // (the last ones) build the next z while the first ones multiply
-      const int mx = s_mxy[cur] & 0xff, my = s_mxy[cur] >> 8;
-      const int p0 = s_ptr[cur];
-      for (int i = kThreads - 1 - tid; i < TM * vecs; i += kThreads) {
-        const int t = i / vecs, v = i - t * vecs;
-        const bf16* wrow =
-            s_win + static_cast<size_t>(p.halo + t) * cstr + v * 8;
-        const float4* erow = s_edge + t * S;
-        float z[8];
+  for (int og0 = 0; og0 < p.o_pad; og0 += p.og) {
+    const int cols = min(p.og, p.o_pad - og0);
+    const int n_blocks = cols / 8;
+    float acc[NBW][4], sk[NBW][4];
 #pragma unroll
-        for (int k = 0; k < 8; ++k) z[k] = 0.f;
-        // only the list entries that weigh in, in list order
-        for (unsigned bits = s_nz[t * T + cur]; bits; bits &= bits - 1) {
-          const int2 le = s_list[p0 + __ffs(bits) - 1];
-          const float cm = tap_weight(erow[le.x], mx, my);
-          const uint4 raw = *reinterpret_cast<const uint4*>(
-              wrow + static_cast<ptrdiff_t>(le.y) * cstr);
-          const __nv_bfloat162* h =
-              reinterpret_cast<const __nv_bfloat162*>(&raw);
+    for (int j = 0; j < NBW; ++j)
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float2 f = __bfloat1622float2(h[k]);
-            z[2 * k] += cm * f.x;
-            z[2 * k + 1] += cm * f.y;
-          }
-        }
-        uint4 packed;
-        __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          o2[k] = __floats2bfloat162_rn(z[2 * k], z[2 * k + 1]);
-        *reinterpret_cast<uint4*>(zb + static_cast<size_t>(t) * cstr + v * 8) =
-            packed;
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    // the next step's weights into the stage that the previous step has
-    // left: they land while this step multiplies and the next z is built
-    const int nxt = next_step(cur);
-    if (nxt >= 0) fetch_weights(nxt, (it + 1) & 1);
-    const bf16* wst = s_w + static_cast<size_t>(it & 1) * l.stage;
-    if (cur < T)
-      mma_tile<NBW>(zb, cstr, wst, cstr, k_blocks, n_blocks, wm, wn, lane,
-                    acc);
-    else if (cur == T)
-      mma_tile<NBW>(s_win + static_cast<size_t>(p.halo) * cstr, cstr, wst,
-                    cstr, k_blocks, n_blocks, wm, wn, lane, acc);
-    else
-      mma_tile<NBW>(s_xs, csstr, wst, csstr, ks_blocks, n_blocks, wm, wn,
-                    lane, sk);
-    cur = nxt;
-  }
+      for (int k = 0; k < 4; ++k) acc[j][k] = sk[j][k] = 0.f;
+    left = *s_mask;
+    // the last group's weight stages and z buffers are free
+    if (og0 > 0) __syncthreads();
 
-  // epilogue from the accumulator fragments: rows g and g + 8 of the warp's
-  // 16, columns 2 (lane % 4) and the next of each block of 8
+    auto fetch_weights = [&](int step, int stage) {
+      int elems;
+      const bf16* w = weights_of(step, og0, cols, &elems);
+      load_weights(s_w + static_cast<size_t>(stage) * l.stage, w, elems, tid,
+                   kThreads);
+      cp_async_commit();
+    };
+    int cur = next_step(-1);
+    fetch_weights(cur, 0);
+    cp_async_wait_all();   // the window, before the first z reads it
+    __syncthreads();
+    for (int it = 0; cur >= 0; ++it) {
+      bf16* zb = s_z + static_cast<size_t>(it & 1) * TM * cstr;
+      if (cur < T) {
+        // z of tap cur: (row, vector) items over the threads, from the last
+        // thread down, so that the warps without a share of the products
+        // (the last ones) build the next z while the first ones multiply
+        const int mx = s_mxy[cur] & 0xff, my = s_mxy[cur] >> 8;
+        const int p0 = s_ptr[cur];
+        for (int i = kThreads - 1 - tid; i < TM * vecs; i += kThreads) {
+          const int t = i / vecs, v = i - t * vecs;
+          const bf16* wrow =
+              s_win + static_cast<size_t>(p.halo + t) * cstr + v * 8;
+          const float4* erow = s_edge + t * S;
+          float z[8];
 #pragma unroll
-  for (int j = 0; j < NBW; ++j) {
-    const int nb = wn * NBW + j;
-    if (nb >= n_blocks) continue;
-    const int col = nb * 8 + 2 * (lane & 3);
-    const float4 ab0 = __ldg(reinterpret_cast<const float4*>(p.ab) + col);
-    const float4 ab1 = __ldg(reinterpret_cast<const float4*>(p.ab) + col + 1);
+          for (int k = 0; k < 8; ++k) z[k] = 0.f;
+          // only the list entries that weigh in, in list order
+          for (unsigned bits = s_nz[t * T + cur]; bits; bits &= bits - 1) {
+            const int2 le = s_list[p0 + __ffs(bits) - 1];
+            const float cm = tap_weight(erow[le.x], mx, my);
+            const uint4 raw = *reinterpret_cast<const uint4*>(
+                wrow + static_cast<ptrdiff_t>(le.y) * cstr);
+            const __nv_bfloat162* h =
+                reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = n0 + wm * 16 + (lane >> 2) + 8 * h;
-      if (row >= p.n) continue;
-      float y0 = ab0.x * acc[j][2 * h] + ab0.y;
-      float y1 = ab1.x * acc[j][2 * h + 1] + ab1.y;
-      if (has_skip) {
-        y0 += ab0.z * sk[j][2 * h] + ab0.w;
-        y1 += ab1.z * sk[j][2 * h + 1] + ab1.w;
+            for (int k = 0; k < 4; ++k) {
+              const float2 f = __bfloat1622float2(h[k]);
+              z[2 * k] += cm * f.x;
+              z[2 * k + 1] += cm * f.y;
+            }
+          }
+          uint4 packed;
+          __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            o2[k] = __floats2bfloat162_rn(z[2 * k], z[2 * k + 1]);
+          *reinterpret_cast<uint4*>(zb + static_cast<size_t>(t) * cstr +
+                                    v * 8) = packed;
+        }
       }
-      const bool on = p.node_mask[row] != 0;
-      y0 = on ? eventad::apply_act(y0, p.act) : 0.f;
-      y1 = on ? eventad::apply_act(y1, p.act) : 0.f;
-      *reinterpret_cast<__nv_bfloat162*>(
-          p.out + static_cast<long long>(row) * p.o + col) =
-          __floats2bfloat162_rn(y0, y1);
+      cp_async_wait_all();
+      __syncthreads();
+      // the next step's weights into the stage that the previous step has
+      // left: they land while this step multiplies and the next z is built
+      const int nxt = next_step(cur);
+      if (nxt >= 0) fetch_weights(nxt, (it + 1) & 1);
+      const bf16* wst = s_w + static_cast<size_t>(it & 1) * l.stage;
+      if (cur < T)
+        mma_tile<NBW>(zb, cstr, wst, cstr, k_blocks, n_blocks, wm, wn, lane,
+                      acc);
+      else if (cur == T)
+        mma_tile<NBW>(s_win + static_cast<size_t>(p.halo) * cstr, cstr, wst,
+                      cstr, k_blocks, n_blocks, wm, wn, lane, acc);
+      else
+        mma_tile<NBW>(s_xs, csstr, wst, csstr, ks_blocks, n_blocks, wm, wn,
+                      lane, sk);
+      cur = nxt;
+    }
+
+    // epilogue from the accumulator fragments: rows g and g + 8 of the
+    // warp's 16, columns 2 (lane % 4) and the next of each block of 8; the
+    // pad columns (O and beyond) are not written
+#pragma unroll
+    for (int j = 0; j < NBW; ++j) {
+      const int nb = wn * NBW + j;
+      if (nb >= n_blocks) continue;
+      const int col = og0 + nb * 8 + 2 * (lane & 3);
+      if (col >= p.o) continue;
+      const float4 ab0 = __ldg(reinterpret_cast<const float4*>(p.ab) + col);
+      const float4 ab1 =
+          __ldg(reinterpret_cast<const float4*>(p.ab) + col + 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = n0 + wm * 16 + (lane >> 2) + 8 * h;
+        if (row >= p.n) continue;
+        float y0 = ab0.x * acc[j][2 * h] + ab0.y;
+        float y1 = ab1.x * acc[j][2 * h + 1] + ab1.y;
+        if (has_skip) {
+          y0 += ab0.z * sk[j][2 * h] + ab0.w;
+          y1 += ab1.z * sk[j][2 * h + 1] + ab1.w;
+        }
+        const bool on = p.node_mask[row] != 0;
+        y0 = on ? eventad::apply_act(y0, p.act) : 0.f;
+        y1 = on ? eventad::apply_act(y1, p.act) : 0.f;
+        bf16* dst = p.out + static_cast<long long>(row) * p.o + col;
+        if (col + 1 < p.o && (p.o & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) =
+              __floats2bfloat162_rn(y0, y1);
+        } else {
+          dst[0] = __float2bfloat16(y0);
+          if (col + 1 < p.o) dst[1] = __float2bfloat16(y1);
+        }
+      }
     }
   }
 }
@@ -512,16 +538,48 @@ int copy_width(const void* table, int c) {
   return 1;
 }
 
+// The launch's row tile (returned) and output column group (p->og) for
+// p's n, strides, o_pad and tables: by N, 128 rows where that still fills
+// three quarters of the SMs, else 32 where that gives a block per SM, else
+// 16; a tile that does not fit in shared memory gives way to the next
+// smaller one.  128 output columns a group where they fit; the groups of a
+// wider O, or of a stage too large for the 16-row tile, are narrower (and
+// the launch refuses a layout that still does not fit)
+int plan_tiles(Params* p, bool has_skip) {
+  static int n_sms = 0;
+  if (n_sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
+    if (n_sms <= 0) n_sms = 132;
+  }
+  const int n = p->n;
+  int tm = 4 * ((n + 127) / 128) >= 3 * n_sms ? 128
+           : ((n + 31) / 32 >= n_sms ? 32 : 16);
+  p->og = min(p->o_pad, 128);
+  auto smem_of = [&](int rows) {
+    return make_layout(rows, p->cstride, p->csstride, has_skip, p->og,
+                       p->halo, p->s_slots, p->nnz, p->n_taps, p->ks).total;
+  };
+  const size_t limit = static_cast<size_t>(kMaxSmem);
+  if (tm == 128 && smem_of(128) > limit) tm = 32;
+  if (tm == 32 && smem_of(32) > limit) tm = 16;
+  while (tm == 16 && p->og > 8 && smem_of(16) > limit)
+    p->og = max(8, p->og / 2 / 8 * 8);
+  return tm;
+}
+
 }  // namespace
 
 // src [N, C] bf16, u [N, S, 2] f32, mq [N, S] and node_mask [N] of one byte
 // each (uint8 or bool), d_offs [S] int32 with halo = max |d_off|, tap_mxy
 // [T, 2] / tap_ptr [T+1] / tap_slots [nnz] int32 (the static tap -> slots
-// lists), wpack [T+1, O, CS] bf16 (the used taps of W then root, each
-// transposed, CS = pad16(C) + 8, pads zero), ab [O, 4] f32 (a, b, a_s, b_s),
-// xs [N, Cs] bf16 and skpack [O, CSS] bf16 (NULL without skip) -> out [N, O]
-// bf16.  O a multiple of 8 up to 128, T at most 64, ks at most 16, S at
-// most 32.
+// lists), wpack [T+1, OP, CS] bf16 (the used taps of W then root, each
+// transposed, CS = pad16(C) + 8, pads zero), ab [OP, 4] f32 (a, b, a_s, b_s),
+// xs [N, Cs] bf16 and skpack [OP, CSS] bf16 (NULL without skip) -> out [N,
+// O] bf16; OP = O padded to 8 is the packs' row count (wpack [T+1, OP, CS],
+// ab [OP, 4], pad rows zero).  O from 1 to 256, T at most 64, ks at most
+// 16, S at most 32.
 EVENTAD_API int eventad_shift_block(
     const void* src, int c, const void* u, const void* mq,
     const void* node_mask, const void* d_offs, int s_slots, int halo,
@@ -530,7 +588,7 @@ EVENTAD_API int eventad_shift_block(
     int cs, const void* skpack, int n, int o_ch, int ks, int act,
     void* out, void* stream) {
   if (n == 0) return 0;
-  if (o_ch < 8 || o_ch > 128 || o_ch % 8 != 0 || n_taps < 0 || n_taps > 64 ||
+  if (o_ch < 1 || o_ch > 256 || n_taps < 0 || n_taps > 64 ||
       ks < 2 || ks > 16 || c < 1 || halo < 0 || s_slots < 1 || s_slots > 32 ||
       (xs != nullptr && cs < 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -550,35 +608,41 @@ EVENTAD_API int eventad_shift_block(
   p.xs = static_cast<const bf16*>(xs); p.cs = xs != nullptr ? cs : 0;
   p.skpack = static_cast<const bf16*>(skpack);
   p.n = n; p.o = o_ch; p.ks = ks; p.act = act;
+  p.o_pad = (o_ch + 7) / 8 * 8;
   p.out = static_cast<bf16*>(out);
   p.cstride = pad_stride(c);
   p.csstride = xs != nullptr ? pad_stride(cs) : 8;
   p.src_vw = copy_width(src, c);
   p.xs_vw = xs != nullptr ? copy_width(xs, cs) : 1;
 
-  static int n_sms = 0;
-  if (n_sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-    if (n_sms <= 0) n_sms = 132;
-  }
-  // by N: 128 rows where that still fills three quarters of the SMs, else
-  // 32 where that gives a block per SM, else 16; a tile that does not fit
-  // in shared memory gives way to the next smaller one
-  int tm = 4 * ((n + 127) / 128) >= 3 * n_sms ? 128
-           : ((n + 31) / 32 >= n_sms ? 32 : 16);
-  auto smem_of = [&](int rows) {
-    return make_layout(rows, p.cstride, p.csstride, xs != nullptr, o_ch, halo,
-                       s_slots, nnz, n_taps, ks).total;
-  };
-  if (tm == 128 && smem_of(128) > static_cast<size_t>(kMaxSmem)) tm = 32;
-  if (tm == 32 && smem_of(32) > static_cast<size_t>(kMaxSmem)) tm = 16;
-  const size_t smem = smem_of(tm);
+  const int tm = plan_tiles(&p, xs != nullptr);
+  const size_t smem = make_layout(tm, p.cstride, p.csstride, xs != nullptr,
+                                  p.og, halo, s_slots, nnz, n_taps,
+                                  ks).total;
   if (smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tm == 128) return run<128, 2, 8, 1>(p, smem, s);
   if (tm == 32) return run<32, 8, 2, 2>(p, smem, s);
   return run<16, 16, 1, 2>(p, smem, s);
+}
+
+// The row tile and output column group eventad_shift_block picks for these
+// sizes (cs 0: no skip), into plan[0] and plan[1] (host memory).
+EVENTAD_API int eventad_shift_plan(int n, int c, int cs, int o_ch, int halo,
+                                   int s_slots, int nnz, int n_taps, int ks,
+                                   void* plan, void* stream) {
+  (void)stream;
+  if (o_ch < 1 || o_ch > 256 || c < 1 || cs < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{};
+  p.n = n; p.halo = halo; p.s_slots = s_slots; p.nnz = nnz;
+  p.n_taps = n_taps; p.ks = ks;
+  p.o_pad = (o_ch + 7) / 8 * 8;
+  p.cstride = pad_stride(c);
+  p.csstride = cs > 0 ? pad_stride(cs) : 8;
+  int* out = static_cast<int*>(plan);
+  out[0] = plan_tiles(&p, cs > 0);
+  out[1] = p.og;
+  return 0;
 }

@@ -43,15 +43,24 @@ def neighbor_rows(src: torch.Tensor, grid, batch_size: int,
                                              side * side, c)
 
 
+def axis_taps(full: int, size: int):
+    """``(i0, i1, t)`` of the align-corners map ``f(d) = d (size-1) /
+    (full-1)`` from ``full`` output pixels to ``size`` source pixels, one
+    entry per output pixel: source pixels ``i0``, ``i1`` (int32) and the
+    weight ``t`` (f32, float64 coordinate cast) of ``i1`` (reference
+    net.py:224)."""
+    f = np.arange(full) * (size - 1) / max(full - 1, 1)
+    i0 = np.floor(f).astype(np.int32)
+    t = (f - i0).astype(np.float32)
+    i1 = np.minimum(i0 + 1, size - 1).astype(np.int32)
+    return i0, i1, t
+
+
 @functools.lru_cache(maxsize=None)
 def _interp_matrix(dst: int, src: int) -> np.ndarray:
     """``A[d, s]``: bilinear tap weights of source ``s`` for output pixel
-    ``d`` under the align-corners mapping ``f(d) = d (src-1) / (dst-1)``
-    (reference net.py:224)."""
-    f = np.arange(dst) * (src - 1) / max(dst - 1, 1)
-    i0 = np.floor(f).astype(int)
-    t = (f - i0).astype(np.float32)
-    i1 = np.minimum(i0 + 1, src - 1)
+    ``d``, the taps of :func:`axis_taps` as a matrix."""
+    i0, i1, t = axis_taps(dst, src)
     a = np.zeros((dst, src), np.float32)
     a[np.arange(dst), i0] += 1 - t
     a[np.arange(dst), i1] += t

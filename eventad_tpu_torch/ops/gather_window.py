@@ -13,10 +13,12 @@ window) and are never dereferenced.
 The TPU kernels make both one-hot matmuls and rebuild f32 from bf16 hi/lo
 ``parts``.  On a GPU an indexed copy is exact for f32 and bf16 alike, so
 ``parts`` has no counterpart here: the gather kernel equals the plain
-version bit for bit.  The scatter kernel uses ``lookback`` to bound the
-destinations a tile of sources scans, and sums each row in ascending edge
-order without atomics, so it is deterministic; the gather kernel takes
-``lookback`` only to keep the reference's signature.
+version bit for bit; it writes 16 bytes a thread and finds each word's
+first edge by a multiply with :func:`div_magic`.  The scatter kernel uses
+``lookback`` to bound the destinations a tile of sources scans, and sums
+each row in ascending edge order without atomics, so it is deterministic;
+the gather kernel takes ``lookback`` only to keep the reference's
+signature.
 """
 from __future__ import annotations
 
@@ -51,6 +53,20 @@ def scatter_window_rows_plain(g: torch.Tensor, nbr: torch.Tensor,
     return out.to(out_dtype or g.dtype)
 
 
+def div_magic(c: int):
+    """``(m, s)`` with ``idx // c == (idx * m) >> s`` for every
+    ``0 <= idx < 2**31``: ``s = 31 + ceil(log2 c)``, ``m = ceil(2**s / c)``,
+    which is below ``2**32``.  With ``e = m c - 2**s < c <= 2**(s - 31)``
+    the product overshoots ``idx / c`` by ``idx e / (c 2**s) < 1 / c``, too
+    little to reach the next integer.  The gather kernel divides its flat
+    index by ``C`` so (an output of ``2**31`` elements or more divides in
+    64 bits)."""
+    if c < 1:
+        raise ValueError(f"c must be >= 1, got {c}")
+    s = 31 + (c - 1).bit_length()
+    return -(-(1 << s) // c), s
+
+
 def _require_graph(nbr, nbr_mask):
     m, k = nbr.shape
     require(nbr, "nbr", dtype=torch.int32, shape=(m, k))
@@ -61,9 +77,9 @@ def _require_graph(nbr, nbr_mask):
 def gather_window_rows_cuda(src: torch.Tensor, nbr: torch.Tensor,
                             nbr_mask: torch.Tensor, *,
                             lookback: int) -> torch.Tensor:
-    """K6a: one launch of ``csrc/gather_window.cu``'s gather kernel.
-    ``lookback`` is accepted for the reference's signature; the kernel
-    checks nothing about the window."""
+    """K6a: one launch of ``csrc/gather_window.cu``'s gather kernel, 16
+    bytes of the output a thread.  ``lookback`` is accepted for the
+    reference's signature; the kernel checks nothing about the window."""
     if src.dtype not in _DTYPES or src.dim() != 2:
         raise ValueError(f"src: expected a 2-D float32 or bfloat16 tensor, "
                          f"got {src.dtype} {tuple(src.shape)}")
@@ -73,7 +89,8 @@ def gather_window_rows_cuda(src: torch.Tensor, nbr: torch.Tensor,
     out = torch.empty((m, k, c), dtype=src.dtype, device=src.device)
     if out.numel():
         launch("eventad_gather_window_rows", ptr(src), ptr(nbr),
-               ptr(nbr_mask), m, k, c, src.element_size(), ptr(out))
+               ptr(nbr_mask), m, k, c, src.element_size(), *div_magic(c),
+               ptr(out))
         gather_window_rows_cuda.launches += 1
     return out
 

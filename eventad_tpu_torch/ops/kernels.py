@@ -5,7 +5,8 @@ per source, all started together, then one link) into one shared library
 with a plain C interface, under ``eventad_tpu_torch/build/`` (named by a
 digest of the sources and flags, so an edited source rebuilds), at the first
 launch of any kernel.  The library is loaded with ``ctypes``: every
-pointer and the stream are ``c_void_p``, every size a ``c_int``, and every
+pointer and the stream are ``c_void_p`` (a host array too, passed as its
+ctypes array), every size a ``c_int``, and every
 entry returns ``cudaGetLastError()``, which :func:`launch` turns into an
 exception.  Nothing here runs at import time.
 """
@@ -28,13 +29,13 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 # C entry points: name -> argument types (the stream is always last)
 SIGNATURES = {
     "eventad_event_graph_search":
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "eventad_upsample_rows":
-        [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+        [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     "eventad_level0_block":
         [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
          _I, _I, _I, _I, _P, _P],
@@ -46,8 +47,9 @@ SIGNATURES = {
     "eventad_shift_block":
         [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P,
          _I, _P, _I, _I, _I, _I, _P, _P],
+    "eventad_shift_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "eventad_gather_window_rows":
-        [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+        [_P, _P, _P, _I, _I, _I, _I, _U, _I, _P, _P],
     "eventad_scatter_window_rows":
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }

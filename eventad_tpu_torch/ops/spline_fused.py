@@ -41,7 +41,8 @@ import torch
 from .kernels import launch, ptr, require
 from .spline_basis import ACT_CODES, ACTS, axis_weights
 from .spline_conv import center_index, sub_kernel_index
-from .spline_shift import pack_skip_affines, pad_stride, transpose_padded
+from .spline_shift import (MAX_OUT, pack_skip_affines, pad_rows, pad_stride,
+                           transpose_padded)
 
 
 class FusedPrep(NamedTuple):
@@ -75,15 +76,17 @@ def _masked_act(pre, node_mask, act):
 
 class Level0Weights(NamedTuple):
     """One conv block of the level-0 layer in the layout
-    ``csrc/spline_fused.cu`` multiplies from."""
-    taps: torch.Tensor            # [M, O, CS]: the sub-rectangle's taps
-    root: torch.Tensor            # [O, CS]: root (+ centre tap), transposed
-    skip: Optional[torch.Tensor]  # [O, CSS] or None
-    ab: torch.Tensor              # [O, 4] f32: a, b, a_s, b_s
+    ``csrc/spline_fused.cu`` multiplies from (``OP = pad_rows(O)``: the rows
+    beyond ``O`` zero)."""
+    taps: torch.Tensor            # [M, OP, CS]: the sub-rectangle's taps
+    root: torch.Tensor            # [OP, CS]: root (+ centre tap), transposed
+    skip: Optional[torch.Tensor]  # [OP, CSS] or None
+    ab: torch.Tensor              # [OP, 4] f32: a, b, a_s, b_s
     c: int
     cs: int                       # skip channels, 0 without skip
     kernel_size: int
     ranges: tuple
+    o: int                        # output channels
 
 
 def pack_level0_block(weight, root, a, b, *, kernel_size: int, ranges,
@@ -107,23 +110,24 @@ def pack_level0_block(weight, root, a, b, *, kernel_size: int, ranges,
     sk, cs, ab = pack_skip_affines(a, b, skip, dt)
     return Level0Weights(transpose_padded(taps, dt),
                          transpose_padded(r[None], dt)[0], sk, ab, c, cs, ks,
-                         tuple(map(tuple, ranges)))
+                         tuple(map(tuple, ranges)), o)
 
 
 def _level0_block_plain(x, prep: FusedPrep, pack: Level0Weights,
                         node_mask, act, x_skip=None):
-    n, o = x.shape[0], pack.ab.shape[0]
+    n, o = x.shape[0], pack.o
     xf = x.float()
     coeff = _tap_coeff(prep, pack.kernel_size, pack.ranges)     # [N, K, M]
     z = torch.einsum("nkm,nkc->nmc", coeff, xf[prep.nbr.clamp(min=0).long()])
     z = z.to(pack.taps.dtype).float()        # the kernel's rounding point
-    taps = pack.taps[..., :pack.c].float().transpose(1, 2)       # [M, C, O]
+    taps = pack.taps[:, :o, :pack.c].float().transpose(1, 2)     # [M, C, O]
     acc = z.reshape(n, -1) @ taps.reshape(-1, o) \
-        + xf @ pack.root[:, :pack.c].float().t()
-    pre = acc * pack.ab[:, 0] + pack.ab[:, 1]
+        + xf @ pack.root[:o, :pack.c].float().t()
+    ab = pack.ab[:o]
+    pre = acc * ab[:, 0] + ab[:, 1]
     if x_skip is not None:
-        pre = pre + (x_skip.float() @ pack.skip[:, :pack.cs].float().t()) \
-            * pack.ab[:, 2] + pack.ab[:, 3]
+        pre = pre + (x_skip.float() @ pack.skip[:o, :pack.cs].float().t()) \
+            * ab[:, 2] + ab[:, 3]
     return _masked_act(pre, node_mask, act).to(x.dtype)
 
 
@@ -144,34 +148,37 @@ def fused_two_block_cuda(src, prep: FusedPrep, pack1: Level0Weights,
     """Two launches of ``csrc/spline_fused.cu``: block 1 writes ``h``,
     block 2 gathers it and runs the skip epilogue.  Takes every operand as
     it is: the ``bool`` node mask as its bytes, the packs as packed, so the
-    call launches the two kernels and nothing else."""
+    call launches the two kernels and nothing else.  Any ``O`` from 1 to
+    :data:`MAX_OUT` (the pack pads it to a multiple of 8; the kernel walks
+    64 columns at a time) and any ``C`` and ``Cs`` whose per-warp buffers
+    fit in shared memory (the weights move to device memory where they do
+    not fit beside them; beyond that the launch raises); at most 32 slots
+    and 64 taps."""
     n, c = src.shape
     k = prep.nbr.shape[1]
     require(src, "src", dtype=torch.bfloat16, shape=(n, c))
     require(prep.nbr, "prep.nbr", dtype=torch.int32, shape=(n, k))
     require(prep.u, "prep.u", dtype=torch.float32, shape=(n, k, 2))
     require(node_mask, "node_mask", dtype=torch.bool, shape=(n,))
-    c1, c2 = pack1.ab.shape[0], pack2.ab.shape[0]
+    c1, c2 = pack1.o, pack2.o
     for pk, cin, cs, name in ((pack1, c, 0, "pack1"), (pack2, c1, c, "pack2")):
-        o = pk.ab.shape[0]
+        o, op = pk.o, pad_rows(pk.o)
         m = pk.taps.shape[0]
-        if not (8 <= o <= 64 and o % 8 == 0) or cin > 64 or m > 64 \
-                or k > 32:
-            raise ValueError(f"{name}: output channels must be a multiple "
-                             f"of 8 in [8, 64], with at most 64 input "
-                             f"channels, 64 taps and 32 slots, got {o}, "
-                             f"{cin}, {m} and {k}")
+        if not 1 <= o <= MAX_OUT or m > 64 or k > 32:
+            raise ValueError(f"{name}: output channels must lie in [1, "
+                             f"{MAX_OUT}], with at most 64 taps and 32 "
+                             f"slots, got {o}, {m} and {k}")
         if pk.c != cin or pk.cs != cs \
                 or pk.kernel_size != pack1.kernel_size \
                 or pk.ranges != pack1.ranges:
             raise ValueError(f"{name} does not belong to these operands")
         require(pk.taps, f"{name}.taps", dtype=torch.bfloat16,
-                shape=(m, o, pad_stride(cin)))
+                shape=(m, op, pad_stride(cin)))
         require(pk.root, f"{name}.root", dtype=torch.bfloat16,
-                shape=(o, pad_stride(cin)))
-        require(pk.ab, f"{name}.ab", dtype=torch.float32, shape=(o, 4))
+                shape=(op, pad_stride(cin)))
+        require(pk.ab, f"{name}.ab", dtype=torch.float32, shape=(op, 4))
     require(pack2.skip, "pack2.skip", dtype=torch.bfloat16,
-            shape=(c2, pad_stride(c)))
+            shape=(pad_rows(c2), pad_stride(c)))
     h = torch.empty((n, c1), dtype=torch.bfloat16, device=src.device)
     out = torch.empty((n, c2), dtype=torch.bfloat16, device=src.device)
     if n == 0:
@@ -183,8 +190,8 @@ def fused_two_block_cuda(src, prep: FusedPrep, pack1: Level0Weights,
     for x, pk, xs, y in ((src, pack1, None, h), (h, pack2, src, out)):
         launch("eventad_level0_block", ptr(x), x.shape[1], ptr(prep.nbr), k,
                ptr(prep.u), ptr(node_mask), ptr(pk.taps), ptr(pk.root),
-               ptr(pk.ab), ptr(xs), pk.cs, ptr(pk.skip), n, pk.ab.shape[0],
-               ks, mx0, nxs, my0, nys, code, ptr(y))
+               ptr(pk.ab), ptr(xs), pk.cs, ptr(pk.skip), n, pk.o, ks, mx0,
+               nxs, my0, nys, code, ptr(y))
     fused_two_block_cuda.launches += 2
     return out, h
 

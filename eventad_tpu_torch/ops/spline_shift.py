@@ -23,6 +23,7 @@ version sums ``z`` in f32 unless ``kernel_rounding`` is asked for.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import NamedTuple, Optional, Tuple
@@ -32,6 +33,8 @@ import torch.nn.functional as F
 
 from .kernels import launch, ptr, require
 from .spline_basis import ACT_CODES, ACTS, axis_weights
+
+MAX_OUT = 256      # output channels K2 and K3 take
 
 
 @functools.lru_cache(maxsize=None)
@@ -174,12 +177,13 @@ def shift_spline_conv_plain(src, prep: ShiftPrep, weight, root, a, b, *,
 
 class ShiftWeights(NamedTuple):
     """One conv block's operands in the layout ``csrc/spline_shift.cu``
-    multiplies from."""
-    w: torch.Tensor               # [T + 1, O, CS] bf16: used taps, then root
-    skip: Optional[torch.Tensor]  # [O, CSS] bf16 or None
-    ab: torch.Tensor              # [O, 4] f32: a, b, a_s, b_s
+    multiplies from (``OP = pad_rows(O)``: the rows beyond ``O`` zero)."""
+    w: torch.Tensor               # [T + 1, OP, CS] bf16: used taps, then root
+    skip: Optional[torch.Tensor]  # [OP, CSS] bf16 or None
+    ab: torch.Tensor              # [OP, 4] f32: a, b, a_s, b_s
     c: int
     cs: int                       # skip channels, 0 without skip
+    o: int                        # output channels
 
 
 def pad_stride(c: int) -> int:
@@ -189,13 +193,20 @@ def pad_stride(c: int) -> int:
     return -(-c // 16) * 16 + 8
 
 
+def pad_rows(o: int) -> int:
+    """Rows of a packed operand: ``o`` output channels padded to the MMA
+    tile width of 8, so that any ``o`` runs on the kernels' tiles."""
+    return -(-o // 8) * 8
+
+
 def transpose_padded(mats: torch.Tensor, dtype=torch.bfloat16):
-    """``[M, C, O] -> [M, O, pad_stride(C)]`` in ``dtype``, zero-padded:
-    each matrix transposed (channels contiguous), the layout from which the
-    kernels read their B fragments."""
+    """``[M, C, O] -> [M, pad_rows(O), pad_stride(C)]`` in ``dtype``,
+    zero-padded: each matrix transposed (channels contiguous), the layout
+    from which the kernels read their B fragments."""
     m, c, o = mats.shape
-    out = torch.zeros((m, o, pad_stride(c)), dtype=dtype, device=mats.device)
-    out[..., :c] = mats.transpose(1, 2).to(dtype)
+    out = torch.zeros((m, pad_rows(o), pad_stride(c)), dtype=dtype,
+                      device=mats.device)
+    out[:, :o, :c] = mats.transpose(1, 2).to(dtype)
     return out
 
 
@@ -204,16 +215,18 @@ def pack_skip_affines(a, b, skip: Optional[tuple] = None,
     """What the packs of K2 and K3 share: ``(skip, cs, ab)``, from ``skip =
     (skip_lin [Cs, O], a_s, b_s)`` the skip matrix laid out by
     :func:`transpose_padded` in ``dtype`` and its channels (None and 0
-    without a skip), and ``ab [O, 4]`` f32: ``a, b, a_s, b_s``, the last
-    two zero without a skip."""
+    without a skip), and ``ab [pad_rows(O), 4]`` f32: ``a, b, a_s, b_s``,
+    the last two zero without a skip, the pad rows zero."""
     f32 = torch.float32
-    cols = [a.to(f32), b.to(f32)]
-    if skip is None:
-        return None, 0, torch.stack(cols + [torch.zeros_like(cols[0])] * 2,
-                                    1)
-    skip_lin, a_s, b_s = skip
-    return (transpose_padded(skip_lin[None], dtype)[0], skip_lin.shape[0],
-            torch.stack(cols + [a_s.to(f32), b_s.to(f32)], 1))
+    o = a.shape[0]
+    sk, cs = None, 0
+    a_s = b_s = torch.zeros((o,), dtype=f32, device=a.device)
+    if skip is not None:
+        skip_lin, a_s, b_s = skip
+        sk, cs = transpose_padded(skip_lin[None], dtype)[0], skip_lin.shape[0]
+    ab = torch.zeros((pad_rows(o), 4), dtype=f32, device=a.device)
+    ab[:o] = torch.stack([t.to(f32) for t in (a, b, a_s, b_s)], 1)
+    return sk, cs, ab
 
 
 def pack_shift_weights(tap_idx: torch.Tensor, weight, root, a, b,
@@ -225,22 +238,23 @@ def pack_shift_weights(tap_idx: torch.Tensor, weight, root, a, b,
     w = transpose_padded(torch.cat([weight[tap_idx].to(bf16),
                                     root[None].to(bf16)]))
     sk, cs, ab = pack_skip_affines(a, b, None if skip is None else skip[1:])
-    return ShiftWeights(w, sk, ab, root.shape[0], cs)
+    return ShiftWeights(w, sk, ab, root.shape[0], cs, root.shape[1])
 
 
 def unpack_shift_weights(pack: ShiftWeights, prep: ShiftPrep):
     """``(weight [ks*ks, C, O], root, a, b, skip_lin or None, a_s, b_s)``
     back from a pack, bf16 weights and f32 affines; taps outside every
     slot's window, which the pack does not hold, are zero."""
-    t = pack.w.shape[0] - 1
+    t, o = pack.w.shape[0] - 1, pack.o
     ks = prep.kernel_size
-    mats = pack.w[..., :pack.c].transpose(1, 2)         # [T + 1, C, O]
+    mats = pack.w[:, :o, :pack.c].transpose(1, 2)       # [T + 1, C, O]
     weight = torch.zeros((ks * ks,) + tuple(mats.shape[1:]),
                          dtype=mats.dtype, device=mats.device)
     weight[prep.tap_idx] = mats[:t]
-    skip_lin = None if pack.skip is None else pack.skip[:, :pack.cs].t()
-    return (weight, mats[t], pack.ab[:, 0], pack.ab[:, 1], skip_lin,
-            pack.ab[:, 2], pack.ab[:, 3])
+    skip_lin = None if pack.skip is None else pack.skip[:o, :pack.cs].t()
+    ab = pack.ab[:o]
+    return (weight, mats[t], ab[:, 0], ab[:, 1], skip_lin, ab[:, 2],
+            ab[:, 3])
 
 
 def shift_spline_conv_packed_plain(src, prep: ShiftPrep, pack: ShiftWeights,
@@ -265,13 +279,16 @@ def shift_spline_conv_cuda(src, prep: ShiftPrep, weight, root, a, b, *,
     """One launch of ``csrc/spline_shift.cu``.  ``pack``: the operands as
     :func:`pack_shift_weights` packs them for ``prep.tap_idx``, kept by the
     caller while they are unchanged; without it they are packed here, on
-    every call."""
+    every call.  Any ``O`` from 1 to :data:`MAX_OUT` (the pack pads it to
+    a multiple of 8; above 128 the kernel walks column groups); any ``C``
+    and ``Cs`` whose row tile of 16 fits in shared memory with a column
+    group of 8 (else the launch raises)."""
     n, c = src.shape
     s_slots = len(prep.offsets)
     o = weight.shape[-1]
-    if not (8 <= o <= 128 and o % 8 == 0):
-        raise ValueError(f"output channels must be a multiple of 8 in "
-                         f"[8, 128], got {o}")
+    if not 1 <= o <= MAX_OUT:
+        raise ValueError(f"output channels must lie in [1, {MAX_OUT}], "
+                         f"got {o}")
     require(src, "src", dtype=torch.bfloat16, shape=(n, c))
     require(prep.u, "prep.u", dtype=torch.float32, shape=(n, s_slots, 2))
     require(prep.mq, "prep.mq", dtype=torch.uint8, shape=(n, s_slots))
@@ -293,10 +310,11 @@ def shift_spline_conv_cuda(src, prep: ShiftPrep, weight, root, a, b, *,
     if pack is None:
         pack = pack_shift_weights(prep.tap_idx, weight, root, a, b, skip)
     require(pack.w, "pack.w", dtype=torch.bfloat16,
-            shape=(n_taps + 1, o, pad_stride(c)))
-    if pack.cs != (skip[1].shape[0] if skip is not None else 0):
-        raise ValueError(f"pack with {pack.cs} skip channels does not "
-                         f"belong to these operands")
+            shape=(n_taps + 1, pad_rows(o), pad_stride(c)))
+    if pack.o != o or pack.cs != (skip[1].shape[0] if skip is not None
+                                  else 0):
+        raise ValueError(f"pack with {pack.o} output and {pack.cs} skip "
+                         f"channels does not belong to these operands")
     out = torch.empty((n, o), dtype=torch.bfloat16, device=src.device)
     if n:
         launch("eventad_shift_block", ptr(src), c, ptr(prep.u), ptr(prep.mq),
@@ -310,6 +328,17 @@ def shift_spline_conv_cuda(src, prep: ShiftPrep, weight, root, a, b, *,
 
 
 shift_spline_conv_cuda.launches = 0
+
+
+def shift_tiles(n: int, c: int, cs: int, o: int, prep: ShiftPrep):
+    """``(row tile, column group)`` that :func:`shift_spline_conv_cuda`'s
+    launch picks for ``n`` rows of ``c`` channels, ``cs`` skip channels (0:
+    none) and ``o`` outputs on ``prep``'s tables (no launch)."""
+    plan = (ctypes.c_int * 2)()
+    launch("eventad_shift_plan", n, c, cs, o, prep.halo, len(prep.offsets),
+           prep.tap_slots.shape[0], prep.tap_idx.shape[0],
+           prep.kernel_size, plan)
+    return plan[0], plan[1]
 
 
 def shift_spline_conv(src, prep: ShiftPrep, *args, **kw) -> torch.Tensor:

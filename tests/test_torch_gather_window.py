@@ -142,3 +142,65 @@ def test_cuda_wrappers_refuse_cpu_tensors(rng):
                                     40, lookback=16)
     assert gw.gather_window_rows_cuda.launches == 0
     assert gw.scatter_window_rows_cuda.launches == 0
+
+
+def test_div_magic_equals_floor_division():
+    """K6a finds each 16-byte word's first edge as ``(idx * m) >> s`` with
+    ``(m, s) = div_magic(C)``; a numpy emulation of that multiply equals
+    ``idx // C`` for every C in 1..256, at the largest index the 32-bit
+    instantiation admits (2^31 - 1), around every multiple of C near 0, the
+    middle and the top of that range, and at seeded random indices."""
+    rs = np.random.RandomState(5)
+    top = 2 ** 31 - 1
+    rand = rs.randint(0, top, 4096, dtype=np.int64)
+    for c in range(1, 257):
+        m, s = gw.div_magic(c)
+        assert 0 < m < 2 ** 32 and 31 <= s <= 39
+        mults = np.concatenate([np.arange(0, 64), [top // c // 2],
+                                np.arange(top // c - 63, top // c + 1)])
+        idx = (mults[:, None] * c + np.array([-1, 0, 1])).ravel()
+        idx = np.concatenate([idx, rand, [top]])
+        idx = idx[(idx >= 0) & (idx <= top)].astype(np.uint64)
+        got = (idx * np.uint64(m)) >> np.uint64(s)
+        np.testing.assert_array_equal(got, idx // np.uint64(c), err_msg=c)
+    with pytest.raises(ValueError):
+        gw.div_magic(0)
+
+
+def _word_walk(src, nbr, mask, kv):
+    """numpy mirror of ``csrc/gather_window.cu``'s gather: each word of
+    ``kv`` elements of the flat output finds its first (edge, channel) by
+    ``div_magic``, then walks its elements, moving to the next edge where
+    the channel reaches C; the mask is read before nbr; the tail word is
+    short."""
+    m_rows, k = nbr.shape
+    c = src.shape[1]
+    total = m_rows * k * c
+    mg, s = gw.div_magic(c)
+    flat_src, flat_nbr, flat_mask = src.ravel(), nbr.ravel(), mask.ravel()
+    out = np.full(total, np.nan, src.dtype)
+    for i0 in range(0, total, kv):
+        e = (i0 * mg) >> s
+        ch = i0 - e * c
+        row = flat_nbr[e] * c if flat_mask[e] else None
+        for j in range(min(kv, total - i0)):
+            if ch == c:
+                e, ch = e + 1, 0
+                row = flat_nbr[e] * c if flat_mask[e] else None
+            out[i0 + j] = 0 if row is None else flat_src[row + ch]
+            ch += 1
+    return out.reshape(m_rows, k, c)
+
+
+@pytest.mark.parametrize("c", [1, 3, 16, 19])
+@pytest.mark.parametrize("kv", [4, 8])
+def test_word_walk_mirror_equals_plain(rng, c, kv):
+    """The kernel's walk over 16-byte words (4 f32 or 8 bf16 values), with
+    rows of C values that a word may span (two edges at C 19, several at C
+    1 and 3) and a flat size that no word divides, gives the plain
+    gather's values exactly."""
+    src, nbr, mask = _case(rng, 37, 3, c, 16)
+    got = _word_walk(src, nbr, mask, kv)
+    want = gw.gather_window_rows_plain(*_torch(src, nbr, mask)).numpy()
+    assert (37 * 3 * c) % kv or c == 16
+    np.testing.assert_array_equal(got, want)

@@ -24,6 +24,7 @@ from eventad_tpu_torch.ops.spline_fused import (fused_two_block_cuda,
                                                 fused_two_block_plain,
                                                 pack_level0_block,
                                                 prepare_fused)
+from eventad_tpu_torch.ops.spline_shift import MAX_OUT, pad_rows
 
 import _torch_threads  # noqa: F401  (one intra-op thread)
 
@@ -242,6 +243,86 @@ def test_cuda_wrapper_refuses_cpu_tensors(rng):
     with pytest.raises(ValueError, match="CUDA"):
         fused_two_block_cuda(torch.from_numpy(x).bfloat16(), prep, *packs,
                              g.node_mask, act="relu")
+
+
+def _random_packs(rng, c, o1, o2, ranges, n=300, k=15):
+    """A window-local graph of ``n`` rows and the two blocks' packs from
+    seeded weights (bf16), block 2 with the skip."""
+    rows = np.arange(n)[:, None]
+    back = rng.randint(1, 40, (n, k))
+    edges = (rng.rand(n, k) < 0.4) & (rows - back >= 0)
+    u = rng.rand(n, k, 2).astype(np.float32) * (KS - 1)
+    prep = prepare_fused(torch.from_numpy((rows - back).astype(np.int32)),
+                         torch.from_numpy(edges), torch.from_numpy(u))
+    bf16 = torch.bfloat16
+
+    def w(*shape, fan):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                / np.sqrt(fan)).to(bf16)
+
+    def affine(o):
+        return (torch.from_numpy(rng.rand(o).astype(np.float32) + 0.5),
+                torch.from_numpy(rng.randn(o).astype(np.float32) * 0.1))
+    kw = dict(kernel_size=KS, ranges=ranges, fold_center=True)
+    pack1 = pack_level0_block(w(KS * KS, c, o1, fan=4 * c), w(c, o1, fan=c),
+                              *affine(o1), **kw)
+    pack2 = pack_level0_block(w(KS * KS, o1, o2, fan=4 * o1),
+                              w(o1, o2, fan=o1), *affine(o2), **kw,
+                              skip=(w(c, o2, fan=c), *affine(o2)))
+    src = torch.from_numpy(rng.randn(n, c).astype(np.float32)).to(bf16)
+    nodes = torch.from_numpy(rng.rand(n) > 0.1)
+    return src, prep, pack1, pack2, nodes
+
+
+def _unpadded(pk):
+    """The pack with its output rows cut to ``O``: the layout without the
+    pad rows the kernel's tiles need."""
+    o = pk.o
+    return pk._replace(taps=pk.taps[:, :o], root=pk.root[:o],
+                       skip=None if pk.skip is None else pk.skip[:o],
+                       ab=pk.ab[:o])
+
+
+@pytest.mark.parametrize("c,o1,o2", [(19, 4, 12), (67, 64, 20),
+                                     (67, 136, 256), (19, 256, 4)])
+def test_padded_packs_reproduce_unpadded_exactly(rng, c, o1, o2):
+    """Every ``O`` from 1 to ``MAX_OUT`` and any ``C``: the packs pad the
+    output rows to a multiple of 8 with zeros, and the plain version from
+    the padded packs gives the same bits as from the packs cut to ``O``."""
+    ranges = ((1, 3), (0, 4))
+    src, prep, pack1, pack2, nodes = _random_packs(rng, c, o1, o2, ranges)
+    for pk, o in ((pack1, o1), (pack2, o2)):
+        assert pk.o == o and o <= MAX_OUT
+        assert pk.taps.shape[1] == pk.root.shape[0] == pk.ab.shape[0] \
+            == pad_rows(o)
+        assert (pk.taps[:, o:] == 0).all() and (pk.root[o:] == 0).all()
+        assert (pk.ab[o:] == 0).all()
+    assert (pack2.skip[o2:] == 0).all()
+    out, h = fused_two_block_plain(src, prep, pack1, pack2, nodes,
+                                   act="elu")
+    want, want_h = fused_two_block_plain(src, prep, _unpadded(pack1),
+                                         _unpadded(pack2), nodes, act="elu")
+    assert out.shape == (src.shape[0], o2) and h.shape == (src.shape[0], o1)
+    assert torch.equal(out, want) and torch.equal(h, want_h)
+    assert (out[~nodes] == 0).all() and out.abs().max() > 0
+
+
+def test_padded_pack_matches_pallas_interpret_bf16(rng):
+    """At an ``O`` that is not a multiple of 8 (12), the plain version from
+    the layer's zero-padded packs stays inside the band of the Pallas
+    kernel, which pads C and O itself (interpret mode, bf16)."""
+    cfg, b, g, x, bc, arrays = _fixture(rng, batch_size=1, events=1024,
+                                        lookback=128, cout=12)
+    layer = _torch_layer(arrays, 19, 12)
+    bf16 = torch.bfloat16
+    prep, ranges, args, epi, packs = _prep_and_params(g, layer, bc, dt=bf16)
+    assert packs[0].taps.shape[1] == 16 and packs[0].o == 12
+    out, h = fused_two_block_plain(torch.from_numpy(x).to(bf16), prep,
+                                   *packs, g.node_mask, act="relu")
+    assert out.shape == h.shape == (x.shape[0], 12)
+    want, want_h = _pallas_interpret_bf16(g, x, prep, ranges, args, epi)
+    assert _rel(h.float(), want_h) < BF16_TOL, _rel(h.float(), want_h)
+    assert _rel(out.float(), want) < BF16_TOL, _rel(out.float(), want)
 
 
 @pytest.mark.parametrize("aggr", ["sum", "mean"])

@@ -15,7 +15,7 @@ from eventad_tpu.ops.spline_shift import (prepare_shift as jprep,
 from eventad_tpu_torch.models.backbone import (Layer, _fold_bn_affine,
                                                 whole_layer_operands)
 from eventad_tpu_torch.ops.spline_shift import (
-    pack_shift_weights, prepare_shift, shift_spline_conv,
+    MAX_OUT, pack_shift_weights, pad_rows, prepare_shift, shift_spline_conv,
     shift_spline_conv_cuda, shift_spline_conv_packed_plain,
     shift_spline_conv_plain, static_tables, tap_windows)
 from tests.test_spline_shift import _pooled_graph
@@ -135,9 +135,17 @@ def test_cuda_wrapper_refuses_what_it_does_not_take(rng):
     with pytest.raises(ValueError, match="CUDA"):
         shift_spline_conv_cuda(xt, prep, t["w"], t["r"], t["a"], t["b"],
                                act="relu")
-    with pytest.raises(ValueError, match="output channels"):
+    # any width up to MAX_OUT is taken (then the CPU tensor is refused);
+    # a wider one is refused for its width
+    with pytest.raises(ValueError, match="CUDA"):
         shift_spline_conv_cuda(xt, prep, t["w"][..., :12], t["r"][:, :12],
                                t["a"][:12], t["b"][:12], act="relu")
+    wide = MAX_OUT + 8
+    with pytest.raises(ValueError, match="output channels"):
+        shift_spline_conv_cuda(xt, prep, t["w"][..., :1].expand(-1, -1, wide),
+                               t["r"][:, :1].expand(-1, wide),
+                               t["a"][:1].expand(wide),
+                               t["b"][:1].expand(wide), act="relu")
 
 
 def _bf16_operands(t, xt, skip):
@@ -148,11 +156,16 @@ def _bf16_operands(t, xt, skip):
     return (t["w"].to(bf), t["r"].to(bf), t["a"], t["b"]), sk
 
 
-@pytest.mark.parametrize("skip,cin,cout", [(False, 21, 16), (True, 21, 64),
-                                           (True, 5, 24), (False, 32, 128)])
+@pytest.mark.parametrize("skip,cin,cout", [
+    (False, 21, 16), (True, 21, 64), (True, 5, 24), (False, 32, 128),
+    # widths the kernel takes by padding O to 8 and walking column groups
+    (True, 67, 4), (False, 21, 12), (True, 21, 20), (False, 21, 136),
+    (True, 67, 256)])
 def test_pack_reproduces_plain_exactly(rng, skip, cin, cout):
     """The packed operands (transposed, padded, bf16) hold what the plain
-    version is given: computed from the pack, the result is the same bits."""
+    version is given: computed from the pack, the result is the same bits.
+    An ``O`` that is not a multiple of 8 gets zero pad rows, which the
+    plain version from the pack does not read."""
     x, nbr, mask, active, attr, arr, geo = _case(rng, cin=cin, cout=cout,
                                                  skip=skip)
     prep, xt, t, _ = _port(x, mask, active, attr, arr, geo, skip,
@@ -161,10 +174,14 @@ def test_pack_reproduces_plain_exactly(rng, skip, cin, cout):
     pack = pack_shift_weights(prep.tap_idx, *ops, sk)
     n_taps = prep.tap_idx.shape[0]
     stride = -(-cin // 16) * 16 + 8
-    assert pack.w.shape == (n_taps + 1, cout, stride)
-    assert pack.w.dtype == torch.bfloat16 and pack.ab.shape == (cout, 4)
+    rows = -(-cout // 8) * 8
+    assert pack.o == cout and pad_rows(cout) == rows
+    assert pack.w.shape == (n_taps + 1, rows, stride)
+    assert pack.w.dtype == torch.bfloat16 and pack.ab.shape == (rows, 4)
     assert (stride * 2 // 16) % 2 == 1 and (pack.w[..., cin:] == 0).all()
-    assert torch.equal(pack.w[n_taps, :, :cin].t(), ops[1])
+    assert (pack.w[:, cout:] == 0).all() and (pack.ab[cout:] == 0).all()
+    assert pack.skip is None or (pack.skip[cout:] == 0).all()
+    assert torch.equal(pack.w[n_taps, :cout, :cin].t(), ops[1])
     assert (pack.skip is None) == (not skip) and pack.cs == (cin if skip
                                                               else 0)
     want = shift_spline_conv_plain(xt, prep, *ops, act="elu", skip=sk)
@@ -262,16 +279,55 @@ def test_pack_follows_an_in_place_weight_change(rng):
     assert whole_layer_operands(layer, bf, other)[12] is not fresh[12]
 
 
-@pytest.mark.parametrize("cout", [4, 136])
+@pytest.mark.parametrize("cout", [4, 136, MAX_OUT + 1])
 def test_cuda_wrapper_refuses_other_output_widths(rng, cout):
+    """Every ``O`` from 1 to ``MAX_OUT`` is a width the kernel takes: the
+    pack pads 4 and 136 to a multiple of 8 and the wrapper refuses the call
+    only for its CPU tensors; a wider ``O`` it refuses for its width.  No
+    refused call launches."""
     x, nbr, mask, active, attr, arr, geo = _case(rng, cout=cout)
     prep, xt, t, sk = _port(x, mask, active, attr, arr, geo, False,
                             torch.bfloat16)
+    ops = (t["w"], t["r"], t["a"], t["b"])
     before = shift_spline_conv_cuda.launches
-    with pytest.raises(ValueError, match="output channels"):
-        shift_spline_conv_cuda(xt, prep, t["w"], t["r"], t["a"], t["b"],
-                               act="relu")
+    if cout <= MAX_OUT:
+        pack = pack_shift_weights(prep.tap_idx, *ops)
+        assert pack.o == cout and pack.w.shape[1] == pad_rows(cout)
+        assert pack.w.shape[1] % 8 == 0 and (pack.w[:, cout:] == 0).all()
+        with pytest.raises(ValueError, match="CUDA"):
+            shift_spline_conv_cuda(xt, prep, *ops, act="relu", pack=pack)
+    else:
+        with pytest.raises(ValueError, match="output channels"):
+            shift_spline_conv_cuda(xt, prep, *ops, act="relu")
     assert shift_spline_conv_cuda.launches == before
+
+
+def test_padded_pack_matches_pallas_interpret_bf16(rng):
+    """At an ``O`` that is not a multiple of 8 (12) and a ``C`` of 67, the
+    plain version from the zero-padded pack, rounding where the CUDA kernel
+    rounds, stays inside the band of the Pallas kernel, which pads C and O
+    itself (interpret mode, bf16, with the skip)."""
+    cout = 12
+    x, nbr, mask, active, attr, arr, geo = _case(rng, cin=67, cout=cout,
+                                                 skip=True)
+    prep, xt, t, _ = _port(x, mask, active, attr, arr, geo, True,
+                           torch.bfloat16)
+    ops, skb = _bf16_operands(t, xt, True)
+    pack = pack_shift_weights(prep.tap_idx, *ops, skb)
+    assert pack.w.shape[1] == pad_rows(cout) > cout
+    got = shift_spline_conv_packed_plain(xt, prep, pack, act="relu",
+                                         x_skip=xt, kernel_rounding=True)
+    assert got.shape == (x.shape[0], cout)
+    jp = jprep(jnp.asarray(np.clip(attr, 0, 1) * 4), jnp.asarray(mask),
+               jnp.asarray(active), block=128, **geo)
+    jsk = (jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(arr["sk"]),
+           jnp.asarray(arr["a_s"]), jnp.asarray(arr["b_s"]))
+    want = np.asarray(jshift(
+        jnp.asarray(x).astype(jnp.bfloat16), jp, jnp.asarray(arr["w"]),
+        jnp.asarray(arr["r"]), jnp.asarray(arr["a"]), jnp.asarray(arr["b"]),
+        kernel_size=5, act="relu", skip=jsk, interpret=True), np.float32)
+    rel = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
+    assert rel < BF16_TOL, rel
 
 
 def test_whole_layer_operands_follow_in_place_updates():

@@ -1,18 +1,23 @@
 """K4, the level-0/1 image rows: the port's plain version against the JAX
 package's ``upsample_lookup`` (f32) and its Pallas flat-table writer
-``upsample_flat_lookup`` in interpret mode (bf16); plus the bilinear
-lookup of the pooled levels.  The CUDA kernel is held against this plain
+``upsample_flat_lookup`` in interpret mode (bf16), and its tap tables
+against the JAX package's; plus the bilinear lookup of the pooled
+levels.  The CUDA kernel is held against this plain
 version on the card by ``chip_smoke.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from eventad_tpu.models.graph import (sample_image_features as jsample,
+from eventad_tpu.models.graph import (_interp_matrix,
+                                      sample_image_features as jsample,
                                       upsample_lookup as jlookup)
-from eventad_tpu.ops.upsample_flat import upsample_flat_lookup
-from eventad_tpu_torch.models.graph import sample_image_features
-from eventad_tpu_torch.ops.upsample_flat import (upsample_rows,
+from eventad_tpu.ops.upsample_flat import _taps, upsample_flat_lookup
+from eventad_tpu_torch.models.graph import (_interp_matrix as tinterp,
+                                            axis_taps, sample_image_features,
+                                            upsample_lookup)
+from eventad_tpu_torch.ops.upsample_flat import (tap_tables,
+                                                 upsample_rows,
                                                  upsample_rows_cuda,
                                                  upsample_rows_plain)
 
@@ -104,3 +109,69 @@ def test_cuda_wrapper_refuses_cpu_tensors(rng):
         upsample_rows_cuda([torch.from_numpy(f).bfloat16() for f in feats],
                            torch.from_numpy(pos), torch.from_numpy(batch),
                            WF, HF)
+
+
+# (full size, map size): the operating point's 360 x 240 to maps 0 and 1,
+# the fixture's 96 x 72, and sizes of 1
+TAP_SIZES = [(360, 45), (240, 30), (360, 90), (240, 60), (96, 12), (72, 9),
+             (96, 48), (1, 1), (1, 7), (9, 1), (5, 5)]
+
+
+@pytest.mark.parametrize("full,size", TAP_SIZES)
+def test_axis_taps_equal_jax_taps_bit_for_bit(full, size):
+    """K4's per-axis tables (the kernel's ``(i0, i1, t)`` records, from the
+    port's one copy of the taps, ``models/graph.axis_taps``) equal the
+    Pallas writer's ``_taps`` and ``_interp_matrix`` of the JAX package
+    bit for bit: the same source pixels, ``t`` the same f32 and ``1 - t``
+    its ``w0``; the port's ``_interp_matrix``, built from them, equals the
+    JAX package's."""
+    i0, i1, t = axis_taps(full, size)
+    j0, j1, w0, w1 = _taps(full, size)
+    np.testing.assert_array_equal(i0, j0)
+    np.testing.assert_array_equal(i1, j1)
+    assert t.dtype == w1.dtype == np.float32
+    np.testing.assert_array_equal(t.view(np.int32), w1.view(np.int32))
+    np.testing.assert_array_equal((1 - t).view(np.int32), w0.view(np.int32))
+    want = _interp_matrix(full, size)
+    np.testing.assert_array_equal(tinterp(full, size).view(np.int32),
+                                  want.view(np.int32))
+    tab = tap_tables(full, 3, ((1, size),), "cpu")
+    assert tab.dtype == torch.int32 and tab.shape == (1, full + 3, 4)
+    np.testing.assert_array_equal(tab[0, :full, 0].numpy(), i0)
+    np.testing.assert_array_equal(tab[0, :full, 1].numpy(), i1)
+    np.testing.assert_array_equal(tab[0, :full, 2].numpy(), t.view(np.int32))
+
+
+def test_tap_tables_are_made_once_per_geometry():
+    sizes = ((45, 30), (90, 60))
+    tab = tap_tables(360, 240, sizes, "cpu")
+    assert tap_tables(360, 240, sizes, "cpu") is tab
+    assert tab.shape == (2, 600, 4)
+    assert tap_tables(360, 240, ((30, 45), (90, 60)), "cpu") is not tab
+
+
+@pytest.mark.parametrize("shapes", [((9, 12, 16), (4, 6, 64)),
+                                    ((1, 1, 3), (5, 7, 5)),
+                                    ((72, 96, 8),)])
+def test_plain_from_tables_matches_upsample_lookup_bf16(rng, shapes):
+    """The plain K4 from the tap tables (f32 sums, one bf16 rounding) holds
+    against the port's and the JAX package's ``upsample_lookup`` (two
+    bf16 contractions) within the bf16 band, for maps of size 1, a C that
+    is no multiple of 8 (the kernel's scalar path), and a map of the
+    sensor's own size; with f32 maps it equals them to f32 rounding."""
+    feats, pos, batch = _inputs(rng, shapes)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-6)):
+        tf = [torch.from_numpy(f).to(dtype) for f in feats]
+        got = upsample_rows_plain(tf, torch.from_numpy(pos),
+                                  torch.from_numpy(batch), WF, HF)
+        assert got.dtype == dtype
+        assert got.shape == (N, sum(c for _, _, c in shapes))
+        port = upsample_lookup(tf, torch.from_numpy(pos),
+                               torch.from_numpy(batch), None, WF, HF,
+                               mask_rows=False)
+        jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+        want = jlookup([jnp.asarray(f, jdt) for f in feats],
+                       jnp.asarray(pos), jnp.asarray(batch),
+                       jnp.ones(N, bool), WF, HF, mask_rows=False)
+        assert _rel(got.float(), port.float()) < tol
+        assert _rel(got.float(), np.asarray(want, np.float32)) < tol
