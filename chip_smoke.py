@@ -42,13 +42,15 @@ exits non-zero without printing a result:
    operating point, nothing cut): the arguments of ``gather_rows_auto`` are
    recorded at its call site in ``models.backbone`` on both check batches.
    K6a (windowed row gather) must equal its plain version exactly, for f32
-   and for a bf16 copy of the rows; K6b (its backward, the row scatter-add)
-   runs on a seeded cotangent of the recorded shapes, twice with equal bits
-   (it uses no atomics), within 1e-5 of the output's scale of the plain
-   ``index_add_`` (whose atomic sums vary from run to run; 1e-2 for a bf16
-   cotangent, one rounding of the output).  The level-0 layer's input
-   gradient through the kernels must agree with the same through the plain
-   versions within 1e-4 of its scale.  Launch counters are zeroed, the f32
+   and for a bf16 copy of the rows; K6b (its backward, the row scatter-add,
+   two launches a call) runs on seeded cotangents of the recorded shapes on
+   both check batches, in f32 and in bf16, each twice with equal bits (it
+   adds no value by an atomic), within 1e-5 of the output's scale of the
+   plain ``index_add_`` (whose atomic sums vary from run to run; 1e-2 for a
+   bf16 cotangent, one rounding of the output), and equal to the CPU's
+   sequential ``index_add_``.  The level-0 layer's input gradient through
+   the kernels must agree with the same through the plain versions within
+   1e-4 of its scale.  Launch counters are zeroed, the f32
    forward runs on several batches and K1 and K6a must have launched; the
    logits must agree with the port's CPU run within 1e-4, valid slots equal.
 6. Head training at full width through ``make_train_fns``: the first step's
@@ -70,11 +72,14 @@ exits non-zero without printing a result:
    the ``bilinear`` flavour (2 calls), on both check batches.  K5 must agree
    with its plain version within 2e-3 of the output's scale (f32 output; a
    ``z`` value that rounds to the other bf16 neighbour moves one product by
-   2^-8).  K7 runs on the recorded maps in bf16 and in f32, with positions
-   pushed outside the map among the inputs, within 1e-2 (one bf16 rounding
-   of the output) and 1e-5 (f32 sums in another order) of the output's
-   scale.  Then, counters zeroed before each, the ``base`` forward must
-   launch K5 ten times a forward and neither K2 nor K3, the ``bilinear``
+   2^-8), its rows without an edge exactly zero, both forwards must pass
+   the same weight packs, and it runs on shapes the path does not reach
+   (``check_fused_general``: C 1 to 512, O 4 to 512); each of its ten
+   calls is timed alone.  K7 runs on the recorded maps in bf16 and in f32,
+   with positions pushed outside the map among the inputs, within 1e-2 (one
+   bf16 rounding of the output) and 1e-5 (f32 sums in another order) of the
+   output's scale.  Then, counters zeroed before each, the ``base`` forward
+   must launch K5 ten times a forward and neither K2 nor K3, the ``bilinear``
    forward K7 twice and never K4; both flavours' logits must lie within
    0.05 of the port's CPU run of phase 4.  The default and ``base``
    flavours run twice in mirrored order (default, base, bilinear, base,
@@ -95,7 +100,8 @@ exits non-zero without printing a result:
 Each kernel's record also holds ``bound_ms``, the least time the card could
 take for the same work: the larger of its bytes (every input read once,
 every output written once; for K6a and K6b ``nbr`` and the rows that
-only the unmasked edges read) over 3.35
+only the unmasked edges read, for K5 the source rows that an edge points
+to and the weights of the taps that an edge touches) over 3.35
 TB/s and its operations on these inputs over the peak rate of their type
 (989 TFLOP/s bf16, 67 TFLOP/s f32 and integer), ``library_ms``, the time
 of the one PyTorch call that computes the same function where there is one,
@@ -549,6 +555,107 @@ def check_shift_general(dev):
                              f"column group and a group narrowed by shared "
                              f"memory: {plans}")
     return worst, worst_rounded, runs, plans
+
+
+# K5 on shapes the main path does not reach: (C, O, geometry, N, slots,
+# share of slots that hold an edge, unaligned source).  "level0":
+# neighbours up to 64 rows back, the 3 x 5 tap sub-rectangle; "pooled":
+# neighbours up to 58 rows either side, all 25 taps.  The launch takes the
+# slab kernel where 128-row blocks fill the card and every tap's weights fit
+# beside them (the first two: O 4 and 40, so both of its instantiations),
+# else the block kernel with its row tile by N (17 000 rows: 128; 13 680:
+# 64; 3 360 and 5 000: 32; 840, 2 000, 300 and 100: 16), column groups by O
+# (64 a group at 128 rows, else 128: O 512 in 8 and 4 groups, O 136 as 128
+# + 8) and, where the tiles leave most SMs idle, clusters of blocks that
+# share a tile's taps (300 rows: 4 blocks a tile, 100 rows: 8); both stage
+# at most `cap` edge rows in shared memory (more edges in a tile: the rest
+# are read from device memory); at C 512 the staging and the tile shrink
+# until the block fits.  Two sources are views that start 38 bytes into
+# their storage
+FUSED_CASES = [
+    (1, 4, "level0", 17000, 15, 0.05, False),
+    (19, 40, "level0", 17000, 15, 0.6, True),
+    (19, 13, "level0", 5000, 15, 0.3, True),
+    (19, 512, "level0", 17000, 15, 0.02, False),
+    (67, 136, "pooled", 13680, 25, 0.1, False),
+    (82, 64, "pooled", 3360, 25, 1.0, False),
+    (256, 256, "pooled", 840, 25, 0.3, False),
+    (512, 512, "pooled", 840, 25, 0.2, False),
+    (512, 4, "level0", 2000, 15, 0.3, False),
+    (130, 64, "pooled", 300, 25, 0.3, False),
+    (82, 136, "pooled", 100, 25, 0.5, False),
+]
+
+
+def check_fused_general(dev):
+    """K5 on the shapes of ``FUSED_CASES``, the first 70 rows without an
+    edge, inputs from a seeded generator: against the plain version from
+    the same pack within ``FUSED_CONV_TOL`` of the output's scale, rows
+    without an edge exactly zero.  Returns the worst error of scale, the
+    number of cases and each case's (C, O, N, row tile, column group,
+    staged rows, slab kernel, blocks a tile, most edges of a tile).  Fails
+    unless the cases reach both kernels, every row tile of the block
+    kernel, a tile shared by a cluster, a ragged last column group and a
+    tile with more edges than it stages."""
+    from eventad_tpu_torch.ops import spline_fused as sfm
+    gen = torch.Generator(device=dev).manual_seed(61)
+    ks, worst, plans = 5, 0.0, []
+    for c, o, geo, n, k, share, offset in FUSED_CASES:
+        rows = torch.arange(n, device=dev)[:, None]
+        if geo == "level0":
+            ranges = ((1, 3), (0, 4))
+            nbr = rows - torch.randint(1, 65, (n, k), generator=gen,
+                                       device=dev)
+        else:
+            ranges = ((0, 4), (0, 4))
+            nbr = rows + torch.randint(-58, 59, (n, k), generator=gen,
+                                       device=dev)
+        edges = (torch.rand((n, k), generator=gen, device=dev) < share) \
+            & (nbr >= 0) & (nbr < n)
+        edges[:70] = False
+        u = torch.rand((n, k, 2), generator=gen, device=dev) * (ks - 1)
+        prep = sfm.prepare_fused(nbr.to(torch.int32), edges, u)
+        src = torch.randn((n + int(offset), c), generator=gen,
+                          device=dev).to(torch.bfloat16)[int(offset):]
+        weight = torch.randn((ks * ks, c, o), generator=gen,
+                             device=dev) / (4 * c) ** 0.5
+        kw = dict(kernel_size=ks, ranges=ranges,
+                  pack=sfm.pack_fused_weights(weight, kernel_size=ks,
+                                              ranges=ranges))
+        got = sfm.fused_spline_conv_cuda(src, prep, weight, **kw)
+        want = sfm.fused_spline_conv_plain(src, prep, weight, **kw)
+        (mx0, mx1), (my0, my1) = ranges
+        tm, og, cap, slab, groups = sfm.fused_tiles(
+            n, c, k, o, (mx1 - mx0 + 1) * (my1 - my0 + 1))
+        per_tile = torch.zeros((-(-n // tm),), device=dev).index_add_(
+            0, rows[:, 0] // tm, edges.sum(1).float())
+        plans.append((c, o, n, tm, og, cap, slab, groups,
+                      int(per_tile.max())))
+        torch.cuda.synchronize()
+        scale = want.abs().max().item() + 1e-6
+        err = (got - want).abs().max().item() / scale
+        if got.dtype != torch.float32 or got.shape != want.shape \
+                or not bool((got[~edges.any(1)] == 0).all()) \
+                or not err <= FUSED_CONV_TOL:
+            raise AssertionError(
+                f"fused_spline_conv (C {c}, O {o}, {geo}, N {n}): "
+                f"{got.dtype} {tuple(got.shape)}, max abs err {err} of "
+                f"scale (tolerance {FUSED_CONV_TOL}), or a row without an "
+                f"edge not zero")
+        worst = max(worst, err)
+        del got, want, prep, src, weight
+    if {p[3] for p in plans if not p[6]} != {128, 64, 32, 16} \
+            or not any(p[6] for p in plans) \
+            or not any(p[7] > 1 for p in plans) \
+            or not any((-(-o // 8) * 8) % og for _, o, _, _, og, *_
+                       in plans) \
+            or not any(most > cap for *_, cap, _, _, most in plans):
+        raise AssertionError(f"FUSED_CASES no longer reach both kernels, "
+                             f"every row tile of the block kernel, a tile "
+                             f"shared by a cluster, a ragged column group "
+                             f"and a tile with more edges than it stages: "
+                             f"{plans}")
+    return worst, len(FUSED_CASES), plans
 
 
 def check_gather_wide(dev):
@@ -1157,7 +1264,8 @@ def main():
 
     def check_scatter(a, kw):
         """Max abs error of K6b on a seeded cotangent against index_add_;
-        also twice the same bits, and a bf16 cotangent."""
+        also twice the same bits, and a bf16 cotangent (twice the same
+        bits too)."""
         src, nbr, mask = a
         n_src, c = src.shape
         g = torch.randn(nbr.shape + (c,), generator=cot_gen, device=dev)
@@ -1173,6 +1281,10 @@ def main():
                                  f"> {SCATTER_TOL} x {scale}")
         g16 = g.to(torch.bfloat16)
         got16 = gw.scatter_window_rows_cuda(g16, nbr, mask, n_src, **kw)
+        if not torch.equal(got16, gw.scatter_window_rows_cuda(
+                g16, nbr, mask, n_src, **kw)):
+            raise AssertionError("scatter_window_rows (bf16): two runs "
+                                 "differ")
         want16 = gw.scatter_window_rows_plain(g16, nbr, mask, n_src)
         err16 = (got16.float() - want16.float()).abs().max().item()
         if got16.dtype != torch.bfloat16 or not err16 <= SCATTER_BF16_TOL \
@@ -1186,6 +1298,7 @@ def main():
 
     g_ms = g_plain = g_lib = s_ms = s_plain = s_lib = 0.0
     g_alone = s_alone = g_lib_alone = s_lib_alone = g_dense_alone = 0.0
+    s_dense_alone = 0.0
     g_bytes = s_bytes = s_ops = 0
     s_err, s_seq = 0.0, True
     for a, kw in op_g:
@@ -1220,17 +1333,22 @@ def main():
         rows_read = int(torch.unique(nbr[mask]).numel())
         g_bytes += (tensor_bytes(mask) + edges * nbr.element_size()
                     + rows_read * c * src.element_size() + out_bytes)
-        # the scatter needs only the unmasked edge rows of the cotangent
-        s_bytes += (tensor_bytes((nbr, mask)) + edges * c * g.element_size()
+        # the scatter needs the mask whole, and nbr and the cotangent's rows
+        # only at its edges, and writes the output
+        s_bytes += (tensor_bytes(mask) + edges * nbr.element_size()
+                    + edges * c * g.element_size()
                     + n_src * c * src.element_size())
         s_ops += edges * c
         del g, gm
     for a, kw in dense_g:
         check_gather(a, kw)
-        err, seq, _ = check_scatter(a, kw)
+        err, seq, g = check_scatter(a, kw)
         s_err, s_seq = max(s_err, err), s_seq and seq
         g_dense_alone += launch_ms(gw, lambda: gw.gather_window_rows_cuda(
             *a, **kw))
+        s_dense_alone += launch_ms(gw, lambda: gw.scatter_window_rows_cuda(
+            g, a[1], a[2], a[0].shape[0], **kw))
+        del g
     g_bound, g_by = bound(g_bytes, 0, PEAK_F32)
     s_bound, s_by = bound(s_bytes, s_ops, PEAK_F32)
     shapes = [tuple(t.shape) for t in op_g[0][0]]
@@ -1240,11 +1358,13 @@ def main():
         f"dense batch {g_dense_alone:.4f}), plain {g_plain:.4f} ms, indexed "
         f"gather src[idx] {g_lib:.4f} ms (alone {g_lib_alone:.4f}) per "
         f"forward; bound {g_bound:.5f} ms by {g_by} ({g_bytes} bytes)")
-    log(f"scatter_window_rows: cotangents of the same shapes; max abs err "
-        f"vs index_add_ {s_err:.3g} (tolerance {SCATTER_TOL} of scale); two "
-        f"runs bit-identical; equal to the CPU's sequential index_add_ "
-        f"exactly: {s_seq}; kernel {s_ms:.4f} ms (launches alone "
-        f"{s_alone:.4f} ms), plain "
+    log(f"scatter_window_rows: cotangents of the same shapes, both "
+        f"batches; max abs err vs index_add_ {s_err:.3g} (tolerance "
+        f"{SCATTER_TOL} of scale; bf16 {SCATTER_BF16_TOL}); two runs "
+        f"bit-identical (f32 and bf16); equal to the CPU's sequential "
+        f"index_add_ exactly: {s_seq}; two launches a call; kernel "
+        f"{s_ms:.4f} ms (launches alone {s_alone:.4f} ms; dense batch "
+        f"{s_dense_alone:.4f}), plain "
         f"{s_plain:.4f} ms, "
         f"index_add_ {s_lib:.4f} ms (alone {s_lib_alone:.4f}) for both; "
         f"bound {s_bound:.5f} ms by "
@@ -1266,9 +1386,10 @@ def main():
     grad_kernel = layer_input_grad()
     grad_launches = (gw.gather_window_rows_cuda.launches,
                      gw.scatter_window_rows_cuda.launches)
-    if grad_launches != (2, 2):
+    # two gathers forward, two scatters of two launches each backward
+    if grad_launches != (2, 4):
         raise AssertionError(f"level-0 gradient: (gather, scatter) launches "
-                             f"{grad_launches}, expected (2, 2)")
+                             f"{grad_launches}, expected (2, 4)")
     kernel_route = bb.gather_rows_auto
     bb.gather_rows_auto = lambda s, n, m, lookback: \
         gw.gather_window_rows_plain(s, n, m)
@@ -1276,7 +1397,7 @@ def main():
         grad_plain = layer_input_grad()
     finally:
         bb.gather_rows_auto = kernel_route
-    if gw.scatter_window_rows_cuda.launches != 2:
+    if gw.scatter_window_rows_cuda.launches != 4:
         raise AssertionError("the plain route launched a kernel")
     gscale = grad_plain.abs().max().item() + 1e-12
     gerr = (grad_kernel - grad_plain).abs().max().item()
@@ -1336,7 +1457,7 @@ def main():
         name="scatter_window_rows", route="cuda", source=gather_src,
         replaces="eventad_tpu/ops/gather_window.py:169",
         launches=grad_launches[1], max_abs_err=s_err, ms=s_ms,
-        launch_ms=s_alone,
+        launch_ms=s_alone, dense_launch_ms=s_dense_alone,
         plain_ms=s_plain, bound_ms=s_bound, bound_by=s_by,
         library_ms=s_lib, library_launch_ms=s_lib_alone))
 
@@ -1535,9 +1656,15 @@ def main():
 
     k5_op = recorded_calls(batches[0], bc_base, sfm, "fused_spline_conv", 10)
     k5_dense = recorded_calls(dense, bc_base, sfm, "fused_spline_conv", 10)
-    k5_err = k5_ms = k5_plain = 0.0
+    # the packs are made once per layer: the second forward passes the
+    # same objects
+    if any(kw["pack"] is None or kw["pack"] is not kw2["pack"]
+           for (_, kw), (_, kw2) in zip(k5_op, k5_dense)):
+        raise AssertionError("K5: the weights were packed anew")
+    k5_err = k5_plain = 0.0
+    level_ms, k5_alone, k5_dense_alone, k5_bounds, k5_plans = \
+        [], [], [], [], []
     k5_bytes = k5_tap_ops = k5_z_ops = 0
-    level_ms, k5_alone = [], []
     for a, kw in k5_op:
         src, prep, weight = a
         err, got = conv_err(a, kw)
@@ -1550,35 +1677,68 @@ def main():
                               reps=5)
         # what this data needs: per edge its (at most four) taps' share of
         # z, per (row, tap) that an edge touches one C x O product; of the
-        # weights only the taps of the sub-rectangle
+        # weights only the taps some edge touches
         coeff = sfm._tap_coeff(prep, kw["kernel_size"], kw["ranges"])
         c, o = src.shape[1], weight.shape[-1]
-        k5_z_ops += 2 * int((coeff != 0).sum()) * c
-        k5_tap_ops += 2 * int((coeff != 0).any(1).sum()) * c * o
-        # the index table in full, coordinates only of the slots that hold
-        # an edge (an empty slot's are never read)
-        k5_bytes += (tensor_bytes((src, prep.nbr, got))
-                     + int((prep.nbr >= 0).sum()) * 2 * prep.u.element_size()
-                     + coeff.shape[-1] * c * o * 2)
+        used = coeff != 0
+        z_ops = 2 * int(used.sum()) * c
+        tap_ops = 2 * int(used.any(1).sum()) * c * o
+        taps_used = int(used.flatten(0, 1).any(0).sum())
+        # the index table in full; coordinates only of the slots that hold
+        # an edge (an empty slot's are never read); of src only the rows
+        # that an edge points to (the root product is the caller's)
+        edge_nbr = prep.nbr[prep.nbr >= 0]
+        nbytes = (tensor_bytes((prep.nbr, got))
+                  + edge_nbr.numel() * 2 * prep.u.element_size()
+                  + int(torch.unique(edge_nbr).numel()) * c
+                  * src.element_size()
+                  + taps_used * c * o * 2)
+        k5_bounds.append(max(nbytes / HBM_BYTES_PER_S, tap_ops / PEAK_BF16
+                             + z_ops / PEAK_F32) * 1e3)
+        k5_plans.append(sfm.fused_tiles(src.shape[0], c, prep.nbr.shape[1],
+                                        o, coeff.shape[-1]))
+        k5_z_ops, k5_tap_ops, k5_bytes = (k5_z_ops + z_ops,
+                                          k5_tap_ops + tap_ops,
+                                          k5_bytes + nbytes)
         del coeff
     k5_ms = sum(level_ms)
-    k5_dense_err = max(conv_err(a, kw)[0] for a, kw in k5_dense)
+    k5_dense_err = 0.0
+    for a, kw in k5_dense:
+        k5_dense_err = max(k5_dense_err, conv_err(a, kw)[0])
+        k5_dense_alone.append(launch_ms(
+            sfm, lambda: sfm.fused_spline_conv_cuda(*a, **kw)))
     k5_by_bytes = k5_bytes / HBM_BYTES_PER_S
     k5_by_ops = k5_tap_ops / PEAK_BF16 + k5_z_ops / PEAK_F32
     k5_bound = max(k5_by_bytes, k5_by_ops) * 1e3
     k5_by = "bytes" if k5_by_bytes >= k5_by_ops else "operations"
     shapes = [(tuple(a[0].shape), tuple(a[1].nbr.shape), a[2].shape[-1])
               for a, _ in k5_op]
+
+    def rounded(ts):
+        return [round(t, 4) for t in ts]
     log(f"fused_spline_conv: 10 calls per base forward, (src, nbr, O) "
-        f"{shapes}; max abs err {k5_err:.3g} (dense / under-filled batch "
-        f"{k5_dense_err:.3g}; tolerance {FUSED_CONV_TOL} of scale); kernel "
-        f"ms per call {[round(t, 4) for t in level_ms]}, {k5_ms:.4f} ms per "
-        f"forward (launches alone {[round(t, 4) for t in k5_alone]}, "
-        f"{sum(k5_alone):.4f} ms; the eight pooled-level calls "
-        f"{sum(level_ms[2:]):.4f} / {sum(k5_alone[2:]):.4f} ms), plain "
-        f"{k5_plain:.4f} ms; bound {k5_bound:.5f} ms by "
+        f"{shapes}; (row tile, column group, staged rows, slab kernel, "
+        f"blocks a tile) "
+        f"{k5_plans}; "
+        f"packs made once per layer; max abs err {k5_err:.3g} (dense / "
+        f"under-filled batch {k5_dense_err:.3g}; tolerance "
+        f"{FUSED_CONV_TOL} of scale); kernel ms per call "
+        f"{rounded(level_ms)}, {k5_ms:.4f} ms per forward (launches alone "
+        f"{rounded(k5_alone)}, {sum(k5_alone):.4f} ms; the two level-1 "
+        f"calls {sum(k5_alone[2:4]):.4f} ms; dense batch "
+        f"{rounded(k5_dense_alone)}, {sum(k5_dense_alone):.4f} ms), plain "
+        f"{k5_plain:.4f} ms; bound per call "
+        f"{[round(t, 5) for t in k5_bounds]}, {k5_bound:.5f} ms by "
         f"{k5_by} ({k5_bytes} bytes, {k5_tap_ops} tap-product and "
         f"{k5_z_ops} z operations); no single PyTorch call computes it")
+    f_err, f_cases, f_plans = check_fused_general(dev)
+    log(f"fused_spline_conv, general shapes: {f_cases} cases (C 1, 19, 67, "
+        f"82, 130, 256, 512; O 4, 13, 40, 64, 136, 256, 512; level 0 and "
+        f"pooled geometries, both kernels, tiles shared by clusters, every "
+        f"slot an edge, unaligned sources; (C, O, N, row tile, column group, "
+        f"staged rows, slab kernel, blocks a tile, most edges of a tile) "
+        f"{f_plans}): max abs err {f_err:.3g} of scale (tolerance "
+        f"{FUSED_CONV_TOL}); rows without an edge exactly zero")
 
     def bilinear_err(feat, pos, mask, kw):
         """One call as the path makes it: ``out=`` the recorded view's
@@ -1759,7 +1919,8 @@ def main():
         replaces="eventad_tpu/ops/spline_fused.py:62",
         launches=flavour_launches["base"]["fused_spline_conv"],
         max_abs_err=max(k5_err, k5_dense_err), ms=k5_ms,
-        launch_ms=sum(k5_alone), plain_ms=k5_plain,
+        launch_ms=sum(k5_alone), dense_launch_ms=sum(k5_dense_alone),
+        launch_ms_per_call=k5_alone, plain_ms=k5_plain,
         bound_ms=k5_bound, bound_by=k5_by, library_ms=None))
     records.append(dict(
         name="bilinear_sample", route="cuda",

@@ -37,24 +37,36 @@
 // of 2^31 elements or more goes, by an explicit rule, to a 64-bit
 // instantiation of the same kernel that divides in 64 bits.
 //
-// Scatter design: deterministic, no atomics.  The graph contract
-// i - lookback <= nbr[i, k] <= i means that only destinations
-// [s, s + lookback] can reference source s.  A block owns a tile of
-// kTile source rows and walks that bounded range of destinations in flat
-// edge order, kThreads edges at a time: an ordered compaction (warp ballots
-// plus a scan of the warp counts) lists the edges that point into the tile,
-// then each (row, channel) accumulator adds its edges in list order, in f32
-// in shared memory.  Every sum is taken in ascending edge order, the order
-// of a sequential index_add, so two runs give the same bits.  The scan reads
-// (kTile + lookback) x K masks per block; g is read only where an edge
-// points into the tile, so a sparse graph reads little of it.
+// Scatter design: deterministic, no atomics on values, two launches.  The
+// work is the unmasked edges, 0.15 a row at the operating point, and the
+// bound is the mask, those edges' rows of g and the output; what costs is
+// finding the edges.  The graph contract i - lookback <= nbr[i, k] <= i
+// means that only destinations [s, s + lookback] can reference source s.
+//   1. list_edges: one pass over the [n_dst * k] mask, 16 bytes a thread,
+//      4096 edges a block: each block lists its unmasked edges in edge
+//      order (e, nbr[e]) at its own place in a scratch list, by a scan of
+//      the threads' counts, and writes its count.  Every mask byte is read
+//      once, and nbr only where the mask is set.
+//   2. sum_edges: a block owns a tile of T source rows (T by C: 256, 128
+//      or 64, the f32 accumulators T x C in shared memory) and reads the
+//      lists of the blocks that hold destinations [s0, s0 + T + lookback)
+//      as one sequence, 256 entries at a time.  The entries that point into
+//      the tile are bucketed by row, stably: a warp's lanes of one row are
+//      ranked by __match_any_sync, a row's count in each warp goes to a
+//      histogram, and a prefix over the warps and a scan over the rows place
+//      each entry behind every earlier one of its row.  Then each (row,
+//      channel) accumulator of a touched row adds the rows of g of its own
+//      bucket, in order.
+// Every sum is thus taken in f32 in ascending flat edge order, the order
+// of a sequential index_add, from 0, so two runs give the same bits.  An
+// edge outside the contract's window may be left out.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;
+constexpr int kListEdges = 16 * kThreads;   // edges a list_edges block reads
 
 // idx / c for idx < 2^31 by a multiply (div_magic); a 64-bit index
 // divides as it is
@@ -142,71 +154,177 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// Dynamic shared memory: kTile * c f32 accumulators.
-template <typename G, typename O>
-__global__ void scatter_rows_kernel(const G* __restrict__ g,
-                                    const int* __restrict__ nbr,
-                                    const uint8_t* __restrict__ mask,
-                                    int n_dst, int k, int c, int n_src,
-                                    int lookback, O* __restrict__ out) {
-  extern __shared__ float acc[];
-  __shared__ int list_edge[kThreads];
-  __shared__ int list_row[kThreads];
-  __shared__ int warp_count[kWarps];
+__device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const int x = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v += x;
+  }
+  return v;
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int s0 = blockIdx.x * kTile;
-  const int rows = min(kTile, n_src - s0);
+// exclusive prefix of each thread's v over the block (kThreads threads);
+// *total gets the sum.  `warp_sums` holds kWarps ints of shared memory.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
+                                                    int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int incl = warp_inclusive_scan(v, lane);
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int x = warp_sums[w];
+    if (w < warp) before += x;
+    all += x;
+  }
+  __syncthreads();     // warp_sums may be written again
+  *total = all;
+  return before + incl - v;
+}
+
+// 1. the unmasked edges of each block of kListEdges, in edge order
+__global__ void __launch_bounds__(kThreads)
+list_edges_kernel(const uint8_t* __restrict__ mask,
+                  const int* __restrict__ nbr, int total,
+                  int2* __restrict__ list, int* __restrict__ counts) {
+  __shared__ int warp_sums[kWarps];
+  const int e0 = blockIdx.x * kListEdges + threadIdx.x * 16;
+  unsigned bits = 0u;
+  if (e0 + 16 <= total &&
+      (reinterpret_cast<uintptr_t>(mask + e0) & 15) == 0) {
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(mask + e0));
+    const uint32_t x[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if ((x[i / 4] >> (8 * (i % 4))) & 0xffu) bits |= 1u << i;
+  } else {
+    for (int i = 0; i < 16 && e0 + i < total; ++i)
+      if (mask[e0 + i]) bits |= 1u << i;
+  }
+  int found;
+  int at = block_exclusive_scan(__popc(bits), warp_sums, &found);
+  int2* dst = list + static_cast<size_t>(blockIdx.x) * kListEdges;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    if ((bits >> i) & 1u) {
+      dst[at] = make_int2(e0 + i, __ldg(nbr + e0 + i));
+      ++at;
+    }
+  }
+  if (threadIdx.x == 0) counts[blockIdx.x] = found;
+}
+
+// 2. per tile of `tile` source rows, the listed edges that point into it,
+// bucketed by row, summed in edge order.  Dynamic shared memory: tile * c
+// f32 accumulators, then (kWarps + 2) * tile ints.
+template <typename G, typename O>
+__global__ void __launch_bounds__(kThreads)
+sum_edges_kernel(const G* __restrict__ g, const int2* __restrict__ list,
+                 const int* __restrict__ counts, int n_lists, int n_dst,
+                 int k, int c, int n_src, int lookback, int tile,
+                 O* __restrict__ out) {
+  extern __shared__ float acc[];
+  __shared__ int bucket[kThreads];
+  __shared__ int list_first[kThreads];   // first entry of each list read
+  __shared__ int touched[kThreads];      // rows of this window's entries
+  __shared__ int warp_sums[kWarps];
+  int* hist = reinterpret_cast<int*>(acc + tile * c);   // [kWarps][tile]
+  int* row_count = hist + kWarps * tile;
+  int* row_start = row_count + tile;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s0 = blockIdx.x * tile;
+  const int rows = min(tile, n_src - s0);
   const int n_acc = rows * c;
   for (int a = tid; a < n_acc; a += kThreads) acc[a] = 0.f;
+  for (int a = tid; a < kWarps * tile; a += kThreads) hist[a] = 0;
 
-  // destinations that can reference this tile: [s0, s0 + rows + lookback)
-  const long long d_end =
-      min(static_cast<long long>(n_dst),
-          static_cast<long long>(s0) + rows + lookback);
-  const long long e0 = static_cast<long long>(s0) * k;
-  const long long e_end = d_end * k;
-  __syncthreads();
+  // the edges of destinations [s0, s0 + rows + lookback), and the lists
+  // that hold them
+  const long long d_end = min(static_cast<long long>(n_dst),
+                              static_cast<long long>(s0) + rows + lookback);
+  const long long e_lo = static_cast<long long>(s0) * k, e_hi = d_end * k;
+  const int l0 = static_cast<int>(e_lo / kListEdges);
+  const int l1 = min(n_lists,
+                     static_cast<int>((e_hi + kListEdges - 1) / kListEdges));
 
-  for (long long base = e0; base < e_end; base += kThreads) {
-    const long long e = base + tid;
-    int row = -1;
-    if (e < e_end && mask[e]) {
-      const int s = nbr[e];
-      if (s >= s0 && s < s0 + rows) row = s - s0;
-    }
-    const unsigned ballot = __ballot_sync(0xffffffffu, row >= 0);
-    if (lane == 0) warp_count[warp] = __popc(ballot);
+  // up to kThreads lists at a time, read as one sequence of entries
+  for (int lc = l0; lc < l1; lc += kThreads) {
+    const int nl = min(kThreads, l1 - lc);
+    int n_in;
+    const int first = block_exclusive_scan(tid < nl ? counts[lc + tid] : 0,
+                                           warp_sums, &n_in);
+    if (tid < nl) list_first[tid] = first;
     __syncthreads();
-    int before = 0, found = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const int n = warp_count[w];
-      if (w < warp) before += n;
-      found += n;
-    }
-    if (row >= 0) {
-      const int slot = before + __popc(ballot & ((1u << lane) - 1u));
-      list_edge[slot] = static_cast<int>(e - e0);
-      list_row[slot] = row;
-    }
-    __syncthreads();
-    if (found > 0) {
-      for (int a = tid; a < n_acc; a += kThreads) {
-        const int r = a / c;
-        const int ch = a - r * c;
-        float sum = acc[a];
-        for (int j = 0; j < found; ++j) {
-          if (list_row[j] == r)
-            sum += load_f(g + (e0 + list_edge[j]) * c + ch);
+    for (int w0 = 0; w0 < n_in; w0 += kThreads) {
+      int e = -1, r = -1;
+      const int at = w0 + tid;
+      if (at < n_in) {
+        // the last list whose first entry is at or before `at` (an empty
+        // list shares its first with the next one)
+        int lo = 0, hi = nl - 1;
+        while (lo < hi) {
+          const int mid = (lo + hi + 1) >> 1;
+          if (list_first[mid] <= at) lo = mid;
+          else hi = mid - 1;
         }
-        acc[a] = sum;
+        const int2 ent = __ldg(list + static_cast<size_t>(lc + lo) *
+                                          kListEdges + at - list_first[lo]);
+        if (ent.y >= s0 && ent.y < s0 + rows && ent.x >= e_lo &&
+            ent.x < e_hi) {
+          e = ent.x;
+          r = ent.y - s0;
+        }
       }
+      if (!__syncthreads_or(r >= 0)) continue;
+      // this warp's lanes of row r, and this lane's rank among them
+      const unsigned peers =
+          __match_any_sync(0xffffffffu, r >= 0 ? r : -1 - lane);
+      const int rank = __popc(peers & ((1u << lane) - 1u));
+      if (r >= 0 && rank == 0) hist[warp * tile + r] = __popc(peers);
+      __syncthreads();
+      // per row: the counts of the warps before, the row's count; one scan
+      // gives each row its bucket's start (low 16 bits) and each touched
+      // row its place in the list of touched rows (high bits)
+      int count = 0;
+      if (tid < tile) {
+        for (int w = 0; w < kWarps; ++w) {
+          const int h = hist[w * tile + tid];
+          hist[w * tile + tid] = count;
+          count += h;
+        }
+      }
+      int both;
+      const int starts = block_exclusive_scan(
+          tid < tile && count > 0 ? count | (1 << 16) : 0, warp_sums,
+          &both);
+      if (tid < tile) {
+        row_count[tid] = count;
+        row_start[tid] = starts & 0xffff;
+        if (count > 0) touched[starts >> 16] = tid;
+      }
+      __syncthreads();
+      if (r >= 0) bucket[row_start[r] + hist[warp * tile + r] + rank] = e;
+      __syncthreads();
+      if (tid < tile)
+        for (int w = 0; w < kWarps; ++w) hist[w * tile + tid] = 0;
+      // each accumulator of a touched row adds the rows of g of its own
+      // bucket, in order
+      for (int a = tid; a < (both >> 16) * c; a += kThreads) {
+        const int ti = a / c;
+        const int ra = touched[ti], ch = a - ti * c;
+        const int* b = bucket + row_start[ra];
+        float* dst = acc + ra * c + ch;
+        float sum = *dst;
+        for (int q = 0; q < row_count[ra]; ++q)
+          sum += load_f(g + static_cast<size_t>(b[q]) * c + ch);
+        *dst = sum;
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
+  __syncthreads();
 
   O* dst = out + static_cast<long long>(s0) * c;
   for (int a = tid; a < n_acc; a += kThreads) store_f(dst + a, acc[a]);
@@ -215,13 +333,24 @@ __global__ void scatter_rows_kernel(const G* __restrict__ g,
 template <typename G, typename O>
 int launch_scatter(const void* g, const void* nbr, const void* mask,
                    int n_dst, int k, int c, int n_src, int lookback,
-                   void* out, cudaStream_t stream) {
-  const int blocks = (n_src + kTile - 1) / kTile;
-  const size_t smem = static_cast<size_t>(kTile) * c * sizeof(float);
-  scatter_rows_kernel<G, O><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const G*>(g), static_cast<const int*>(nbr),
-      static_cast<const uint8_t*>(mask), n_dst, k, c, n_src, lookback,
-      static_cast<O*>(out));
+                   int tile, void* list, void* counts, void* out,
+                   cudaStream_t stream) {
+  const int total = n_dst * k;
+  const int n_lists = (total + kListEdges - 1) / kListEdges;
+  if (n_lists > 0) {
+    list_edges_kernel<<<n_lists, kThreads, 0, stream>>>(
+        static_cast<const uint8_t*>(mask), static_cast<const int*>(nbr),
+        total, static_cast<int2*>(list), static_cast<int*>(counts));
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const size_t smem = static_cast<size_t>(tile) * c * sizeof(float) +
+                      static_cast<size_t>(kWarps + 2) * tile * sizeof(int);
+  sum_edges_kernel<G, O><<<(n_src + tile - 1) / tile, kThreads, smem,
+                           stream>>>(
+      static_cast<const G*>(g), static_cast<const int2*>(list),
+      static_cast<const int*>(counts), n_lists, n_dst, k, c, n_src, lookback,
+      tile, static_cast<O*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -252,24 +381,36 @@ EVENTAD_API int eventad_gather_window_rows(const void* src, const void* nbr,
 
 // g [n_dst, k, c] f32 or bf16 (g_bf16), nbr / mask [n_dst, k], every
 // unmasked nbr[i, k] in [i - lookback, i] -> out [n_src, c] f32 or bf16
-// (out_bf16; a bf16 output needs a bf16 g).  kTile * c * 4 bytes of shared
-// memory must fit the 48 KB static limit: c <= 128.
+// (out_bf16; a bf16 output needs a bf16 g).  tile: source rows a block of
+// the second launch owns (tile * c * 4 + 40 * tile bytes of shared memory
+// must fit 48 KB; at most kThreads); list [ceil(n_dst * k / 4096) * 4096]
+// int2 and counts [ceil(n_dst * k / 4096)] int32: scratch.  n_dst * k
+// below 2^31 - 4096.  Launches list_edges (where n_dst * k > 0), then
+// sum_edges.
 EVENTAD_API int eventad_scatter_window_rows(const void* g, const void* nbr,
                                             const void* mask, int n_dst,
                                             int k, int c, int n_src,
                                             int lookback, int g_bf16,
-                                            int out_bf16, void* out,
-                                            void* stream) {
+                                            int out_bf16, int tile,
+                                            void* list, void* counts,
+                                            void* out, void* stream) {
   if (n_src == 0 || c == 0) return 0;
-  if (c > 128 || (out_bf16 && !g_bf16))
+  if (tile < 1 || tile > kThreads || n_dst < 0 || k < 0 || lookback < 0 ||
+      static_cast<long long>(n_dst) * k >= (1ll << 31) - kListEdges ||
+      static_cast<size_t>(tile) * c * 4 + (kWarps + 2) * tile * 4 >
+          48 * 1024 ||
+      (out_bf16 && !g_bf16))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!g_bf16)
     return launch_scatter<float, float>(g, nbr, mask, n_dst, k, c, n_src,
-                                        lookback, out, st);
+                                        lookback, tile, list, counts, out,
+                                        st);
   if (out_bf16)
     return launch_scatter<__nv_bfloat16, __nv_bfloat16>(
-        g, nbr, mask, n_dst, k, c, n_src, lookback, out, st);
+        g, nbr, mask, n_dst, k, c, n_src, lookback, tile, list, counts, out,
+        st);
   return launch_scatter<__nv_bfloat16, float>(g, nbr, mask, n_dst, k, c,
-                                              n_src, lookback, out, st);
+                                              n_src, lookback, tile, list,
+                                              counts, out, st);
 }

@@ -85,6 +85,7 @@ using eventad::cp_async_wait;
 using eventad::cp_async_wait_all;
 using eventad::mma_bf16;
 using eventad::pad_stride;
+using eventad::sm_count;
 
 constexpr int kWarps = 8;
 constexpr int kGroup = 32;          // edges a group of rows holds at most
@@ -531,14 +532,12 @@ int launch_block(const Params& p, size_t smem, cudaStream_t stream) {
   }
   // as many blocks as the SMs hold at this shared memory size
   const int threads = p.warps * 32;
-  int per_sm = 0, dev = 0, n_sms = 0;
+  int per_sm = 0, n_sms = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, level0_block_kernel<NB, kSmemW>, threads, smem);
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = sm_count(&n_sms);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (per_sm < 1 || n_sms < 1)
+  if (per_sm < 1)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const int n_tiles = (p.n + 15) / 16;
   const int blocks = min((n_tiles + p.warps - 1) / p.warps, per_sm * n_sms);

@@ -164,21 +164,10 @@ __host__ __device__ inline Layout make_layout(int tm, int c_stride,
 using eventad::cp_async;
 using eventad::cp_async_commit;
 using eventad::cp_async_wait_all;
-using eventad::ldmatrix_x2;
-using eventad::ldmatrix_x4;
-using eventad::mma_bf16;
-using eventad::smem_u32;
-
-// The weight of an edge (x: ix | iy << 8 as bits, -1 none; y: fx; z: fy) on
-// tap (mx, my): (1 - f) on its floor tap and f on the next, per axis
-__device__ __forceinline__ float tap_weight(const float4& e, int mx, int my) {
-  const int code = __float_as_int(e.x);
-  if (code < 0) return 0.f;
-  const int ix = code & 0xff, iy = code >> 8;
-  const float wx = ix == mx ? 1.f - e.y : (ix + 1 == mx ? e.y : 0.f);
-  const float wy = iy == my ? 1.f - e.z : (iy + 1 == my ? e.z : 0.f);
-  return wx * wy;
-}
+using eventad::load_weights;
+using eventad::mma_tile;
+using eventad::sm_count;
+using eventad::tap_weight;
 
 // Rows [first, first + count) of the [n, c] table `src` into shared rows of
 // `stride` elements; rows outside [0, n) and the columns [c, stride) are
@@ -208,47 +197,6 @@ __device__ void load_rows(bf16* dst, int stride, const bf16* src, int c,
       }
     } else {
       for (int q = lane; q < stride; q += 32) d[q] = ok && q < c ? s[q] : zero;
-    }
-  }
-}
-
-// `elems` bf16 (a multiple of 8, both addresses 16-byte aligned) into shared
-// memory, all threads
-__device__ __forceinline__ void load_weights(bf16* dst, const bf16* src,
-                                             int elems, int tid,
-                                             int n_threads) {
-  for (int q = tid * 8; q < elems; q += n_threads * 8)
-    cp_async<16>(dst + q, src + q);
-}
-
-// acc[j] += A[16 rows of this warp, :] . B[:, n-block wn * NBW + j] over
-// k_blocks blocks of 16 channels; A [rows][a_stride] and B [O][b_stride],
-// both k contiguous, in shared memory
-template <int NBW>
-__device__ __forceinline__ void mma_tile(const bf16* a, int a_stride,
-                                         const bf16* b, int b_stride,
-                                         int k_blocks, int n_blocks, int wm,
-                                         int wn, int lane,
-                                         float (&acc)[NBW][4]) {
-  if (wn * NBW >= n_blocks) return;
-  const uint32_t a_addr = smem_u32(
-      a + static_cast<size_t>(wm * 16 + (lane & 15)) * a_stride +
-      (lane >> 4) * 8);
-  const uint32_t b_addr = smem_u32(
-      b + static_cast<size_t>(wn * NBW * 8 + (lane & 7)) * b_stride +
-      ((lane >> 3) & 1) * 8);
-#pragma unroll 2
-  for (int kb = 0; kb < k_blocks; ++kb) {
-    uint32_t af[4];
-    ldmatrix_x4(af, a_addr + kb * 32);
-#pragma unroll
-    for (int j = 0; j < NBW; ++j) {
-      if (wn * NBW + j < n_blocks) {
-        uint32_t bfr[2];
-        ldmatrix_x2(bfr, b_addr + static_cast<uint32_t>(j * 8 * b_stride * 2) +
-                             kb * 32);
-        mma_bf16(acc[j], af, bfr);
-      }
     }
   }
 }
@@ -545,14 +493,7 @@ int copy_width(const void* table, int c) {
 // smaller one.  128 output columns a group where they fit; the groups of a
 // wider O, or of a stage too large for the 16-row tile, are narrower (and
 // the launch refuses a layout that still does not fit)
-int plan_tiles(Params* p, bool has_skip) {
-  static int n_sms = 0;
-  if (n_sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-    if (n_sms <= 0) n_sms = 132;
-  }
+int plan_tiles(Params* p, bool has_skip, int n_sms) {
   const int n = p->n;
   int tm = 4 * ((n + 127) / 128) >= 3 * n_sms ? 128
            : ((n + 31) / 32 >= n_sms ? 32 : 16);
@@ -615,7 +556,10 @@ EVENTAD_API int eventad_shift_block(
   p.src_vw = copy_width(src, c);
   p.xs_vw = xs != nullptr ? copy_width(xs, cs) : 1;
 
-  const int tm = plan_tiles(&p, xs != nullptr);
+  int n_sms = 0;
+  const cudaError_t e = sm_count(&n_sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tm = plan_tiles(&p, xs != nullptr, n_sms);
   const size_t smem = make_layout(tm, p.cstride, p.csstride, xs != nullptr,
                                   p.og, halo, s_slots, nnz, n_taps,
                                   ks).total;
@@ -641,8 +585,11 @@ EVENTAD_API int eventad_shift_plan(int n, int c, int cs, int o_ch, int halo,
   p.o_pad = (o_ch + 7) / 8 * 8;
   p.cstride = pad_stride(c);
   p.csstride = cs > 0 ? pad_stride(cs) : 8;
+  int n_sms = 0;
+  const cudaError_t e = sm_count(&n_sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
   int* out = static_cast<int*>(plan);
-  out[0] = plan_tiles(&p, cs > 0);
+  out[0] = plan_tiles(&p, cs > 0, n_sms);
   out[1] = p.og;
   return 0;
 }

@@ -39,8 +39,8 @@ from ..ops.gather_window import gather_rows_auto
 from ..ops.norm import BatchNorm, batch_norm
 from ..ops.pooling import pool_graph
 from ..ops.spline_basis import ACTS
-from ..ops.spline_conv import (SplineConv, center_index, offset_attr,
-                               spline_conv, tap_ranges)
+from ..ops.spline_conv import (SplineConv, offset_attr, spline_conv,
+                               tap_ranges)
 from ..ops import spline_fused
 from ..ops.spline_shift import (pack_shift_weights, prepare_shift,
                                 shift_spline_conv)
@@ -144,14 +144,16 @@ def _fold_bn_affine(bn: BatchNorm, bias, dt):
 
 
 def whole_layer_operands(layer: Layer, dt, tap_idx=None,
-                         level0=None) -> tuple:
-    """What the whole-layer kernels (K2, K3) take from ``layer`` in compute
+                         level0=None, generic=None) -> tuple:
+    """What the layer kernels (K2, K3, K5) take from ``layer`` in compute
     dtype ``dt``: ``(w1, root1, a1, c1, w2, root2, a2, c2, skip_lin, a_s,
     c_s)``, the weights cast to ``dt`` and the three eval BNs folded into
     f32 affines; with ``tap_idx`` (a pooled level's used taps,
     ``ShiftPrep.tap_idx``) followed by the two conv blocks' ``ShiftWeights``
     for K3; with ``level0 = (kernel_size, ranges, fold_center)`` followed by
-    the two conv blocks' ``Level0Weights`` for K2.  Kept on the layer while
+    the two conv blocks' ``Level0Weights`` for K2; with ``generic`` (the
+    same three) followed by the two conv blocks' ``FusedWeights`` for K5,
+    each with its root (and centre tap) in ``dt``.  Kept on the layer while
     its parameters and buffers (and ``tap_idx``, ``level0``) are the same
     objects with the same storage and ``_version`` (an in-place update makes
     them anew; a write through ``tensor.data`` does not move ``_version``
@@ -166,7 +168,7 @@ def whole_layer_operands(layer: Layer, dt, tap_idx=None,
         sources += [bn.scale, bn.offset, bn.mean, bn.var]
     if tap_idx is not None:
         sources.append(tap_idx)
-    key = (dt, level0) + tuple((id(t), t._version, t.data_ptr())
+    key = (dt, level0, generic) + tuple((id(t), t._version, t.data_ptr())
                                for t in sources)
     kept = layer.__dict__.get("_whole_layer_operands")
     if kept is None or kept[0] != key:
@@ -189,6 +191,11 @@ def whole_layer_operands(layer: Layer, dt, tap_idx=None,
                 ops += (spline_fused.pack_level0_block(*ops[:4], **kw),
                         spline_fused.pack_level0_block(*ops[4:8], **kw,
                                                        skip=ops[8:]))
+            if generic is not None:
+                ks, ranges, fold = generic
+                kw = dict(kernel_size=ks, ranges=ranges, fold_center=fold)
+                ops += tuple(spline_fused.pack_fused_weights(
+                    w, root=r, **kw) for w, r in (ops[:2], ops[4:6]))
         # tap_idx is held with the key so that no other tensor takes its id
         kept = (key, ops, tap_idx)
         layer.__dict__["_whole_layer_operands"] = kept
@@ -308,19 +315,20 @@ def apply_layer(layer: Layer, g: Graph, *, kernel_size: int, aggr: str,
 
     if use_fused:
         # K5 once per conv block: the neighbour aggregation in the kernel,
-        # everything around it in PyTorch ops
+        # everything around it in PyTorch ops; the taps packed and the root
+        # folded once per layer
         prep = spline_fused.prepare_fused(nbr, nbr_mask, u)
         ranges = (tap_ranges(ks, attr_range) if attr_range
                   else ((0, ks - 1), (0, ks - 1)))
+        *_, pack1, pack2 = whole_layer_operands(
+            layer, dt, generic=(ks, ranges, fold_self))
+        packs = {b1.conv: pack1, b2.conv: pack2}
 
         def conv_block(src, conv, xj=None):
-            w = conv.weight.to(dt)
-            root = conv.root.to(dt)
-            if fold_self:
-                root = root + w[center_index(ks)]
+            pack = packs[conv]
             out = spline_fused.fused_spline_conv(
-                src, prep, w, kernel_size=ks, ranges=ranges) \
-                + (src @ root).to(torch.float32)
+                src, prep, conv.weight, kernel_size=ks, ranges=ranges,
+                pack=pack) + (src @ pack.root).to(torch.float32)
             return torch.where(node_mask[:, None], out, 0.0).to(dt)
     else:
         attr = attr.to(dt)

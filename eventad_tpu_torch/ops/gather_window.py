@@ -14,11 +14,14 @@ The TPU kernels make both one-hot matmuls and rebuild f32 from bf16 hi/lo
 ``parts``.  On a GPU an indexed copy is exact for f32 and bf16 alike, so
 ``parts`` has no counterpart here: the gather kernel equals the plain
 version bit for bit; it writes 16 bytes a thread and finds each word's
-first edge by a multiply with :func:`div_magic`.  The scatter kernel uses
-``lookback`` to bound the destinations a tile of sources scans, and sums
-each row in ascending edge order without atomics, so it is deterministic;
-the gather kernel takes ``lookback`` only to keep the reference's
-signature.
+first edge by a multiply with :func:`div_magic`.  The scatter is two
+launches: one pass over the mask lists the unmasked edges in edge order,
+per block of :data:`LIST_EDGES`; then a block per tile of
+:func:`scatter_tile` source rows reads the lists of the destinations
+``lookback`` bounds, buckets the edges that point into it by row, stably,
+and sums each row's bucket in ascending edge order without atomics, so it
+is deterministic and equals a sequential ``index_add_``.  The gather kernel
+takes ``lookback`` only to keep the reference's signature.
 """
 from __future__ import annotations
 
@@ -27,6 +30,16 @@ import torch
 from .kernels import launch, ptr, require
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# as csrc/gather_window.cu: threads of a scatter block, and the edges each
+# block of the listing pass reads (16 mask bytes a thread)
+SCATTER_THREADS = 256
+LIST_EDGES = 16 * SCATTER_THREADS
+
+
+def scatter_tile(c: int) -> int:
+    """Source rows a block of the scatter's second launch owns: its f32
+    accumulators, ``tile x c``, take at most 32 KB of shared memory."""
+    return 256 if c <= 32 else (128 if c <= 64 else 64)
 
 
 def gather_window_rows_plain(src: torch.Tensor, nbr: torch.Tensor,
@@ -101,10 +114,11 @@ gather_window_rows_cuda.launches = 0
 def scatter_window_rows_cuda(g: torch.Tensor, nbr: torch.Tensor,
                              nbr_mask: torch.Tensor, n_src: int, *,
                              lookback: int, out_dtype=None) -> torch.Tensor:
-    """K6b: one launch of ``csrc/gather_window.cu``'s scatter kernel.
-    Every unmasked ``nbr[i, k]`` must lie in ``[i - lookback, i]``: an edge
-    outside that window is not summed.  Accumulates in f32 and returns
-    ``out_dtype`` (default ``g.dtype``)."""
+    """K6b: ``csrc/gather_window.cu``'s scatter, two launches (one where
+    ``g`` holds no edge slot): the listing of the unmasked edges, then the
+    bucketed sums.  Every unmasked ``nbr[i, k]`` must lie in ``[i -
+    lookback, i]``: an edge outside that window may be left out.
+    Accumulates in f32 and returns ``out_dtype`` (default ``g.dtype``)."""
     out_dtype = out_dtype or g.dtype
     if g.dtype not in _DTYPES or out_dtype not in _DTYPES or g.dim() != 3:
         raise ValueError(f"g: expected a 3-D float32 or bfloat16 tensor and "
@@ -119,13 +133,21 @@ def scatter_window_rows_cuda(g: torch.Tensor, nbr: torch.Tensor,
         raise ValueError(f"g: at most 128 channels, got {c}")
     if lookback < 0:
         raise ValueError(f"lookback must be >= 0, got {lookback}")
+    if m * k >= 2 ** 31 - LIST_EDGES:
+        raise ValueError(f"at most 2^31 - {LIST_EDGES} edge slots, got "
+                         f"{m * k}")
     out = torch.empty((n_src, c), dtype=out_dtype, device=g.device)
     if out.numel():
+        n_lists = -(-m * k // LIST_EDGES)
+        edges = torch.empty((n_lists * LIST_EDGES, 2), dtype=torch.int32,
+                            device=g.device)
+        counts = torch.empty((n_lists,), dtype=torch.int32, device=g.device)
         launch("eventad_scatter_window_rows", ptr(g), ptr(nbr),
                ptr(nbr_mask), m, k, c, n_src, int(lookback),
                int(g.dtype == torch.bfloat16),
-               int(out_dtype == torch.bfloat16), ptr(out))
-        scatter_window_rows_cuda.launches += 1
+               int(out_dtype == torch.bfloat16), scatter_tile(c), ptr(edges),
+               ptr(counts), ptr(out))
+        scatter_window_rows_cuda.launches += 2 if n_lists else 1
     return out
 
 

@@ -41,6 +41,7 @@ SIGNATURES = {
          _I, _I, _I, _I, _P, _P],
     "eventad_fused_spline_conv":
         [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "eventad_fused_plan": [_I, _I, _I, _I, _I, _P, _P],
     "eventad_bilinear_sample":
         [_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P, _I,
          _P],
@@ -51,7 +52,7 @@ SIGNATURES = {
     "eventad_gather_window_rows":
         [_P, _P, _P, _I, _I, _I, _I, _U, _I, _P, _P],
     "eventad_scatter_window_rows":
-        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 

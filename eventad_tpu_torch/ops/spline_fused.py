@@ -30,10 +30,15 @@ aggregation alone (``fused_spline_conv_prepared`` there; kernel
 
 for any window of neighbours (before and after the destination) and any tap
 sub-rectangle; ``src`` bf16, sums and output f32.  Root product, bias, BN,
-activation, mask and skip stay with the caller.
+activation, mask and skip stay with the caller.  The kernel multiplies from
+a :class:`FusedWeights` pack (:func:`pack_fused_weights`), which the owner
+of the weights keeps while they are unchanged (``models/backbone.
+whole_layer_operands``), with the root (and centre tap) the caller
+multiplies.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
@@ -207,26 +212,87 @@ def fused_two_block(src, prep: FusedPrep, *args, **kw):
     return fused_two_block_plain(src, prep, *args, **kw)
 
 
+class FusedWeights(NamedTuple):
+    """One generic conv block's taps in the layout ``csrc/
+    spline_fused_single.cu`` multiplies from (``OP = pad_rows(O)``: the rows
+    beyond ``O`` zero), and the root its caller multiplies."""
+    taps: torch.Tensor            # [M, OP, CS] bf16: the sub-rectangle's taps
+    root: Optional[torch.Tensor]  # [C, O] root (+ centre tap), or None
+    c: int
+    o: int
+    kernel_size: int
+    ranges: tuple
+
+
+def pack_fused_weights(weight, *, kernel_size: int, ranges,
+                       root=None, fold_center: bool = False
+                       ) -> FusedWeights:
+    """``weight [ks*ks, C, O]`` as a :class:`FusedWeights`: the taps of the
+    sub-rectangle ``ranges`` (x fastest; a slice, no index tensor) rounded
+    to bf16 and laid out by :func:`spline_shift.transpose_padded`; ``root
+    [C, O]`` kept in ``weight``'s type, with the centre tap added where
+    ``fold_center`` (the self edge, as the layer has always added it)."""
+    ks = kernel_size
+    (mx0, mx1), (my0, my1) = ranges
+    c, o = weight.shape[1:]
+    taps = weight.reshape(ks, ks, c, o)[my0:my1 + 1, mx0:mx1 + 1] \
+        .reshape(-1, c, o)
+    r = None
+    if root is not None:
+        r = root.to(weight.dtype)
+        if fold_center:
+            r = r + weight[center_index(ks)]
+    return FusedWeights(transpose_padded(taps), r, c, o, ks,
+                        tuple(map(tuple, ranges)))
+
+
+def unpack_fused_weights(pack: FusedWeights) -> torch.Tensor:
+    """The sub-rectangle's taps ``[M, C, O]`` back from a pack, in bf16."""
+    return pack.taps[:, :pack.o, :pack.c].transpose(1, 2)
+
+
+def _check_pack(pack: FusedWeights, c, o, kernel_size, ranges):
+    if (pack.c, pack.o, pack.kernel_size, pack.ranges) != \
+            (c, o, kernel_size, tuple(map(tuple, ranges))):
+        raise ValueError(f"a pack of C {pack.c}, O {pack.o}, kernel size "
+                         f"{pack.kernel_size} and taps {pack.ranges} does "
+                         f"not belong to C {c}, O {o}, kernel size "
+                         f"{kernel_size} and taps {ranges}")
+
+
 def fused_spline_conv_plain(src, prep: FusedPrep, weight, *,
-                            kernel_size: int, ranges) -> torch.Tensor:
+                            kernel_size: int, ranges,
+                            pack: Optional[FusedWeights] = None
+                            ) -> torch.Tensor:
     """Plain PyTorch version of K5, rounding where the kernel rounds:
-    ``src`` and the taps of ``weight [ks*ks, C, O]`` in bf16, ``z`` summed
-    in f32 and rounded to bf16, the tap product summed in f32.  Returns
-    ``[N, O]`` f32."""
-    n = src.shape[0]
+    ``src`` and the taps of ``weight [ks*ks, C, O]`` (or of ``pack``, which
+    holds the same values) in bf16, ``z`` summed in f32 and rounded to bf16,
+    the tap product summed in f32.  Returns ``[N, O]`` f32."""
+    n, c = src.shape
     bf16, f32 = torch.bfloat16, torch.float32
-    sub = torch.as_tensor(sub_kernel_index(kernel_size, ranges),
-                          device=src.device)
     coeff = _tap_coeff(prep, kernel_size, ranges)
     rows = src.to(bf16).to(f32)[prep.nbr.clamp(min=0).long()]
     z = torch.einsum("nkm,nkc->nmc", coeff, rows).to(bf16).to(f32)
-    ws = weight[sub].to(bf16).to(f32)
+    if pack is not None:
+        _check_pack(pack, c, weight.shape[-1], kernel_size, ranges)
+        ws = unpack_fused_weights(pack).to(f32)
+    else:
+        sub = torch.as_tensor(sub_kernel_index(kernel_size, ranges),
+                              device=src.device)
+        ws = weight[sub].to(bf16).to(f32)
     return z.reshape(n, -1) @ ws.reshape(-1, ws.shape[-1])
 
 
 def fused_spline_conv_cuda(src, prep: FusedPrep, weight, *,
-                           kernel_size: int, ranges) -> torch.Tensor:
-    """One launch of ``csrc/spline_fused_single.cu``."""
+                           kernel_size: int, ranges,
+                           pack: FusedWeights) -> torch.Tensor:
+    """One launch of ``csrc/spline_fused_single.cu``.  ``pack``: ``weight``
+    as :func:`pack_fused_weights` packs it, kept by the caller while it is
+    unchanged (``weight`` gives only the shape to check it against).  Any
+    ``O`` (the pack pads it to a multiple of 8; the kernel walks column
+    groups of up to 128) and any ``C`` whose 16-row tile fits in shared
+    memory (up to about 2 200; else the launch raises); at most 32 slots and
+    64 taps."""
     n, c = src.shape
     k = prep.nbr.shape[1]
     require(src, "src", dtype=torch.bfloat16, shape=(n, c))
@@ -235,22 +301,46 @@ def fused_spline_conv_cuda(src, prep: FusedPrep, weight, *,
     (mx0, mx1), (my0, my1) = ranges
     nxs, nys = mx1 - mx0 + 1, my1 - my0 + 1
     o = weight.shape[-1]
-    # the tap sub-rectangle as a slice: no index tensor crosses to the card
-    w_sub = weight.reshape(kernel_size, kernel_size, c, o)[
-        my0:my1 + 1, mx0:mx1 + 1].to(torch.bfloat16).reshape(
-            nxs * nys, c, o).contiguous()
-    require(w_sub, "weight", dtype=torch.bfloat16, shape=(nxs * nys, c, o))
+    if tuple(weight.shape) != (kernel_size * kernel_size, c, o):
+        raise ValueError(f"weight: expected {(kernel_size ** 2, c, o)}, got "
+                         f"{tuple(weight.shape)}")
+    if k > 32 or nxs * nys > 64:
+        raise ValueError(f"at most 32 slots and 64 taps, got {k} and "
+                         f"{nxs * nys}")
+    _check_pack(pack, c, o, kernel_size, ranges)
+    require(pack.taps, "pack.taps", dtype=torch.bfloat16,
+            shape=(nxs * nys, pad_rows(o), pad_stride(c)))
     out = torch.empty((n, o), dtype=torch.float32, device=src.device)
     if n == 0:
         return out
-    launch("eventad_fused_spline_conv", ptr(src), c, ptr(prep.nbr), k,
-           ptr(prep.u), ptr(w_sub), n, o, kernel_size, mx0, nxs, my0, nys,
-           ptr(out))
+    try:
+        launch("eventad_fused_spline_conv", ptr(src), c, ptr(prep.nbr), k,
+               ptr(prep.u), ptr(pack.taps), n, o, kernel_size, mx0, nxs,
+               my0, nys, ptr(out))
+    except RuntimeError as err:
+        if fused_tiles(n, c, k, o, nxs * nys)[0] == 0:
+            raise ValueError(f"fused_spline_conv: C {c} with {k} slots and "
+                             f"{nxs * nys} taps does not fit in shared "
+                             f"memory even at 16 rows and 8 columns a "
+                             f"block") from err
+        raise
     fused_spline_conv_cuda.launches += 1
     return out
 
 
 fused_spline_conv_cuda.launches = 0
+
+
+def fused_tiles(n: int, c: int, k: int, o: int, taps: int):
+    """``(row tile, column group, staged rows, slab, blocks a tile)`` that
+    :func:`fused_spline_conv_cuda`'s launch picks for ``n`` rows of ``c``
+    channels, ``k`` slots, ``o`` outputs and ``taps`` taps (no launch; a
+    row tile of 0: the shape does not fit; slab 1: the kernel whose warps
+    each walk their own 16 rows' taps, 0: the one whose block walks its
+    tile's taps in step, shared by a cluster of ``blocks a tile``)."""
+    plan = (ctypes.c_int * 5)()
+    launch("eventad_fused_plan", n, c, k, o, taps, plan)
+    return tuple(plan)
 
 
 def fused_spline_conv(src, prep: FusedPrep, weight, **kw) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Where one head-training step, or one detection forward, spends its time
-on the GPU.
+"""Where one head-training step, one scoring forward or one detection
+forward spends its time on the GPU.
 
     python3 -m eventad_tpu_torch.tools.profile_step [float32|bfloat16 ...]
+    python3 -m eventad_tpu_torch.tools.profile_step scoring [flavour ...]
     python3 -m eventad_tpu_torch.tools.profile_step detector [flavour ...]
 
 At the reference operating point (batch 6, 360x240, 16 384 events per item,
@@ -16,6 +17,11 @@ ResNet-50, random weights from seed 0), for each compute dtype named
 * a ``torch.profiler`` trace of 3 train steps: device-busy time and the
   number of device operations per step, the idle share of the untraced
   step, and the ten kernels with the most device time.
+
+With ``scoring`` first, the bf16 scoring forward (``model_forward`` in
+eval mode) in each kernel flavour named (``default``, ``base``,
+``bilinear``; default ``base``): the whole forward untraced and the trace
+of 3 forwards.
 
 With ``detector`` first, the same for ``detector_forward`` in eval mode
 (bf16 features) in each kernel flavour named (``default``, ``base``,
@@ -41,7 +47,7 @@ from ..config import Config
 from ..data.synthetic import make_synthetic_batch
 from ..models.backbone import backbone_forward
 from ..models.dagr import (build_level0_graph, graph_static_config,
-                           init_model)
+                           init_model, model_forward)
 from ..models.eventad import eventad_forward
 from ..models.feature_extract import extract_box_features
 from ..models.resnet import cnn_branch_forward
@@ -181,6 +187,29 @@ def profile_dtype(dtype: str, smi: str) -> dict:
         **device_summary(kernels, step_ms))
 
 
+def profile_scoring(flavour: str, smi: str) -> dict:
+    dev = torch.device("cuda")
+    cfg = Config(batch_size=6, use_image=True, compute_dtype="bfloat16",
+                 event_buckets=(16384,))
+    model, bc, mc = init_model(cfg, torch.Generator().manual_seed(0), dev)
+    bc = bc._replace(**FLAVOURS[flavour])
+    gsc = graph_static_config(cfg)
+    batch = make_synthetic_batch(cfg, seed=0, boxes_per_item=6).to(dev)
+
+    def forward():
+        return model_forward(model, batch, bc, mc, gsc)
+
+    for _ in range(3):
+        out = forward()
+    if not bool(torch.isfinite(out.logits).all()):
+        raise RuntimeError("the logits are not finite")
+    ts = timed_ms(forward)
+    batch_ms = _median(ts)
+    return dict(
+        flavour=flavour, dtype="bfloat16", card=smi, batch_ms=batch_ms,
+        batch_ms_all=ts, **device_summary(traced_kernels(forward), batch_ms))
+
+
 DETECTOR_FLAVOURS = {
     **{k: FLAVOURS[k] for k in ("default", "base", "bilinear")},
     "base+bilinear": {**FLAVOURS["base"], **FLAVOURS["bilinear"]},
@@ -261,6 +290,10 @@ def main(argv=None):
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
     argv = list(argv or [])
+    if argv[:1] == ["scoring"]:
+        for flavour in argv[1:] or ["base"]:
+            print(json.dumps(profile_scoring(flavour, smi)), flush=True)
+        return
     if argv[:1] == ["detector"]:
         for flavour in argv[1:] or ["default", "base+bilinear"]:
             print(json.dumps(profile_detector(flavour, smi)), flush=True)

@@ -22,11 +22,14 @@ from eventad_tpu.ops.spline_fused import (fused_spline_conv_prepared,
 from eventad_tpu_torch.models import backbone as tbb
 from eventad_tpu_torch.models.dagr import graph_static_config
 from eventad_tpu_torch.models.graph import Graph
-from eventad_tpu_torch.ops.spline_conv import tap_ranges
+from eventad_tpu_torch.ops.spline_conv import (center_index,
+                                               sub_kernel_index, tap_ranges)
 from eventad_tpu_torch.ops.spline_fused import (fused_spline_conv,
                                                 fused_spline_conv_cuda,
                                                 fused_spline_conv_plain,
-                                                prepare_fused)
+                                                pack_fused_weights,
+                                                prepare_fused,
+                                                unpack_fused_weights)
 from test_torch_spline_fused import (_fixture, _jax_layer, _layer_arrays,
                                      _rel, _torch_layer)
 
@@ -49,6 +52,11 @@ CASES = {
     # nx = 14), all 25 taps
     "pooled": dict(n=140, k=25, cin=82, cout=64, span=(0.5, 0.5),
                    lookback=30, lookahead=30, empty=(0, 0)),
+    # widths the launcher before the tensor-core kernel refused or nearly
+    # refused: O 136 (two column groups, the last ragged), C 67 (no
+    # multiple of 8)
+    "wide": dict(n=64, k=25, cin=67, cout=136, span=(0.5, 0.5),
+                 lookback=20, lookahead=20, empty=(10, 20)),
 }
 
 
@@ -73,22 +81,44 @@ def _case(name):
     u = (np.clip(attr, 0, 1) * (KS - 1)).astype(np.float32)
     prep = prepare_fused(torch.from_numpy(nbr), torch.from_numpy(mask),
                          torch.from_numpy(u))
-    got = fused_spline_conv_plain(torch.from_numpy(x).bfloat16(), prep,
-                                  torch.from_numpy(w), kernel_size=KS,
+    xb, tw = torch.from_numpy(x).bfloat16(), torch.from_numpy(w)
+    got = fused_spline_conv_plain(xb, prep, tw, kernel_size=KS,
                                   ranges=ranges)
+    pack = pack_fused_weights(tw, kernel_size=KS, ranges=ranges)
+    got_pack = fused_spline_conv_plain(xb, prep, tw, kernel_size=KS,
+                                       ranges=ranges, pack=pack)
     return dict(c, nbr=nbr, mask=mask, attr=attr, attr_range=attr_range,
-                x=x, w=w, u=u, ranges=ranges, got=got.numpy())
+                x=x, w=w, u=u, ranges=ranges, got=got.numpy(),
+                got_pack=got_pack.numpy())
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas(name):
+    """The Pallas kernel in interpret mode on the case's inputs."""
+    c = _case(name)
+    jp = jax_prepare(jnp.asarray(c["nbr"]), jnp.asarray(c["mask"]),
+                     jnp.asarray(c["u"]), lookback=c["lookback"],
+                     lookahead=c["lookahead"], block=128)
+    return np.asarray(fused_spline_conv_prepared(
+        jnp.asarray(c["x"]).astype(jnp.bfloat16), jp, jnp.asarray(c["w"]),
+        kernel_size=KS, ranges=c["ranges"], interpret=True))
+
+
+@functools.lru_cache(maxsize=None)
+def _xla(name):
+    """The JAX package's XLA ``spline_conv`` (f32) on the case's inputs."""
+    c = _case(name)
+    return np.asarray(jax_spline_conv(
+        jnp.asarray(c["x"]), jnp.asarray(c["nbr"]), jnp.asarray(c["mask"]),
+        jnp.asarray(c["attr"]),
+        SplineConvParams(jnp.asarray(c["w"]), None, None), kernel_size=KS,
+        aggr="sum", attr_range=c["attr_range"]))
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_plain_matches_pallas_interpret(name):
     c = _case(name)
-    jp = jax_prepare(jnp.asarray(c["nbr"]), jnp.asarray(c["mask"]),
-                     jnp.asarray(c["u"]), lookback=c["lookback"],
-                     lookahead=c["lookahead"], block=128)
-    want = fused_spline_conv_prepared(
-        jnp.asarray(c["x"]).astype(jnp.bfloat16), jp, jnp.asarray(c["w"]),
-        kernel_size=KS, ranges=c["ranges"], interpret=True)
+    want = _pallas(name)
     assert c["got"].dtype == np.float32
     assert c["got"].shape == (c["n"], c["cout"])
     assert _rel(c["got"], want) < INTERPRET_TOL, _rel(c["got"], want)
@@ -100,12 +130,46 @@ def test_plain_matches_pallas_interpret(name):
 @pytest.mark.parametrize("name", list(CASES))
 def test_plain_matches_xla_spline_conv(name):
     c = _case(name)
-    want = jax_spline_conv(
-        jnp.asarray(c["x"]), jnp.asarray(c["nbr"]), jnp.asarray(c["mask"]),
-        jnp.asarray(c["attr"]),
-        SplineConvParams(jnp.asarray(c["w"]), None, None), kernel_size=KS,
-        aggr="sum", attr_range=c["attr_range"])
+    want = _xla(name)
     assert _rel(c["got"], want) < XLA_TOL, _rel(c["got"], want)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_plain_from_pack_matches_pallas_and_xla(name):
+    """The plain version computed from the kernel's pack: the same bits as
+    from the weights (the pack holds their bf16 values), so within the same
+    bands of the Pallas kernel and of the XLA formulation."""
+    c = _case(name)
+    np.testing.assert_array_equal(c["got_pack"], c["got"])
+    assert _rel(c["got_pack"], _pallas(name)) < INTERPRET_TOL
+    assert _rel(c["got_pack"], _xla(name)) < XLA_TOL
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_pack_fused_weights_round_trips(name):
+    """``pack_fused_weights`` lays the sub-rectangle's taps out transposed
+    and padded (``O`` to a multiple of 8, ``C`` to 16 plus 8) with zero
+    pads, and ``unpack_fused_weights`` gives back their bf16 values; the
+    root is folded with the centre tap in the weights' type."""
+    c = _case(name)
+    w = torch.from_numpy(c["w"])
+    root = torch.from_numpy(c["w"][0] * 0.5)
+    pack = pack_fused_weights(w, kernel_size=KS, ranges=c["ranges"],
+                              root=root, fold_center=True)
+    sub = sub_kernel_index(KS, c["ranges"])
+    cin, cout = c["cin"], c["cout"]
+    assert pack.taps.dtype == torch.bfloat16
+    assert pack.taps.shape == (len(sub), -(-cout // 8) * 8,
+                               -(-cin // 16) * 16 + 8)
+    assert (pack.c, pack.o) == (cin, cout)
+    torch.testing.assert_close(unpack_fused_weights(pack),
+                               w[torch.from_numpy(sub)].bfloat16(),
+                               rtol=0, atol=0)
+    assert not pack.taps[:, cout:].any() and not pack.taps[..., cin:].any()
+    torch.testing.assert_close(pack.root, root + w[center_index(KS)],
+                               rtol=0, atol=0)
+    assert pack_fused_weights(w, kernel_size=KS,
+                              ranges=c["ranges"]).root is None
 
 
 def test_dispatch_and_cuda_wrapper_refuse_cpu_tensors():
@@ -118,9 +182,10 @@ def test_dispatch_and_cuda_wrapper_refuse_cpu_tensors():
     out = fused_spline_conv(x, prep, w, kernel_size=KS, ranges=c["ranges"])
     np.testing.assert_array_equal(out.numpy(), c["got"])
     before = fused_spline_conv_cuda.launches
+    pack = pack_fused_weights(w, kernel_size=KS, ranges=c["ranges"])
     with pytest.raises(ValueError, match="CUDA"):
         fused_spline_conv_cuda(x, prep, w, kernel_size=KS,
-                               ranges=c["ranges"])
+                               ranges=c["ranges"], pack=pack)
     assert fused_spline_conv_cuda.launches == before
 
 
@@ -199,3 +264,33 @@ def test_base_layer_pooled_matches_jax_bf16(rng):
     want = np.asarray(want.x.astype(jnp.float32))
     assert _rel(got.x.float(), want) < LAYER_TOL, _rel(got.x.float(), want)
     assert (want != 0).mean() > 0.2
+
+
+def test_base_packs_kept_on_the_layer(rng):
+    """The ``base`` flavour's K5 packs are made once per layer: a second
+    call returns the same packs, each block's root holds the centre tap
+    folded in bf16, and an in-place change of a weight packs anew."""
+    _, layer = _bf16_layers(rng, 19, 16)
+    ranges = ((1, 3), (0, 4))
+    gen = (KS, ranges, True)
+    *_, p1, p2 = tbb.whole_layer_operands(layer, torch.bfloat16,
+                                          generic=gen)
+    again = tbb.whole_layer_operands(layer, torch.bfloat16, generic=gen)
+    assert again[-2] is p1 and again[-1] is p2
+    for pack, blk in ((p1, layer.block1), (p2, layer.block2)):
+        w = blk.conv.weight.detach().bfloat16()
+        want = blk.conv.root.detach().bfloat16() + w[center_index(KS)]
+        assert pack.root.dtype == torch.bfloat16
+        torch.testing.assert_close(pack.root, want, rtol=0, atol=0)
+        torch.testing.assert_close(
+            unpack_fused_weights(pack),
+            w[torch.from_numpy(sub_kernel_index(KS, ranges))], rtol=0,
+            atol=0)
+    with torch.no_grad():
+        layer.block2.conv.weight.mul_(2)
+    *_, q1, q2 = tbb.whole_layer_operands(layer, torch.bfloat16,
+                                          generic=gen)
+    assert q2 is not p2
+    torch.testing.assert_close(unpack_fused_weights(q2).float(),
+                               2 * unpack_fused_weights(p2).float(),
+                               rtol=0, atol=0)

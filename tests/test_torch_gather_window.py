@@ -204,3 +204,108 @@ def test_word_walk_mirror_equals_plain(rng, c, kv):
     want = gw.gather_window_rows_plain(*_torch(src, nbr, mask)).numpy()
     assert (37 * 3 * c) % kv or c == 16
     np.testing.assert_array_equal(got, want)
+
+
+def _scatter_mirror(g, nbr, mask, n_src, lookback):
+    """numpy mirror of ``csrc/gather_window.cu``'s scatter.  The listing
+    pass: per block of ``LIST_EDGES`` flat edges its unmasked edges in edge
+    order with their source.  The summing pass, per tile of
+    ``scatter_tile(C)`` source rows: the lists of destinations [s0, s0 +
+    rows + lookback) read as one sequence (``SCATTER_THREADS`` lists at a
+    time), ``SCATTER_THREADS`` entries a window; in a window the entries
+    that point into the tile are placed into per-row buckets as the kernel
+    places them (rank among the same row's lanes of the warp, the row's
+    counts in the warps before, the rows before), and each row adds its
+    bucket in f32, in bucket order.  Asserts that the placement leaves no
+    hole and hits no slot twice."""
+    m, k, c = g.shape
+    total, per = m * k, gw.LIST_EDGES
+    threads, warps = gw.SCATTER_THREADS, gw.SCATTER_THREADS // 32
+    flat_g = g.reshape(total, c)
+    flat_mask, flat_nbr = mask.ravel(), nbr.ravel()
+    n_lists = -(-total // per)
+    lists = []
+    for b in range(n_lists):
+        es = np.flatnonzero(flat_mask[b * per:(b + 1) * per]) + b * per
+        lists.append([(int(e), int(flat_nbr[e])) for e in es])
+    tile = gw.scatter_tile(c)
+    out = np.zeros((n_src, c), np.float32)
+    for s0 in range(0, n_src, tile):
+        rows = min(tile, n_src - s0)
+        e_lo, e_hi = s0 * k, min(m, s0 + rows + lookback) * k
+        acc = np.zeros((rows, c), np.float32)
+        l0, l1 = e_lo // per, min(n_lists, -(-e_hi // per))
+        for lc in range(l0, l1, threads):
+            seq = sum(lists[lc:min(l1, lc + threads)], [])
+            for w0 in range(0, len(seq), threads):
+                kept = [(e, s - s0) if s0 <= s < s0 + rows
+                        and e_lo <= e < e_hi else None
+                        for e, s in seq[w0:w0 + threads]]
+                hist = np.zeros((warps, rows), np.int64)
+                rank = {}
+                for t, kv in enumerate(kept):
+                    if kv is not None:
+                        w, r = t // 32, kv[1]
+                        rank[t] = sum(1 for u in range(w * 32, t)
+                                      if kept[u] is not None
+                                      and kept[u][1] == r)
+                        hist[w, r] += 1
+                count = hist.sum(0)
+                before = np.cumsum(hist, 0) - hist
+                start = np.cumsum(count) - count
+                bucket = np.full(len(kept), -1)
+                for t, r0 in rank.items():
+                    e, r = kept[t]
+                    at = start[r] + before[t // 32, r] + r0
+                    assert bucket[at] == -1
+                    bucket[at] = e
+                assert (bucket[:len(rank)] >= 0).all()
+                for r in np.flatnonzero(count):
+                    for e in bucket[start[r]:start[r] + count[r]]:
+                        acc[r] += flat_g[e]
+        out[s0:s0 + rows] = acc
+    return out
+
+
+def _scatter_graph(rng, n, k, lookback, share, kind):
+    """A graph honouring ``i - lookback <= nbr <= i``: ``sparse`` / ``dense``
+    random windows, ``edges`` only the window's two ends (``i - lookback``
+    and ``i``), ``tail`` a fully masked last third (an under-filled item's
+    t = 0 tail); masked slots hold -1 or an out-of-window index."""
+    nbr = np.zeros((n, k), np.int32)
+    for i in range(n):
+        lo = max(0, i - lookback)
+        nbr[i] = (np.where(rng.rand(k) < 0.5, lo, i) if kind == "edges"
+                  else rng.randint(lo, i + 1, k))
+    mask = rng.rand(n, k) < share
+    if kind == "edges":
+        mask &= (nbr == np.arange(n)[:, None] - lookback) \
+            | (nbr == np.arange(n)[:, None])
+    if kind == "tail":
+        mask[n - n // 3:] = False
+    junk = np.where(rng.rand(n, k) > 0.5, -1, n + 7).astype(np.int32)
+    return np.where(mask, nbr, junk), mask
+
+
+# (graph, n, k, c, lookback, share of slots that hold an edge): the
+# operating point's 0.15 edges a row over several listing blocks, a dense
+# graph whose windows put many entries of one row into one warp, the
+# window's two ends, and a masked tail; C 19, 40 and 100 take source tiles
+# of 256, 128 and 64 rows
+SCATTER_GRAPHS = [("sparse", 3000, 15, 19, 1024, 0.01),
+                  ("dense", 1200, 15, 19, 128, 0.85),
+                  ("edges", 700, 8, 40, 100, 0.9),
+                  ("tail", 900, 15, 100, 256, 0.5)]
+
+
+@pytest.mark.parametrize("kind,n,k,c,lb,share", SCATTER_GRAPHS)
+def test_scatter_mirror_equals_plain(rng, kind, n, k, c, lb, share):
+    """The kernel's listing and bucketing, mirrored in numpy, sums every
+    row in ascending edge order: the plain version's sequential
+    ``index_add_`` bit for bit in f32."""
+    nbr, mask = _scatter_graph(rng, n, k, lb, share, kind)
+    g = rng.randn(n, k, c).astype(np.float32)
+    got = _scatter_mirror(g, nbr, mask, n, lb)
+    want = gw.scatter_window_rows_plain(*_torch(g, nbr, mask), n).numpy()
+    assert mask.sum() > 0 and (want != 0).any()
+    np.testing.assert_array_equal(got, want)
