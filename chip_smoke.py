@@ -91,11 +91,40 @@ exits non-zero without printing a result:
    passes in f32 (random weights on the initial statistics overflow the
    ``exp`` of the box decode), copied to the CPU.  In the default flavour
    and in ``base`` + ``bilinear``: the maps before decoding (``reg``,
-   ``obj``, ``cls`` per scale) within 0.15 of the CPU run's, relative to
+   ``obj``, ``cls`` per scale) within 0.1 of the CPU run's, relative to
    each map's scale (at least 1; in f32, run once, within 1e-3),
    ``decoded [6, 175, 7]`` finite,
    detections of the fixed shape, the expected launches per forward, and
    images/s with batch ms by ``bench_detector``'s protocol.
+9. Streaming (``streaming/``) at the root ``bench_streaming.py``'s
+   operating point: batch 1, the same width, a ring of 16 384 events,
+   chunks of 512, the phase-3 weights, events of
+   ``streaming.evaluate.SyntheticStream``.  The incremental stream (ring
+   filled raw, image, refresh, 8 steps with boxes) in bf16 against the same
+   stream through the port on the CPU: equal valid slots, logits within
+   0.05.  In f32 on one window: the dense stream (``consistency_check``)
+   and the incremental one (refresh, appends, one read) against the batch
+   ``model_forward`` at batch 1, within 1e-4.  Launches, counters zeroed
+   before each: one ``append`` K1 once, one ``read_scores`` K3 eight
+   times, one dense bf16 step K1, K4, K2 twice and K3 eight times; K1 at
+   an append's tail and at the refresh of a ring still filling (invalid
+   rows first, t = 0) equal to its plain version, K3 at a read's
+   batch-1 grids and K2 and K4 at the dense step's (one item of 16 384
+   rows, one image map) within 2e-2 of scale, a second read passing the
+   same packs and static tables, with times and bounds as in phase 3.
+   The detection read-out (``make_incremental_detector`` from the phase-8
+   detector, refresh and three appends) against ``detector_forward`` at
+   batch 1 on the same window, in bf16 on two windows (stream seeds 0 and
+   1) and in f32 on the first: the maps and ``decoded`` within 0.1 (bf16)
+   and 1e-3 (f32) of each map's or column's scale, as in phase 8,
+   detections of the fixed shape.  Then the times
+   (``latency_bench_incremental``, ``latency_bench``, the read-out) and
+   the device's busy share from a ``torch.profiler`` trace of 10 steps in
+   a fresh process (``tools.profile_step streaming``: late in this one a
+   trace may lose device events), on a line with the card's name and
+   power limit.  K1's and K3's records gain ``streaming_append`` /
+   ``streaming_read``, K2's and K4's ``streaming_dense_step`` and K1-K4's
+   ``streaming_dense_step_launches``.
 
 Each kernel's record also holds ``bound_ms``, the least time the card could
 take for the same work: the larger of its bytes (every input read once,
@@ -862,6 +891,390 @@ def shift_bytes(a, kw, out):
 
 BYTES = {"spline_fused_level0": level0_bytes,
          "spline_shift_pooled": shift_bytes}
+
+
+# phase 9: the root bench_streaming.py's operating point (batch 1, a ring
+# of 16 384 events, chunks of 512), steps run against the CPU, timed steps
+STREAM_BUF, STREAM_CHUNK = 16384, 512
+STREAM_STEPS = 8
+STREAM_ITERS = 20
+
+
+def stream_frames(cfg, m, seed=1):
+    """``m`` frames of boxes (xywh pixels, 20-60 px a side, inside the
+    sensor), about half of the slots present, slot 0 never."""
+    gen = torch.Generator().manual_seed(seed)
+    s1 = cfg.max_boxes + 1
+    wh = 20 + 40 * torch.rand((m, s1, 2), generator=gen)
+    lim = torch.tensor([cfg.model_width, cfg.model_height]) - wh
+    xy = torch.rand((m, s1, 2), generator=gen) * lim
+    present = torch.rand((m, s1), generator=gen) > 0.5
+    present[:, 0] = False
+    return torch.cat([xy, wh], -1), present
+
+
+def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
+                    records, zero_counters, read_counters, maps_err):
+    """Phase 9: streaming at full width (see the module docstring)."""
+    import importlib
+
+    from eventad_tpu_torch.data.batching import EventBatch
+    from eventad_tpu_torch.models.detector import (detector_forward,
+                                                   detector_maps)
+    from eventad_tpu_torch.models.eventad import EventADConfig
+    from eventad_tpu_torch.ops import event_graph as egm
+    from eventad_tpu_torch.ops import spline_shift as ssm
+    from eventad_tpu_torch.streaming import detect as sdet
+    from eventad_tpu_torch.streaming import incremental as inc
+    from eventad_tpu_torch.streaming.evaluate import (
+        SyntheticStream, consistency_check, latency_bench,
+        latency_bench_incremental)
+    from eventad_tpu_torch.streaming.runner import insert_events
+    from eventad_tpu_torch.streaming.runner import make_stream_step
+    from eventad_tpu_torch.streaming.runner import \
+        update_image as dense_update_image
+    from eventad_tpu_torch.streaming.state import init_streaming_state
+
+    bb = importlib.import_module("eventad_tpu_torch.models.backbone")
+    cfg1 = cfg.replace(batch_size=1)
+    bc1 = bc._replace(batch_size=1)
+    bc1_32 = bc1._replace(compute_dtype="float32")
+    n_buf, k = STREAM_BUF, STREAM_CHUNK
+    ev = SyntheticStream(cfg1, k, 0, "cpu")
+    image = ev.image()
+    fill = [ev.chunk() for _ in range(n_buf // k)]
+    chunks = [ev.chunk() for _ in range(STREAM_STEPS + 1)]
+    boxes, present = stream_frames(cfg1, STREAM_STEPS)
+    ones = torch.ones((k,))
+    log(f"streaming: batch 1, {cfg1.model_width}x{cfg1.model_height}, "
+        f"ring {n_buf} events, chunks of {k}, {cfg1.img_net}, "
+        f"{bc1.compute_dtype} features, f32 head")
+
+    def stream(m, d, bcx, n_fill=len(fill)):
+        """The incremental stream on device ``d``: the image, ``n_fill``
+        chunks inserted raw, a refresh, then one step per frame."""
+        refresh, step = inc.make_incremental_step(m, bcx, mc, gsc,
+                                                  n_chunk=k, n_buf=n_buf)
+        st = inc.update_image(m, inc.init_incremental_state(
+            n_buf, bcx, mc, device=d), image.to(d))
+        for c in fill[:n_fill]:
+            st = inc.insert_raw(st, c.to(d), ones.to(d), k)
+        return refresh, step, refresh(st)
+
+    def steps(step, st, d):
+        logits = []
+        for c, bx, bp in zip(chunks, boxes, present):
+            st, lg = step(st, c.to(d), ones.to(d), k, bx.to(d), bp.to(d))
+            logits.append(lg)
+        return st, torch.stack(logits).cpu()
+
+    def recorded(mod, attr, fn):
+        """``fn()`` with the arguments of ``mod.<attr>`` recorded."""
+        calls, orig = [], getattr(mod, attr)
+
+        def rec(*a, **kw):
+            calls.append((a, kw))
+            return orig(*a, **kw)
+        setattr(mod, attr, rec)
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            setattr(mod, attr, orig)
+        return out, calls
+
+    # ---- 9.1 incremental scoring, bf16, against the port on the CPU ----
+    t0 = time.perf_counter()
+    refresh, step, st0 = stream(model, dev, bc1)
+    st, gpu_logits = steps(step, st0, dev)
+    _, cpu_step, cpu_st0 = stream(cpu_model, "cpu", bc1)
+    _, cpu_logits = steps(cpu_step, cpu_st0, "cpu")
+    valid, cpu_valid = ((x != 0).any(-1) for x in (gpu_logits, cpu_logits))
+    if not (torch.equal(valid, cpu_valid) and valid[-1].any()
+            and bool(torch.isfinite(gpu_logits).all())):
+        raise AssertionError("streaming: valid slots differ from the CPU "
+                             "run, none on the last step, or logits not "
+                             "finite")
+    d_stream = (gpu_logits - cpu_logits).abs().max().item()
+    log(f"streaming (bf16): {STREAM_STEPS} steps after the refresh, "
+        f"{int(valid.sum())} valid slots ({int(valid[-1].sum())} on the "
+        f"last); GPU vs CPU logits max abs diff {d_stream:.3g} (tolerance "
+        f"{LOGIT_TOL}); {time.perf_counter() - t0:.1f} s with the CPU run")
+    if not d_stream < LOGIT_TOL:
+        raise AssertionError(f"streaming logits differ from the CPU by "
+                             f"{d_stream}")
+
+    # ---- 9.2 f32 consistency: stream against batch, one window ----
+    cfg32 = cfg1.replace(compute_dtype="float32")
+    window = torch.cat(fill)
+    pol = torch.where(torch.rand(n_buf, generator=torch.Generator()
+                                 .manual_seed(3)) > 0.5, 1.0, -1.0)
+    diff, batch_logits, _ = consistency_check(
+        model, cfg32, window.numpy(), pol.numpy(), boxes[-1].numpy(),
+        present[-1].numpy(), n_chunks=4)
+    refresh32, step32 = inc.make_incremental_step(model, bc1_32, mc, gsc,
+                                                  n_chunk=k, n_buf=n_buf)
+    st32 = inc.update_image(model, inc.init_incremental_state(
+        n_buf, bc1_32, mc, device=dev), torch.zeros_like(image, device=dev))
+    st32 = refresh32(inc.insert_raw(st32, fill[0].to(dev),
+                                    pol[:k].to(dev), k))
+    for i in range(1, len(fill)):
+        st32 = step32.append(st32, fill[i].to(dev),
+                             pol[i * k:(i + 1) * k].to(dev), k)
+    _, inc_logits = step32.read_scores(st32, boxes[-1].to(dev),
+                                       present[-1].to(dev))
+    v = present[-1]
+    d_inc = (inc_logits.cpu()[v] - batch_logits[v]).abs().max().item()
+    log(f"streaming consistency (f32, one window of {n_buf} events, "
+        f"{int(v.sum())} boxes): dense stream (4 chunks) vs batch "
+        f"model_forward max abs diff {diff:.3g}, incremental (refresh + "
+        f"{len(fill) - 1} appends + read) vs batch {d_inc:.3g} (tolerance "
+        f"{F32_LOGIT_TOL})")
+    if not (diff < F32_LOGIT_TOL and d_inc < F32_LOGIT_TOL):
+        raise AssertionError("f32 stream differs from the batch path")
+
+    # ---- 9.3 launches, and K1-K4 at the streaming shapes ----
+    zero_counters()
+    st1 = step.append(st, chunks[-1].to(dev), ones.to(dev), k)
+    torch.cuda.synchronize()
+    per_append = read_counters({"event_graph_search": 1}, "one append")
+    zero_counters()
+    step.read_scores(st1, boxes[-1].to(dev), present[-1].to(dev))
+    torch.cuda.synchronize()
+    per_read = read_counters({"spline_shift_pooled": 8}, "one read_scores")
+    sst = dense_update_image(model, init_streaming_state(
+        n_buf, cfg1.max_boxes, cfg1.h_dim, device=dev), image.to(dev))
+    for c in fill:
+        sst = insert_events(sst, c.to(dev), ones.to(dev), k)
+    dense_step = make_stream_step(model, bc1, mc, gsc, n_chunk=k)
+
+    def dense_once():
+        return dense_step(sst, chunks[0].to(dev), ones.to(dev), k,
+                          boxes[0].to(dev), present[0].to(dev))
+    dense_once()
+    zero_counters()
+    dense_once()
+    torch.cuda.synchronize()
+    per_dense = read_counters(dict(event_graph_search=1, upsample_rows=1,
+                                   spline_fused_level0=2,
+                                   spline_shift_pooled=8),
+                              "one dense streaming step")
+    log(f"streaming launches: one append {per_append}, one read_scores "
+        f"{per_read}, one dense step (bf16) {per_dense}")
+
+    spec = {kk[0]: kk for kk in KERNELS}
+
+    def held(name, calls, launches, extra_bytes=0):
+        """Kernel ``name``'s wrapper on each recorded call, held against its
+        plain version (``compare``) and timed as in phase 3; the record of
+        the calls together, with their bound."""
+        mod = importlib.import_module(f"eventad_tpu_torch.ops."
+                                      f"{spec[name][1]}")
+        cuda_fn, plain_fn = (getattr(mod, f) for f in spec[name][2:4])
+        first = [t for x in calls[0][0]
+                 for t in (x if isinstance(x, (list, tuple)) else [x])]
+        r = dict(shapes=[list(t.shape) for t in first
+                         if isinstance(t, torch.Tensor)],
+                 ms=0.0, launch_ms=0.0, plain_ms=0.0, launches=launches,
+                 max_abs_err=0.0, library_ms=None)
+        nbytes, ops = 0, 0
+        for a, kw in calls:
+            got = cuda_fn(*a, **kw)
+            r["max_abs_err"] = max(r["max_abs_err"], compare(
+                name, got, plain_fn(*a, **kw)))
+            r["ms"] += median_ms(lambda: cuda_fn(*a, **kw))
+            r["launch_ms"] += launch_ms(mod, lambda: cuda_fn(*a, **kw))
+            r["plain_ms"] += median_ms(lambda: plain_fn(*a, **kw))
+            nbytes += BYTES.get(name, all_bytes)(a, kw, got) + extra_bytes
+            n_ops, peak = OPS[name](a, kw, got)
+            ops += n_ops
+        r["bound_ms"], r["bound_by"] = bound(nbytes, ops, peak)
+        return r
+
+    def timing(r):
+        return (f"kernel {r['ms']:.4f} ms, alone {r['launch_ms']:.4f}, plain "
+                f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} ms by "
+                f"{r['bound_by']}")
+
+    # K2 and K4 as the dense step calls them (batch 1, one item of n_buf
+    # rows, one image map)
+    (_, k4_calls), k2_calls = recorded(
+        importlib.import_module("eventad_tpu_torch.ops.spline_fused"),
+        "fused_two_block",
+        lambda: recorded(bb, "upsample_rows", dense_once))
+    k2_rec = held("spline_fused_level0", k2_calls,
+                  per_dense["spline_fused_level0"])
+    k4_rec = held("upsample_rows", k4_calls, per_dense["upsample_rows"])
+    lib = [upsample_library(a, importlib.import_module(
+        "eventad_tpu_torch.ops.upsample_flat").upsample_rows_plain(*a, **kw))
+        for a, kw in k4_calls]
+    k4_rec.update(library_ms=sum(x[1] for x in lib),
+                  library_launch_ms=sum(x[2] for x in lib),
+                  library_max_abs_diff=max(x[0] for x in lib))
+    for name, r, calls in (("spline_fused_level0", k2_rec, k2_calls),
+                           ("upsample_rows", k4_rec, k4_calls)):
+        log(f"{name}, the dense step's shapes: {len(calls)} call(s) a step,"
+            f" inputs {r['shapes']}; max abs err {r['max_abs_err']:.3g} "
+            f"(tolerance {KERNEL_TOL} of scale); per step: {timing(r)}")
+    log(f"upsample_rows, the dense step's shapes: F.grid_sample "
+        f"{k4_rec['library_ms']:.4f} ms, alone "
+        f"{k4_rec['library_launch_ms']:.4f}, max abs diff from the plain "
+        f"version {k4_rec['library_max_abs_diff']:.3g}")
+
+    # K1 as an append and as the refresh of a ring still filling call it
+    _, app_calls = recorded(inc, "build_graph_auto", lambda: step.append(
+        st, chunks[-1].to(dev), ones.to(dev), k))
+    _, fill_calls = recorded(inc, "build_graph_auto", lambda: stream(
+        model, dev, bc1, n_fill=len(fill) * 5 // 8))
+    k1_in = {}
+    for what, calls in (("append", app_calls), ("filling", fill_calls)):
+        (a, kw), = calls
+        kw = {n: x for n, x in kw.items() if n != "grid_wh"}
+        compare("event_graph_search", egm.build_graph_cuda(*a, **kw),
+                egm.build_graph(*a, **kw))
+        k1_in[what] = (a, kw)
+    a, kw = k1_in["append"]
+    # the inputs, the queue ranks the wrapper computes and the outputs
+    k1_rec = held("event_graph_search", [(a, kw)], 1,
+                  extra_bytes=a[1].numel() * 4)
+    fa, _ = k1_in["filling"]
+    n_invalid = int((~fa[1]).sum())
+    log(f"event_graph_search, streaming shapes: an append's tail "
+        f"{tuple(a[0].shape)} (absolute times, lookback {kw['lookback']}) "
+        f"and the refresh of a ring still filling {tuple(fa[0].shape)} "
+        f"({n_invalid} invalid rows first, t = 0): equal to the plain "
+        f"version exactly; per append: {timing(k1_rec)}")
+
+    # K3 in two reads: the same packs and static tables, each call held
+    # against its plain version
+    reads = [recorded(bb, "shift_spline_conv", lambda: step.read_scores(
+        st1, boxes[-1].to(dev), present[-1].to(dev)))[1] for _ in range(2)]
+    static = ("d_offs", "tap_mxy", "tap_ptr", "tap_slots", "tap_idx",
+              "win_mask")
+    for (a, kw), (a2, kw2) in zip(*reads):
+        if any(getattr(a[1], f) is not getattr(a2[1], f) for f in static):
+            raise AssertionError("K3 (read_scores): a static table was "
+                                 "made anew")
+        if any(x is not y for x, y in zip(a[2:], a2[2:])) \
+                or kw["pack"] is None or kw["pack"] is not kw2["pack"]:
+            raise AssertionError("K3 (read_scores): operands were packed "
+                                 "anew")
+    k3_rec = held("spline_shift_pooled", reads[0], 8)
+    log(f"spline_shift_pooled, streaming shapes: 8 calls per read_scores "
+        f"(first inputs {k3_rec['shapes']}), a second read reuses the "
+        f"static tables and the packs (same objects); max abs err "
+        f"{k3_rec['max_abs_err']:.3g}; per read: {timing(k3_rec)}")
+    extra = {"event_graph_search": ("streaming_append", k1_rec),
+             "spline_shift_pooled": ("streaming_read", k3_rec),
+             "spline_fused_level0": ("streaming_dense_step", k2_rec),
+             "upsample_rows": ("streaming_dense_step", k4_rec)}
+    for r in records:
+        if r["name"] in extra:
+            r[extra[r["name"]][0]] = extra[r["name"]][1]
+        if r["name"] in per_dense:
+            r["streaming_dense_step_launches"] = per_dense[r["name"]]
+
+    # ---- 9.4 detection read-out against the batch detector ----
+    def det_batch(d, win, img):
+        z = torch.zeros
+        return EventBatch(
+            pos=torch.cat(win)[None].to(d),
+            polarity=ones.repeat(len(win))[None].to(d),
+            valid=torch.ones((1, n_buf), dtype=torch.bool, device=d),
+            rank=None, image=img[None].to(d), boxes=z(1, 2, 1, 4),
+            box_present=z(1, 2, 1, dtype=torch.bool),
+            box_labels=z(1, 1, dtype=torch.int32),
+            bbox_mask=z(1, 1, dtype=torch.bool),
+            bbox0_mask=z(1, 1, dtype=torch.bool), bbox=z(1, 1, 6))
+    ev2 = SyntheticStream(cfg1, k, 1, "cpu")
+    image2 = ev2.image()
+    windows = {0: (fill, image),
+               1: ([ev2.chunk() for _ in range(n_buf // k)], image2)}
+    n_anchors = sum(nx * ny for nx, ny in bc1.grids[2:4])
+    det_ms = None
+    for name, bcx, tol, seed in (("bfloat16", bc1, MAP_TOL, 0),
+                                 ("bfloat16", bc1, MAP_TOL, 1),
+                                 ("float32", bc1_32, F32_MAP_TOL, 0)):
+        win, img = windows[seed]
+        d_refresh, d_append, read_det = sdet.make_incremental_detector(
+            detector, bcx, gsc, n_chunk=k, n_buf=n_buf)
+        dst = sdet.update_image_detector(detector, inc.init_incremental_state(
+            n_buf, bcx, EventADConfig(), device=dev), img.to(dev), bcx)
+        for c in win[:-3]:
+            dst = inc.insert_raw(dst, c.to(dev), ones.to(dev), k)
+        dst = d_refresh(dst)
+        for c in win[-3:]:
+            dst = d_append(dst, c.to(dev), ones.to(dev), k)
+        zero_counters()
+        (dets, decoded), dec_calls = recorded(sdet, "decode_detections",
+                                              lambda: read_det(dst))
+        seen = read_counters({"spline_shift_pooled": 8}
+                             if name == "bfloat16" else {},
+                             f"read_detections ({name})")
+        batch = det_batch(dev, win, img)
+        with torch.no_grad():
+            bmaps, _ = detector_maps(detector, batch, cfg1, bcx)
+        _, bdecoded = detector_forward(detector, batch, cfg1, bcx)
+        worst = maps_err(dec_calls[0][0][0], [tuple(m.cpu() for m in s)
+                                              for s in bmaps])
+        scale = bdecoded.abs().amax(dim=(0, 1)).clamp(min=1.0)
+        dec_err = ((decoded - bdecoded).abs().amax(dim=(0, 1)) / scale) \
+            .max().item()
+        shapes = {n: tuple(x.shape) for n, x in dets.items()}
+        if tuple(decoded.shape) != (1, n_anchors, 7) \
+                or not bool(torch.isfinite(decoded).all()) \
+                or shapes != dict(boxes=(1, 64, 4), scores=(1, 64),
+                                  labels=(1, 64), mask=(1, 64)):
+            raise AssertionError(f"read_detections ({name}): decoded "
+                                 f"{tuple(decoded.shape)}, {shapes}")
+        if det_ms is None:
+            ts = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                read_det(dst)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            det_ms = sorted(ts)[len(ts) // 2]
+        log(f"streaming detection ({name}, window of stream seed {seed}): "
+            f"refresh + 3 appends + read_detections vs detector_forward at "
+            f"batch 1 on the same window: maps max {worst:.3g} of scale, "
+            f"decoded max {dec_err:.3g} of each column's scale (tolerance "
+            f"{tol} for both); {int(dets['mask'].sum())} boxes kept of 64; "
+            f"launches {seen}")
+        if not (worst <= tol and dec_err <= tol):
+            raise AssertionError(f"streaming detection ({name}, seed {seed})"
+                                 f" differs from the batch detector")
+
+    # ---- 9.5 times ----
+    lat = latency_bench_incremental(model, cfg1, n_buf=n_buf, n_chunk=k,
+                                    iters=STREAM_ITERS)
+    dense = latency_bench(model, cfg1, n_buf=n_buf, n_chunk=k, iters=10)
+    res = subprocess.run(
+        [sys.executable, "-m", "eventad_tpu_torch.tools.profile_step",
+         "streaming"], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"profile_step streaming failed:\n"
+                             f"{res.stderr[-3000:]}")
+    prof = json.loads(res.stdout.strip().splitlines()[-1])
+    n_traced = prof["n_traced"]
+    times = dict(
+        step_p50_ms=lat["p50_ms"], step_p99_ms=lat["p99_ms"],
+        append_p50_ms=lat["append_p50_ms"], refresh_ms=lat["refresh_ms"],
+        read_scores_p50_ms=lat["device_read_ms"],
+        read_detections_p50_ms=det_ms,
+        append_many_ms_per_chunk=lat["device_append_scan_ms"],
+        step_many_ms_per_chunk=lat["device_step_scan_ms"],
+        dense_step_p50_ms=dense["p50_ms"],
+        traced_step_ms=prof["step_ms"],
+        device_busy_ms_per_step=prof["device_busy_ms_per_step"],
+        device_ops_per_step=prof["device_ops_per_step"],
+        device_busy_share=1.0 - prof["device_idle_share"])
+    log(f"streaming times on {smi} (bf16, {STREAM_ITERS} timed steps, one "
+        f"synchronise a call; busy share from a trace of {n_traced} "
+        f"steps in a fresh process): {json.dumps(times)}")
+    return times
 
 
 def main():
@@ -2009,6 +2422,10 @@ def main():
             f"64; launches per forward {seen}; detector_images_per_sec "
             f"{cfg.batch_size / dt_det} batch_ms {dt_det * 1e3} "
             f"({WARMUP} warm-up, {ITERS} timed, one synchronise) on {smi}")
+
+    # ---- 9. streaming at full width ----
+    streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
+                    records, zero_counters, read_counters, maps_err)
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

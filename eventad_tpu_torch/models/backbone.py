@@ -355,11 +355,21 @@ def apply_layer(layer: Layer, g: Graph, *, kernel_size: int, aggr: str,
 
 def backbone_forward(backbone: Backbone, g0: Graph,
                      image_feats: Optional[Sequence[torch.Tensor]],
-                     bc: BackboneConfig, *, training: bool = False):
+                     bc: BackboneConfig, *, training: bool = False,
+                     start_level: int = 0, end_level: int = 5,
+                     pos_src0: Optional[torch.Tensor] = None):
     """Runs the 5-level pyramid on the level-0 event graph (``g0.x`` the
     polarity ``[N, 1]``) with the 5 NHWC CNN maps (or None).  Returns
     ``(out3, out4)``, the graphs after layers 4 and 5 (net.py:165-184).
-    ``training``: BN by batch statistics in every layer."""
+    ``training``: BN by batch statistics in every layer.
+
+    ``start_level > 0`` resumes the pyramid from a cached intermediate (the
+    incremental streaming path): ``g0`` is then the output graph of level
+    ``start_level - 1`` with the next level's image features already
+    concatenated, and ``pos_src0 [N, K', 2]``, if given, are the neighbour
+    positions its first pooling reads (else the pooling reads them through
+    ``g0.nbr``).  ``end_level < 5`` stops early; with no output graph
+    reached, the last graph is returned alone."""
     dt = torch.bfloat16 if bc.compute_dtype == "bfloat16" else torch.float32
     g = g0._replace(x=g0.x.to(dt))
     # mirrors apply_layer's gate for pooled levels: a fused layer takes the
@@ -372,7 +382,7 @@ def backbone_forward(backbone: Backbone, g0: Graph,
     # the two upsampled maps serves both
     rows01 = None
     c0 = 0
-    if bc.use_image:
+    if bc.use_image and start_level == 0:
         c0 = image_feats[0].shape[-1]
         maps01 = [image_feats[0].to(dt), image_feats[1].to(dt)]
         if bc.bilinear_kernel:
@@ -396,7 +406,7 @@ def backbone_forward(backbone: Backbone, g0: Graph,
             return g
         if level == 0:
             f = rows01[:, :c0]
-        elif level == 1:
+        elif level == 1 and rows01 is not None:
             f = rows01[:, c0:]
         else:
             f = sample_image_features(image_feats[level], g.pos, g.batch,
@@ -409,15 +419,19 @@ def backbone_forward(backbone: Backbone, g0: Graph,
         return g._replace(x=torch.cat([g.x, rel.to(dt)], dim=1))
 
     outs = []
-    pos_nbr = None
-    for level in range(5):
+    pos_nbr = pos_src0
+    for level in range(start_level, end_level):
         pos_nbr_pre = None
         if level > 0:
             # the next level's CNN features are appended at the previous
             # level's node positions, then pooled (net.py:116-169)
-            g = cat_image(g, level)
+            if level > start_level:
+                g = cat_image(g, level)
             aggr = "mean" if level == 4 else bc.pooling_aggr   # net.py:94
-            s0 = g.nbr.shape[1] - pos_nbr.shape[1]
+            # after the level-0 self-edge fold pos_nbr has K-1 columns: the
+            # dropped slot 0 is the self edge, which pooling discards
+            s0 = (g.nbr.shape[1] - pos_nbr.shape[1]
+                  if pos_nbr is not None else 0)
             g = pool_graph(
                 g.x, g.pos, g.nbr[:, s0:], g.nbr_mask[:, s0:], g.node_mask,
                 g.batch, grid=bc.grids[level - 1], batch_size=bc.batch_size,
@@ -442,4 +456,6 @@ def backbone_forward(backbone: Backbone, g0: Graph,
             fused_shift=bc.fused_shift)
         if level >= 3:
             outs.append(g)
+    if end_level < 5 and not outs:
+        outs.append(g)
     return tuple(outs)

@@ -76,24 +76,41 @@ def pixel_index(pos: torch.Tensor, full_width: int, full_height: int):
     return xi, yi
 
 
+def upsample_align_corners(feat: torch.Tensor, full_width: int,
+                           full_height: int) -> torch.Tensor:
+    """Align-corners bilinear upsample of an NHWC map to the full sensor
+    resolution: two interpolation products in the map's dtype, W then H."""
+    hp, wp = feat.shape[1:3]
+    ay = torch.as_tensor(_interp_matrix(full_height, hp), dtype=feat.dtype,
+                         device=feat.device)
+    ax = torch.as_tensor(_interp_matrix(full_width, wp), dtype=feat.dtype,
+                         device=feat.device)
+    uw = torch.einsum("Ww,bhwc->bhWc", ax, feat)
+    return torch.einsum("Hh,bhWc->bHWc", ay, uw)
+
+
+def lookup_pixel_features(feat: torch.Tensor, pos: torch.Tensor,
+                          batch: torch.Tensor, node_mask: torch.Tensor,
+                          full_width: int,
+                          full_height: int) -> torch.Tensor:
+    """Row of a full-resolution NHWC map (``[B, full_height, full_width,
+    C]``) at each node's pixel (:func:`pixel_index`), zero outside
+    ``node_mask``."""
+    xi, yi = pixel_index(pos, full_width, full_height)
+    out = feat[batch.long(), yi, xi]
+    return torch.where(node_mask[:, None], out,
+                       torch.zeros((), dtype=out.dtype, device=out.device))
+
+
 def upsample_lookup(feats, pos: torch.Tensor, batch: torch.Tensor,
                     node_mask: torch.Tensor, full_width: int,
                     full_height: int, mask_rows: bool = True):
-    """Align-corners upsample of NHWC maps to full resolution (two
-    interpolation products in the maps' dtype, W then H) and the row of each
+    """:func:`upsample_align_corners` of NHWC maps and the row of each
     node's pixel, channel-concatenated over ``feats``."""
     xi, yi = pixel_index(pos, full_width, full_height)
     bi = batch.long()
-    rows = []
-    for f in feats:
-        hp, wp = f.shape[1:3]
-        ay = torch.as_tensor(_interp_matrix(full_height, hp), dtype=f.dtype,
-                             device=f.device)
-        ax = torch.as_tensor(_interp_matrix(full_width, wp), dtype=f.dtype,
-                             device=f.device)
-        uw = torch.einsum("Ww,bhwc->bhWc", ax, f)
-        up = torch.einsum("Hh,bhWc->bHWc", ay, uw)
-        rows.append(up[bi, yi, xi])
+    rows = [upsample_align_corners(f, full_width, full_height)[bi, yi, xi]
+            for f in feats]
     out = rows[0] if len(rows) == 1 else torch.cat(rows, dim=-1)
     if not mask_rows:
         return out

@@ -222,9 +222,16 @@ def build_graph_cuda(pos: torch.Tensor, valid: torch.Tensor, ranks=None, *,
 build_graph_cuda.launches = 0
 
 
-def build_graph_auto(pos, valid, ranks=None, **kw):
+def build_graph_auto(pos, valid, ranks=None, *, grid_wh=None, **kw):
     """Dispatch by device: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors.  ``grid_wh`` (the sensor's width and height,
+    which the TPU kernel packs into its keys) is accepted on both devices
+    and used by neither.  ``chunk`` and ``starts``, the TPU kernel's tiling
+    knobs, are dropped on the card; the plain version takes its own
+    ``chunk``."""
+    del grid_wh
     if pos.is_cuda:
+        kw.pop("chunk", None)
+        kw.pop("starts", None)
         return build_graph_cuda(pos, valid, ranks, **kw)
     return build_graph(pos, valid, ranks, **kw)

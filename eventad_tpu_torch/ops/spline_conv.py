@@ -123,19 +123,24 @@ def offset_attr(off: torch.Tensor, nbr_mask: torch.Tensor, max_value: float,
 def spline_conv(x: torch.Tensor, nbr: torch.Tensor, nbr_mask: torch.Tensor,
                 attr: torch.Tensor, conv: SplineConv, *, kernel_size: int,
                 aggr: str = "sum", node_mask: torch.Tensor = None,
-                x_j: torch.Tensor = None, attr_range=None,
+                x_dst: torch.Tensor = None, x_j: torch.Tensor = None,
+                attr_range=None,
                 add_center_to_root: bool = False) -> torch.Tensor:
-    """Spline convolution of ``x [N, Cin]`` over ``nbr/nbr_mask [N, K]``
-    with pseudo-coordinates ``attr [N, K, 2]``, computed in ``x.dtype``
-    (weights cast to it).
+    """Spline convolution of ``x [N, Cin]`` over ``nbr/nbr_mask [N_dst,
+    K]`` with pseudo-coordinates ``attr [N_dst, K, 2]``, computed in
+    ``x.dtype`` (weights cast to it); returns ``[N_dst, Cout]``.
 
-    ``x_j``: pre-gathered neighbour rows ``[N, K, Cin]``.  ``attr_range``:
-    static attr bounds; the contraction runs on the implied tap
-    sub-rectangle only (exact).  ``add_center_to_root``: the caller removed
-    the self edge (attr exactly 0.5, the centre tap with weight 1) and its
-    contribution ``x @ weight[centre]`` is added to the root product."""
+    ``x_dst``: the destination rows ``[N_dst, Cin]`` when they are a subset
+    of the gather source ``x`` (the incremental streaming path); default
+    ``x`` itself (``N_dst = N``).  ``x_j``: pre-gathered neighbour rows
+    ``[N_dst, K, Cin]``.  ``attr_range``: static attr bounds; the
+    contraction runs on the implied tap sub-rectangle only (exact).
+    ``add_center_to_root``: the caller removed the self edge (attr exactly
+    0.5, the centre tap with weight 1) and its contribution ``x_dst @
+    weight[centre]`` is added to the root product."""
     n, k = nbr.shape
     cin = x.shape[1]
+    xd = x if x_dst is None else x_dst
     dt = x.dtype
     if attr_range is None:
         ranges = ((0, kernel_size - 1), (0, kernel_size - 1))
@@ -162,7 +167,7 @@ def spline_conv(x: torch.Tensor, nbr: torch.Tensor, nbr_mask: torch.Tensor,
         if aggr != "sum":
             raise ValueError("the self-edge fold requires sum aggregation")
         root = root + weight[center_index(kernel_size)]
-    out = out + x @ root
+    out = out + xd @ root
     if conv.bias is not None:
         out = out + conv.bias.to(dt)
     if node_mask is not None:

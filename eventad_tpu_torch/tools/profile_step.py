@@ -4,6 +4,7 @@ forward spends its time on the GPU.
     python3 -m eventad_tpu_torch.tools.profile_step [float32|bfloat16 ...]
     python3 -m eventad_tpu_torch.tools.profile_step scoring [flavour ...]
     python3 -m eventad_tpu_torch.tools.profile_step detector [flavour ...]
+    python3 -m eventad_tpu_torch.tools.profile_step streaming
 
 At the reference operating point (batch 6, 360x240, 16 384 events per item,
 ResNet-50, random weights from seed 0), for each compute dtype named
@@ -30,6 +31,16 @@ times (graph, CNN, backbone, heads, decode + NMS), the whole forward
 untraced, and the trace of 3 forwards.  The detector's BN running statistics
 are first moved to one batch's by ten batch-statistics passes, since random
 weights on the initial statistics overflow the box decode.
+
+With ``streaming`` first, the incremental streaming step (append + score
+read, ``streaming.incremental``) at the root ``bench_streaming.py``'s
+operating point (batch 1, a ring of 16 384 events, chunks of 512, bf16):
+the step untraced (median of 9, one synchronise each) and a trace of 10
+steps, their chunks on the card before it starts;
+then, untraced in the same process, the medians of 9 ``append`` calls, 9
+``read_scores`` and 9 dense steps (``streaming.runner``, the whole backbone
+on the ring).  Run it in a process of its own: a trace late in a process
+may lose device events (``tools/trace_probe.py``).
 
 Prints the card's name and power limit first and one JSON line per dtype or
 flavour last.  Needs a CUDA device.
@@ -280,6 +291,76 @@ def profile_detector(flavour: str, smi: str) -> dict:
         **device_summary(traced_kernels(forward), batch_ms))
 
 
+def profile_streaming(smi: str, n_traced: int = 10) -> dict:
+    """The streaming mode (see the module docstring)."""
+    from ..streaming import incremental as inc
+    from ..streaming.evaluate import SyntheticStream, bench_boxes
+    from ..streaming.runner import (insert_events, make_stream_step,
+                                    update_image)
+    from ..streaming.state import init_streaming_state
+    dev = torch.device("cuda")
+    n_buf, n_chunk = 16384, 512
+    cfg = Config(batch_size=1, use_image=True, compute_dtype="bfloat16",
+                 event_buckets=(n_buf,))
+    model, bc, mc = init_model(cfg, torch.Generator().manual_seed(0), dev)
+    refresh, step = inc.make_incremental_step(
+        model, bc, mc, graph_static_config(cfg), n_chunk=n_chunk,
+        n_buf=n_buf)
+    ev = SyntheticStream(cfg, n_chunk, 0, dev)
+    st = inc.update_image(model, inc.init_incremental_state(
+        n_buf, bc, mc, device=dev), ev.image())
+    ones = torch.ones((n_chunk,), device=dev)
+    for _ in range(n_buf // n_chunk):
+        st = inc.insert_raw(st, ev.chunk(), ones, n_chunk)
+    st = refresh(st)
+    boxes, present = bench_boxes(cfg, 4, dev)
+    chunks = [ev.chunk() for _ in range(3 + 9 + n_traced)]
+
+    def one_step():
+        nonlocal st
+        st, logits = step(st, chunks.pop(0), ones, n_chunk, boxes, present)
+        return logits
+
+    for _ in range(3):
+        logits = one_step()
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError("the logits are not finite")
+    ts = timed_ms(one_step)
+    step_ms = _median(ts)
+    device = device_summary(traced_kernels(one_step, n_traced), step_ms)
+
+    # untraced, the parts and the dense step beside it; every timed call
+    # takes a chunk made before the clock starts
+    more = [ev.chunk() for _ in range(9)]
+
+    def one_append():
+        nonlocal st
+        st = step.append(st, more.pop(0), ones, n_chunk)
+    append_ms = _median(timed_ms(one_append))
+    read_ms = _median(timed_ms(lambda: step.read_scores(st, boxes,
+                                                        present)))
+    sst = update_image(model, init_streaming_state(
+        n_buf, cfg.max_boxes, cfg.h_dim, device=dev), ev.image())
+    for _ in range(n_buf // n_chunk):
+        sst = insert_events(sst, ev.chunk(), ones, n_chunk)
+    dense_step = make_stream_step(model, bc, mc, graph_static_config(cfg),
+                                  n_chunk=n_chunk)
+    more = [ev.chunk() for _ in range(3 + 9)]
+
+    def one_dense():
+        nonlocal sst
+        sst, logits = dense_step(sst, more.pop(0), ones, n_chunk, boxes,
+                                 present)
+        return logits
+    for _ in range(3):
+        one_dense()
+    dense_ms = _median(timed_ms(one_dense))
+    return dict(mode="streaming", dtype="bfloat16", card=smi,
+                n_buf=n_buf, events_per_chunk=n_chunk, step_ms=step_ms,
+                step_ms_all=ts, n_traced=n_traced, append_ms=append_ms,
+                read_scores_ms=read_ms, dense_step_ms=dense_ms, **device)
+
+
 def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
@@ -293,6 +374,9 @@ def main(argv=None):
     if argv[:1] == ["scoring"]:
         for flavour in argv[1:] or ["base"]:
             print(json.dumps(profile_scoring(flavour, smi)), flush=True)
+        return
+    if argv[:1] == ["streaming"]:
+        print(json.dumps(profile_streaming(smi)), flush=True)
         return
     if argv[:1] == ["detector"]:
         for flavour in argv[1:] or ["default", "base+bilinear"]:
