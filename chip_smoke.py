@@ -125,6 +125,26 @@ exits non-zero without printing a result:
    power limit.  K1's and K3's records gain ``streaming_append`` /
    ``streaming_read``, K2's and K4's ``streaming_dense_step`` and K1-K4's
    ``streaming_dense_step_launches``.
+10. Detector training (``train_detector.make_detector_train_step``: the
+   forward to the decoded outputs in training mode, no NMS, the simOTA
+   loss, the backward through the backbone and the ResNet, the clipped
+   AdamW on the YOLOX schedule, the EMA) at the same operating point, a
+   detector from seed 0.  The first f32 step on the card against the same
+   step on the CPU: every loss component within 1e-4 relative, every
+   gradient leaf within 1e-3 of its scale (5e-2 behind a max-pooling near
+   tie, where f32 rounding picks the entry the cotangent goes to), the
+   running statistics within 1e-3; the first bf16 step's loss within 2 %
+   of the CPU's.  One f32 step launches K1 once, K6a twice and K6b four
+   times (two calls) and no other kernel; K6b at that step's cotangents
+   equals ``index_add_`` within 1e-5 of scale, bit-identical twice, timed
+   beside it and its bound (K6b's record takes these as its own figures,
+   the phase-5 check's as ``check_*``).  Five steps a dtype on one batch
+   from a fresh optimizer (warm-up of one step) must give finite, falling
+   losses, five EMA updates, f32 master weights, EMA and statistics; the
+   bf16 EMA weights are evaluated (mAP, not gated) with K1-K4's launches
+   counted; step ms, items/s and peak memory per dtype, and the device's
+   busy share from ``tools.profile_step detector_train`` in a fresh
+   process per dtype.  Every record gains ``train_step_launches``.
 
 Each kernel's record also holds ``bound_ms``, the least time the card could
 take for the same work: the larger of its bytes (every input read once,
@@ -1277,6 +1297,362 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
     return times
 
 
+# phase 10: detector training (``train_detector``) at the operating point
+TRAIN_DET_STEPS = 5
+TRAIN_DET_LOSS_TOL = 1e-4   # relative, the f32 first step's losses vs CPU
+# relative, the bf16 first step's loss on the card vs the CPU's: bf16
+# rounds the detector's maps by up to 0.1 of their scale between the two
+# (phase 8), and simOTA's discrete assignment passes that on to the loss
+# (the reference's own bf16 test holds the first steps to 1 % of f32 at
+# its small geometry, later ones to 25 %)
+TRAIN_DET_BF16_BAND = 0.05
+BN_STATE_TOL = 1e-3         # of each running statistic's scale (>= 1)
+GRAD_SCALE_FLOOR = 1e-5     # a leaf's scale at least this: a bias that a
+                            # batch-statistics BN follows has gradient 0
+# A max-pooling cell whose two largest entries of a channel lie within
+# NEAR_TIE of each other (relative) routes its cotangent to whichever the
+# rounding makes the larger, and the card's convolutions round otherwise
+# than the CPU's: the leaves behind such a cell (the backbone layers below
+# it, the image remaps pooled into it and the ResNet trunk under them)
+# move by a few hundredths of their scale when a route flips and are held
+# to NEAR_TIE_TOL (as in tests/test_torch_train_detector.py), the others
+# (the upper levels, the heads) to HEAD_GRAD_TOL.  The whole gradient's
+# relative distance is printed beside them.
+NEAR_TIE = 2e-5
+NEAR_TIE_TOL = 5e-2
+TRAIN_EVAL_BATCHES = 2
+
+
+def detector_training_phase(dev, smi, records, counters):
+    """Phase 10: detector training at full width (see the module
+    docstring).  ``counters``: every kernel wrapper's launch counter by
+    record name."""
+    from eventad_tpu_torch.config import Config
+    from eventad_tpu_torch.data.synthetic import (make_synthetic_batch,
+                                                  synthetic_loader)
+    from eventad_tpu_torch.models import backbone as bb
+    from eventad_tpu_torch.models import detector as tdet
+    from eventad_tpu_torch.ops import gather_window as gw
+    from eventad_tpu_torch.ops.pooling import max_pool_margin
+    from eventad_tpu_torch.test_detector import detection_metrics
+    from eventad_tpu_torch.train_detector import (anchor_geometry,
+                                                  make_detector_train_step)
+    from eventad_tpu_torch.utils.ema import ema_init, ema_weights
+    from eventad_tpu_torch.utils.schedules import (make_detector_optimizer,
+                                                   yolox_schedule)
+
+    counters = dict(counters, scatter_window_rows=gw.scatter_window_rows_cuda)
+    cfg32 = Config(**dict(OP_POINT, compute_dtype="float32"))
+    cfg16 = Config(**OP_POINT)
+    cpu_batch = make_synthetic_batch(cfg32, seed=0,
+                                     boxes_per_item=BOXES_PER_ITEM)
+    batch = cpu_batch.to(dev)
+
+    def trainer(cfg, device, total_steps):
+        """A detector from seed 0 with the root script's optimizer (its
+        schedule warming up over one step), EMA and training step."""
+        det, bcx = tdet.init_detector(
+            cfg, torch.Generator().manual_seed(0), device)
+        opt = make_detector_optimizer(
+            det.parameters(), cfg.optimizer,
+            yolox_schedule(cfg.lr, warmup_steps=1, total_steps=total_steps),
+            cfg.weight_decay, cfg.clip)
+        step = make_detector_train_step(det, cfg, bcx, opt,
+                                        anchor_geometry(bcx, device))
+        return det, bcx, opt, step, ema_init(det.parameters())
+
+    def first_step(cfg, device, b):
+        """One step; the gradients before the clip scales them, the
+        losses, the detector, and (on the card) the poolings' inputs."""
+        det, bcx, opt, step, ema = trainer(cfg, device, TRAIN_DET_STEPS)
+        grads, pools, update = [], [], opt.step
+
+        def keep():
+            grads.extend(p.grad.detach().clone() if p.grad is not None
+                         else torch.zeros_like(p) for p in opt.params)
+            update()
+        opt.step = keep
+        pool_graph = bb.pool_graph
+
+        def recorded_pool(x, pos, nbr, nbr_mask, node_mask, batch_ids,
+                          **kw):
+            pools.append((x.detach(), pos, node_mask, batch_ids, kw))
+            return pool_graph(x, pos, nbr, nbr_mask, node_mask, batch_ids,
+                              **kw)
+        bb.pool_graph = recorded_pool
+        try:
+            ema, losses = step(b, ema)
+        finally:
+            bb.pool_graph = pool_graph
+        return det, grads, {k: float(v) for k, v in losses.items()}, pools
+
+    def refuse_nms(*a, **kw):
+        raise AssertionError("a training step ran the NMS")
+    postprocess, tdet.postprocess = tdet.postprocess, refuse_nms
+    try:
+        # ---- 10.1 the first step against the port's CPU run ----
+        t0 = time.perf_counter()
+        det_c, grads_c, loss_c, _ = first_step(cfg32, "cpu", cpu_batch)
+        cpu_s = time.perf_counter() - t0
+        det_g, grads_g, loss_g, pools = first_step(cfg32, dev, batch)
+        torch.cuda.synchronize()
+        for k, v in loss_c.items():
+            if not abs(loss_g[k] - v) <= TRAIN_DET_LOSS_TOL * max(abs(v),
+                                                                  1.0):
+                raise AssertionError(f"detector training: first-step {k} "
+                                     f"{loss_g[k]} on the card, {v} on "
+                                     f"the CPU")
+        tied = [lv for lv, (x, pos, nm, bid, kw) in enumerate(pools, 1)
+                if kw["aggr"] == "max" and max_pool_margin(
+                    x, pos, nm, bid, grid=kw["grid"],
+                    batch_size=kw["batch_size"]) < NEAR_TIE]
+        top = max(tied, default=0)
+        behind = tuple(f"dagr.backbone.layers.{i}." for i in range(top)) \
+            + tuple(f"dagr.cnn.feature_{wb}.{i}" for i in range(top + 1)
+                    for wb in "wb") \
+            + (("dagr.cnn.conv1", "dagr.cnn.bn1", "dagr.cnn.layers.")
+               if top else ())
+        names = [n for n, _ in det_g.named_parameters()]
+        worst = {False: (0.0, ""), True: (0.0, "")}
+        diff2 = norm2 = 0.0
+        for name, g, c in zip(names, grads_g, grads_c):
+            c = c.to(dev)
+            err = ((g - c).abs().max() / max(c.abs().max().item(),
+                                             GRAD_SCALE_FLOOR)).item()
+            loose = name.startswith(behind)
+            worst[loose] = max(worst[loose], (err, name))
+            diff2 += float(((g - c) ** 2).sum())
+            norm2 += float((c ** 2).sum())
+        log(f"detector training: first f32 step, gradients: strict worst "
+            f"{worst[False]}, behind near ties at {tied} worst "
+            f"{worst[True]}, whole {(diff2 / norm2) ** 0.5:.3g} of its norm")
+        if not worst[False][0] <= HEAD_GRAD_TOL \
+                or not worst[True][0] <= NEAR_TIE_TOL:
+            raise AssertionError(f"detector training: first-step gradients "
+                                 f"differ from the CPU's: {worst}")
+        bn_err = max((((a - b.to(dev)).abs().max()
+                       / max(b.abs().max().item(), 1.0)).item(), n)
+                     for (n, a), b in zip(det_g.named_buffers(),
+                                          det_c.buffers()))
+        if not bn_err[0] <= BN_STATE_TOL:
+            raise AssertionError(f"detector training: running statistics "
+                                 f"after one step differ: {bn_err}")
+        det16_c, _, loss16_c, _ = first_step(cfg16, "cpu", cpu_batch)
+        det16_g, _, loss16_g, _ = first_step(cfg16, dev, batch)
+        band16 = abs(loss16_g["total"] - loss16_c["total"]) \
+            / abs(loss16_c["total"])
+        log(f"detector training: first bfloat16 step, losses on the card "
+            f"{loss16_g}, on the CPU {loss16_c}")
+        if not band16 <= TRAIN_DET_BF16_BAND:
+            raise AssertionError(f"detector training: bf16 first-step loss "
+                                 f"{loss16_g['total']} on the card, "
+                                 f"{loss16_c['total']} on the CPU")
+        log(f"detector training: first step (float32) on the card vs the "
+            f"CPU (CPU step {cpu_s:.1f} s): losses {loss_g} vs {loss_c} "
+            f"(tolerance {TRAIN_DET_LOSS_TOL} relative); "
+            f"{len(grads_g)} gradient leaves, worst {worst[False][0]:.3g} "
+            f"of its scale ({worst[False][1]}; tolerance {HEAD_GRAD_TOL}); "
+            f"max-pooling near ties (< {NEAR_TIE}) at levels {tied}, the "
+            f"{sum(n.startswith(behind) for n in names)} leaves behind them "
+            f"worst {worst[True][0]:.3g} ({worst[True][1]}; tolerance "
+            f"{NEAR_TIE_TOL}); the whole gradient "
+            f"{(diff2 / norm2) ** 0.5:.3g} of its norm; running statistics "
+            f"worst {bn_err[0]:.3g} of scale ({bn_err[1]}; tolerance "
+            f"{BN_STATE_TOL}); bfloat16 loss "
+            f"{loss16_g['total']:.6g} vs the CPU's {loss16_c['total']:.6g} "
+            f"({band16:.3g} relative, band {TRAIN_DET_BF16_BAND})")
+        del det_c, grads_c, grads_g, pools, det16_c, det16_g
+
+        # ---- 10.2 launches of one f32 step; K6b at its shapes ----
+        det, bc32, opt, step, ema = trainer(cfg32, dev, TRAIN_DET_STEPS)
+        ema, _ = step(batch, ema)
+        # the backward's scatter calls, recorded at their call site
+        recorded, dispatch = [], gw.scatter_window_rows
+
+        def recorded_scatter(*a, **kw):
+            recorded.append((a, kw))
+            return dispatch(*a, **kw)
+        for fn in counters.values():
+            fn.launches = 0
+        gw.scatter_window_rows = recorded_scatter
+        try:
+            ema, _ = step(batch, ema)
+            torch.cuda.synchronize()
+        finally:
+            gw.scatter_window_rows = dispatch
+        step_seen = {n: fn.launches for n, fn in counters.items()
+                     if fn.launches}
+        expect = dict(event_graph_search=1, gather_window_rows=2,
+                      scatter_window_rows=4)
+        if step_seen != expect:
+            raise AssertionError(f"one f32 training step launched "
+                                 f"{step_seen}, expected {expect}")
+        del det, opt, step, ema
+    finally:
+        tdet.postprocess = postprocess
+
+    k6b = dict(ms=0.0, launch_ms=0.0, plain_ms=0.0, library_ms=0.0,
+               library_launch_ms=0.0, max_abs_err=0.0)
+    k6b_bytes = k6b_ops = 0
+    widths = []
+    scatter = gw.scatter_window_rows_cuda
+    for (g, nbr, mask, n_src), kw in recorded:
+        c = g.shape[2]
+        widths.append(c)
+        got = scatter(g, nbr, mask, n_src, **kw)
+        if not torch.equal(got, scatter(g, nbr, mask, n_src, **kw)):
+            raise AssertionError("scatter_window_rows: two runs differ at "
+                                 "the training step's shapes")
+        want = gw.scatter_window_rows_plain(g, nbr, mask, n_src)
+        err = (got - want).abs().max().item()
+        if not err <= SCATTER_TOL * (want.abs().max().item() + 1e-12):
+            raise AssertionError(f"scatter_window_rows at the training "
+                                 f"step's shapes: max abs err {err}")
+        k6b["max_abs_err"] = max(k6b["max_abs_err"], err)
+        k6b["ms"] += median_ms(lambda: scatter(g, nbr, mask, n_src, **kw))
+        k6b["launch_ms"] += launch_ms(gw, lambda: scatter(g, nbr, mask,
+                                                          n_src, **kw))
+        k6b["plain_ms"] += median_ms(
+            lambda: gw.scatter_window_rows_plain(g, nbr, mask, n_src))
+        flat_idx = torch.where(mask, nbr, 0).long().reshape(-1)
+        gm = torch.where(mask[..., None], g, 0.0).reshape(-1, c)
+
+        def index_add():
+            return torch.zeros((n_src, c), device=dev).index_add_(
+                0, flat_idx, gm)
+        k6b["library_ms"] += median_ms(index_add)
+        k6b["library_launch_ms"] += graph_ms(index_add)
+        edges = int(mask.sum())
+        k6b_bytes += (tensor_bytes(mask) + edges * nbr.element_size()
+                      + edges * c * g.element_size()
+                      + n_src * c * got.element_size())
+        k6b_ops += edges * c
+        del gm, flat_idx
+    k6b["bound_ms"], k6b["bound_by"] = bound(k6b_bytes, k6b_ops, PEAK_F32)
+    shapes = [tuple(a[0].shape) for a, _ in recorded]
+    log(f"detector training: one f32 step launched {step_seen} (no other "
+        f"kernel, no NMS); K6b at the step's cotangents {shapes} "
+        f"(level-0 widths {widths}, at most 128): bit-identical twice, max "
+        f"abs err vs index_add_ {k6b['max_abs_err']:.3g}; kernel "
+        f"{k6b['ms']:.4f} ms (launches alone {k6b['launch_ms']:.4f}), "
+        f"plain {k6b['plain_ms']:.4f}, index_add_ {k6b['library_ms']:.4f} "
+        f"(alone {k6b['library_launch_ms']:.4f}), bound "
+        f"{k6b['bound_ms']:.5f} ms by {k6b['bound_by']} ({k6b_bytes} bytes, "
+        f"{k6b_ops} additions) for both calls")
+    del recorded
+
+    # ---- 10.3 five steps a dtype on one batch, timed ----
+    times = {}
+    for cfg in (cfg32, cfg16):
+        dt = cfg.compute_dtype
+        det, bcx, opt, step, ema = trainer(cfg, dev, TRAIN_DET_STEPS)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ts, scatters = [], [], []
+
+        def scatter_widths(g, *a, **kw):
+            scatters.append((g.shape[-1], g.dtype))
+            return dispatch(g, *a, **kw)
+        for i in range(TRAIN_DET_STEPS):
+            gw.scatter_window_rows = scatter_widths if i == 0 else dispatch
+            t0 = time.perf_counter()
+            try:
+                ema, out = step(batch, ema)
+                torch.cuda.synchronize()
+            finally:
+                gw.scatter_window_rows = dispatch
+            ts.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(out["total"]))
+        peak = torch.cuda.max_memory_allocated()
+        if len(scatters) != 2 or max(c for c, _ in scatters) > 128:
+            raise AssertionError(f"detector training ({dt}): K6b calls "
+                                 f"(width, dtype) {scatters}")
+        if not (all(x == x and abs(x) != float("inf") for x in losses)
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"detector training ({dt}): losses "
+                                 f"{losses} not finite and falling")
+        if ema.updates != TRAIN_DET_STEPS or opt.count != TRAIN_DET_STEPS:
+            raise AssertionError(f"EMA updates {ema.updates}, optimizer "
+                                 f"updates {opt.count}")
+        kept = [t.dtype for t in list(det.parameters())
+                + list(det.buffers()) + ema.params]
+        if any(t != torch.float32 for t in kept):
+            raise AssertionError(f"detector training ({dt}): master "
+                                 f"weights, EMA or BN statistics not f32")
+        med = sorted(ts)[len(ts) // 2]
+        times[dt] = dict(losses=losses, step_ms=med, step_ms_all=ts,
+                         items_per_sec=cfg.batch_size / med * 1e3,
+                         peak_memory_bytes=peak,
+                         step_memory_bytes=peak - held)
+        log(f"detector training ({dt}): {TRAIN_DET_STEPS} steps on one "
+            f"batch, losses {losses} (falling); K6b's cotangents (width, "
+            f"dtype) {scatters}; EMA updates {ema.updates}; "
+            f"master weights, EMA and BN statistics f32; step ms {ts}")
+
+        # ---- 10.4 the EMA weights evaluated (mAP, not gated) ----
+        if dt == "bfloat16":
+            loader = synthetic_loader(cfg, TRAIN_EVAL_BATCHES, seed=100,
+                                      boxes_per_item=BOXES_PER_ITEM)
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            with torch.no_grad(), ema_weights(det.parameters(), ema):
+                metrics = detection_metrics(det, loader, cfg, bcx, dev)
+            eval_s = time.perf_counter() - t0
+            seen = {n: fn.launches for n, fn in counters.items()
+                    if fn.launches}
+            n = TRAIN_EVAL_BATCHES
+            expect = dict(event_graph_search=n, spline_fused_level0=2 * n,
+                          spline_shift_pooled=8 * n, upsample_rows=n)
+            if seen != expect:
+                raise AssertionError(f"the bf16 EMA evaluation launched "
+                                     f"{seen}, expected {expect}")
+            log(f"detector training: the EMA weights (bf16 eval, live "
+                f"running statistics) over {n} batches: mAP "
+                f"{metrics['mAP']:.4f}, mAP@50 {metrics['mAP_50']:.4f} "
+                f"({eval_s:.1f} s); launches {seen}")
+        del det, opt, step, ema
+
+    # ---- 10.5 the device's share, a fresh process per dtype ----
+    for dt in ("float32", "bfloat16"):
+        res = subprocess.run(
+            [sys.executable, "-m", "eventad_tpu_torch.tools.profile_step",
+             "detector_train", dt], cwd=Path(__file__).resolve().parent,
+            capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"profile_step detector_train {dt} failed:"
+                                 f"\n{res.stderr[-3000:]}")
+        prof = json.loads(res.stdout.strip().splitlines()[-1])
+        times[dt].update(
+            profiled_step_ms=prof["step_ms"],
+            profiled_peak_memory_bytes=prof["peak_memory_bytes"],
+            device_busy_ms_per_step=prof["device_busy_ms_per_step"],
+            device_ops_per_step=prof["device_ops_per_step"],
+            device_idle_share=prof["device_idle_share"],
+            top_kernels=prof["top_kernels"][:5])
+    log(f"detector training times on {smi} (batch {cfg32.batch_size}, "
+        f"{cfg32.event_buckets[0]} events an item, {cfg32.img_net}; step ms "
+        f"the median of {TRAIN_DET_STEPS}, one "
+        f"synchronise a step; device figures from a trace of 3 steps in a "
+        f"fresh process): {json.dumps(times)}")
+
+    by_name = {r["name"]: r for r in records}
+    train_launches = dict(event_graph_search=1, gather_window_rows=2,
+                          scatter_window_rows=4)
+    for name, r in by_name.items():
+        r["train_step_launches"] = train_launches.get(name, 0)
+    r = by_name["scatter_window_rows"]
+    # the level-0 gradient check of phase 5 keeps its figures as check_*;
+    # the record's own are the training step's, the kernel's system path
+    for key in ("ms", "launch_ms", "plain_ms", "library_ms",
+                "library_launch_ms", "bound_ms", "bound_by", "max_abs_err"):
+        r["check_" + key] = r[key]
+        r[key] = k6b[key]
+    r["launches"] = step_seen["scatter_window_rows"]
+    return times
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke run needs "
@@ -2426,6 +2802,10 @@ def main():
     # ---- 9. streaming at full width ----
     streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
                     records, zero_counters, read_counters, maps_err)
+    del detector, cpu_detector
+
+    # ---- 10. detector training at full width ----
+    detector_training_phase(dev, smi, records, all_counters)
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 ``eventad_tpu.config.Config`` without jax or yaml.
 
 Only the fields the port reads are carried (the scoring forward, head
-training, evaluation, detection serving), with the same names and defaults (reference dagr-S /
+training, evaluation, detection serving and training), with the same names
+and defaults (reference dagr-S /
 EventAD values, ``eventad_tpu/config/defaults.py``).  ``parse_args`` gives
 the same ``--field value`` command line, without the YAML overlay.
 """
@@ -54,6 +55,18 @@ class Config:
     lr_patience: int = 5
     min_lr: float = 1e-6
     seed: int = 42
+
+    # ---- detector training (reference dagr-S optimisation, train_detector
+    # of the JAX package; ``clip`` is DAGR's global-norm clip, not the
+    # head's ``grad_clip``) ----
+    clip: float = 0.1
+    optimizer: str = "adam"          # "sgd", else AdamW
+    lr: float = 0.003
+    lr_scheduler: str = "cosine"     # the detector's is warm-up + cosine
+    no_aug_epochs: int = 0           # final epochs with the L1 branch on
+    # the port's entry modules read in-memory synthetic batches whatever
+    # this says: the on-disk loader is not ported yet
+    synthetic_data: bool = False
 
     # ---- experiment / test (reference test.py:113-129) ----
     experiment_name: str = "eventad_dagr_experiment"

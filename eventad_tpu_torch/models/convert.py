@@ -5,7 +5,9 @@ convert.py`` writes (``export_backbone``, ``export_cnn_branch``,
 writes them back (``export_reference_state``), so one checkpoint format
 serves both packages.  ``load_detector_state`` fills the port's detector
 from the reference package's detector parameters and state, handed over as
-nested containers of numpy arrays.
+nested containers of numpy arrays, and ``export_detector_state`` /
+``export_detector_grads`` give the detector's parameters, running
+statistics and gradients back in that layout.
 
 Layouts: torch conv weights OIHW (kept as they are); torch Linear ``[O, I]``
 -> ``[I, O]``; GRU ``[3H, In]`` -> ``[In, 3H]``; spline kernels
@@ -13,6 +15,7 @@ Layouts: torch conv weights OIHW (kept as they are); torch Linear ``[O, I]``
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, Mapping
 
 import numpy as np
@@ -127,8 +130,9 @@ def load_reference_state(model: EventADModel,
 # the inverse: the port's modules -> reference-format state dicts
 # ---------------------------------------------------------------------------
 def _np(t: torch.Tensor, transpose: bool = False) -> np.ndarray:
+    # a copy: a CPU tensor's numpy() shares its storage
     a = t.detach().cpu().numpy()
-    return np.ascontiguousarray(a.T if transpose else a)
+    return np.array(a.T if transpose else a, order="C", copy=True)
 
 
 def _export_bn(out: dict, bn: BatchNorm, key: str):
@@ -328,3 +332,130 @@ def load_detector_state(detector, params, state):
                 _copy(m.weight, _oihw(sp[conv]["w"]), name)
                 _copy(m.bias, sp[conv]["b"], name)
     return detector
+
+
+# ---------------------------------------------------------------------------
+# the inverse for the detector: the port's modules -> the reference
+# package's DetectorParams / DetectorState layout
+# ---------------------------------------------------------------------------
+def _hwio(w: np.ndarray) -> np.ndarray:
+    """A conv kernel in the port's OIHW layout as HWIO."""
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+
+
+def _detector_tree(detector, param, buffer):
+    """``(params, state)`` of ``detector`` in the reference package's
+    layout: its named tuples as ``SimpleNamespace``s (the same field
+    names), its dicts as dicts, its tuples and lists as lists; the leaves
+    ``param(p)`` of every parameter, ``buffer(b)`` of every running
+    statistic.  Conv kernels of the image branch and the CNN head go from
+    OIHW to HWIO; spline kernels, roots and linear maps are verbatim."""
+    ns = SimpleNamespace
+
+    def bn_p(bn):
+        return ns(scale=param(bn.scale), offset=param(bn.offset))
+
+    def bn_s(bn):
+        return ns(mean=buffer(bn.mean), var=buffer(bn.var))
+
+    def bn_pd(bn):
+        return {"scale": param(bn.scale), "offset": param(bn.offset)}
+
+    def bn_sd(bn):
+        return {"mean": buffer(bn.mean), "var": buffer(bn.var)}
+
+    def spline(conv):
+        return ns(weight=param(conv.weight), root=param(conv.root),
+                  bias=None if conv.bias is None else param(conv.bias))
+
+    def conv_w(w):
+        return _hwio(param(w))
+
+    layers_p, layers_s = [], []
+    for layer in detector.dagr.backbone.layers:
+        b1, b2 = layer.block1, layer.block2
+        layers_p.append(ns(
+            block1=ns(conv=spline(b1.conv), bn=bn_p(b1.bn)),
+            block2=ns(conv=spline(b2.conv), bn=bn_p(b2.bn)),
+            skip_lin=param(layer.skip_lin),
+            skip_lin_bias=param(layer.skip_lin_bias),
+            skip_bn=bn_p(layer.skip_bn)))
+        layers_s.append(ns(block1=ns(bn=bn_s(b1.bn)),
+                           block2=ns(bn=bn_s(b2.bn)),
+                           skip_bn=bn_s(layer.skip_bn)))
+    cnn_p = cnn_s = None
+    cnn = detector.dagr.cnn
+    if cnn is not None:
+        resnet = {"conv1": conv_w(cnn.conv1), "bn1": bn_pd(cnn.bn1)}
+        cnn_s = {"bn1": bn_sd(cnn.bn1)}
+        for li, layer in enumerate(cnn.layers, start=1):
+            blocks_p, blocks_s = [], []
+            for blk in layer:
+                bp, bs = {}, {}
+                for ci, (w, bn) in enumerate(zip(blk.convs, blk.bns),
+                                             start=1):
+                    bp[f"c{ci}"] = conv_w(w)
+                    bp[f"b{ci}"] = bn_pd(bn)
+                    bs[f"b{ci}"] = bn_sd(bn)
+                if blk.down is not None:
+                    bp["down"] = conv_w(blk.down)
+                    bp["down_bn"] = bn_pd(blk.down_bn)
+                    bs["down_bn"] = bn_sd(blk.down_bn)
+                blocks_p.append(bp)
+                blocks_s.append(bs)
+            resnet[f"layer{li}"] = blocks_p
+            cnn_s[f"layer{li}"] = blocks_s
+        cnn_p = {"resnet": resnet}
+        for key, ws, bs in (("feature_dconv", cnn.feature_w, cnn.feature_b),
+                            ("output_dconv", cnn.output_w, cnn.output_b)):
+            cnn_p[key] = [{"w": conv_w(w), "b": param(b)}
+                          for w, b in zip(ws, bs)]
+
+    head = detector.head
+    scales_p, scales_s = [], []
+    for sc in head.scales:
+        blocks = ("stem", "cls_conv", "reg_conv")
+        scales_p.append(ns(
+            **{k: ns(conv=spline(getattr(sc, k).conv),
+                     bn=bn_p(getattr(sc, k).bn)) for k in blocks},
+            **{k: spline(getattr(sc, k))
+               for k in ("cls_pred", "reg_pred", "obj_pred")}))
+        scales_s.append(ns(**{k: ns(bn=bn_s(getattr(sc, k).bn))
+                              for k in blocks}))
+    hcnn_p = hcnn_s = None
+    if head.cnn is not None:
+        hcnn_p, hcnn_s = {"scales": []}, {"scales": []}
+        for sc in head.cnn.scales:
+            blocks = ("stem", "cls1", "cls2", "reg1", "reg2")
+            hcnn_p["scales"].append({
+                **{k: {"w": conv_w(getattr(sc, k).weight),
+                       "bn": bn_pd(getattr(sc, k).bn)} for k in blocks},
+                **{k: {"w": conv_w(getattr(sc, k).weight),
+                       "b": param(getattr(sc, k).bias)}
+                   for k in ("cls_pred", "reg_pred", "obj_pred")}})
+            hcnn_s["scales"].append({k: {"bn": bn_sd(getattr(sc, k).bn)}
+                                     for k in blocks})
+    params = ns(dagr=ns(backbone=ns(layers=layers_p), cnn=cnn_p),
+                head=ns(scales=scales_p, cnn=hcnn_p))
+    state = ns(dagr=ns(backbone=ns(layers=layers_s), cnn=cnn_s),
+               head=ns(scales=scales_s, cnn=hcnn_s))
+    return params, state
+
+
+def export_detector_state(detector):
+    """The inverse of :func:`load_detector_state`: ``(params, state)`` of
+    the port's ``Detector`` as the reference package's
+    ``DetectorParams`` / ``DetectorState`` (named tuples as
+    ``SimpleNamespace``s with the same fields, dicts as dicts, sequences as
+    lists, numpy arrays as leaves), which :func:`load_detector_state` reads
+    back."""
+    return _detector_tree(detector, _np, _np)
+
+
+def export_detector_grads(detector):
+    """The gradients in ``p.grad`` (zeros where a parameter has none) in
+    the layout of :func:`export_detector_state`'s ``params``."""
+    def grad(p):
+        return _np(p.grad) if p.grad is not None else np.zeros(
+            tuple(p.shape), np.float32)
+    return _detector_tree(detector, grad, lambda b: None)[0]

@@ -96,12 +96,18 @@ def detector_maps(detector: Detector, batch, cfg: Config,
                      no_events=no_events)
 
 
-def decode_detections(maps, strides, bc: BackboneConfig):
-    """``(detections, decoded)`` of the head's maps: sigmoid on objectness
-    and classes, box decode, class-offset NMS."""
-    decoded = decode_outputs(
+def decode_maps(maps, strides) -> torch.Tensor:
+    """``decoded [B, A, 5 + C]`` f32 of the head's maps: sigmoid on
+    objectness and classes, boxes decoded to pixels."""
+    return decode_outputs(
         [torch.cat([reg_o, torch.sigmoid(obj_o), torch.sigmoid(cls_o)],
                    dim=1) for reg_o, obj_o, cls_o in maps], strides)
+
+
+def decode_detections(maps, strides, bc: BackboneConfig):
+    """``(detections, decoded)`` of the head's maps: :func:`decode_maps`,
+    then class-offset NMS."""
+    decoded = decode_maps(maps, strides)
     detections = postprocess(decoded, num_classes=NUM_CLASSES,
                              conf_threshold=0.001, nms_threshold=0.65,
                              width=bc.width, height=bc.height)
@@ -116,9 +122,25 @@ def detector_forward(detector: Detector, batch, cfg: Config,
     ``labels``, ``mask``) and the raw decoded outputs ``[B, A, 5 + C]``.
     ``training`` normalises by batch statistics in the backbone's layers
     and both heads (running statistics updated in place) and keeps the
-    eval-path decode; its gradients are not part of this function's
-    contract."""
+    eval-path decode; a training step takes :func:`detector_decoded`,
+    which runs no NMS."""
     with torch.set_grad_enabled(training and torch.is_grad_enabled()):
         maps, strides = detector_maps(detector, batch, cfg, bc,
                                       training=training, no_events=no_events)
         return decode_detections(maps, strides, bc)
+
+
+def detector_decoded(detector: Detector, batch, cfg: Config,
+                     bc: BackboneConfig, *, training: bool = True,
+                     no_events: bool = False) -> torch.Tensor:
+    """The decoded outputs ``[B, A, 5 + C]`` of one batch without the
+    detections: what a training step reads (the JAX package's step computes
+    the detections and drops them unused).  With ``training`` (the default)
+    the BN running statistics move once and the graph records gradients
+    into every parameter: the ResNet's too, whose BN stays in eval mode;
+    the CNN head's maps enter detached (the hybrid fusion), so its
+    parameters and the ResNet's two output remaps get none."""
+    with torch.set_grad_enabled(training and torch.is_grad_enabled()):
+        maps, strides = detector_maps(detector, batch, cfg, bc,
+                                      training=training, no_events=no_events)
+        return decode_maps(maps, strides)

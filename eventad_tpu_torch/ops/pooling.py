@@ -18,6 +18,44 @@ def _round_to_pixel(p: torch.Tensor, size: int) -> torch.Tensor:
     return torch.floor((p + 1e-5) * size) / size
 
 
+def _cells(pos: torch.Tensor, batch: torch.Tensor, grid: tuple):
+    """``(ix, iy, cell)`` of every node: its column, row and flat cell
+    ``(b, iy, ix)`` in ``grid = (nx, ny)``."""
+    nx, ny = grid
+    pc = torch.clamp(pos, 0.0, 0.9999999)
+    ix = torch.floor(pc[:, 0] * nx).long()
+    iy = torch.floor(pc[:, 1] * ny).long()
+    return ix, iy, batch.long() * (nx * ny) + iy * nx + ix
+
+
+def max_pool_margin(x: torch.Tensor, pos: torch.Tensor,
+                    node_mask: torch.Tensor, batch: torch.Tensor, *,
+                    grid: tuple, batch_size: int) -> float:
+    """The smallest gap, relative to the larger, between the largest entry
+    of a channel in a cell (where positive) and the largest entry below it,
+    over every cell and channel of the max pooling of ``x [N, C]`` into
+    ``grid``.  The pooling's gradient goes to the largest entry; where this
+    gap lies within the rounding of ``x``, which entry that is depends on
+    the rounding (two implementations of the same forward may route the
+    cotangent differently).  ``inf`` where no cell has two entries."""
+    _, _, cell = _cells(pos, batch, grid)
+    m_total = batch_size * grid[0] * grid[1]
+    xs = x.detach().to(torch.float32)[node_mask]
+    idx = cell[node_mask][:, None].expand(-1, x.shape[1])
+
+    def cell_max(v):
+        acc = torch.full((m_total, x.shape[1]), -torch.inf,
+                         device=x.device)
+        return acc.scatter_reduce_(0, idx, v, "amax")
+    top = cell_max(xs)
+    below = torch.where(xs < top.gather(0, idx), xs, -torch.inf)
+    second = cell_max(below)
+    ok = (top > 0) & torch.isfinite(second)
+    if not bool(ok.any()):
+        return float("inf")
+    return float(((top - second) / top)[ok].min())
+
+
 def pool_graph(x: torch.Tensor, pos: torch.Tensor, nbr: torch.Tensor,
                nbr_mask: torch.Tensor, node_mask: torch.Tensor,
                batch: torch.Tensor, *, grid: tuple, batch_size: int,
@@ -43,10 +81,7 @@ def pool_graph(x: torch.Tensor, pos: torch.Tensor, nbr: torch.Tensor,
     dev = x.device
     f32 = torch.float32
 
-    pc = torch.clamp(pos, 0.0, 0.9999999)
-    ix = torch.floor(pc[:, 0] * nx).long()
-    iy = torch.floor(pc[:, 1] * ny).long()
-    cell = batch.long() * ncells + iy * nx + ix
+    ix, iy, cell = _cells(pos, batch, grid)
     cell_safe = torch.where(node_mask, cell, m_total)
 
     # ---- per-node adjacency bitmap over the cell offsets ----

@@ -39,40 +39,68 @@ def plateau_update(st: PlateauState, val_loss: float, *, factor: float = 0.5,
     return PlateauState(st.best, bad, st.scale)
 
 
-class HeadOptimizer:
-    """Global-norm clipping followed by AdamW, the chain of the reference's
-    ``make_optimizer``.  The clip scales every gradient by
-    ``clip / max(norm, clip)`` (optax ``clip_by_global_norm``; torch's
-    ``clip_grad_norm_`` divides by ``norm + 1e-6`` instead).  AdamW is
-    ``torch.optim.AdamW`` with optax's constants written out (betas 0.9 /
-    0.999, eps 1e-8 outside the root, decoupled decay)."""
+class ClippedOptimizer:
+    """Global-norm clipping followed by a torch optimizer ``inner``: optax's
+    ``chain(clip_by_global_norm(clip), ...)``.  The clip scales every
+    gradient by ``clip / max(norm, clip)`` (torch's ``clip_grad_norm_``
+    divides by ``norm + 1e-6`` instead), the norm taken over every
+    parameter.  A parameter the loss does not reach gets a zero gradient
+    first, so its moments decay and its weight decay applies as optax's do
+    (a torch optimizer skips a parameter without ``.grad``).  With a
+    ``schedule`` (a function of the update count) the rate is set from the
+    number of updates made before each one, as optax evaluates its schedule
+    (the first update at 0)."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter],
+                 inner: torch.optim.Optimizer, clip: float,
+                 schedule: Callable[[int], float] = None):
+        self.params = list(params)
+        self.clip = float(clip)
+        self.inner = inner
+        self.schedule = schedule
+        self.count = 0
+
+    def step(self) -> None:
+        """One update from the gradients in ``p.grad``."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        norm = torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads)))
+        torch._foreach_mul_(grads, self.clip / torch.clamp(norm,
+                                                           min=self.clip))
+        if self.schedule is not None:
+            set_lr(self, self.schedule(self.count))
+        self.inner.step()
+        self.count += 1
+
+    def zero_grad(self) -> None:
+        self.inner.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> dict:
+        """The inner optimizer's state dict with the update count beside
+        its keys."""
+        return {**self.inner.state_dict(), "count": self.count}
+
+    def load_state_dict(self, sd: dict) -> None:
+        sd = dict(sd)
+        self.count = int(sd.pop("count", 0))
+        self.inner.load_state_dict(sd)
+
+
+class HeadOptimizer(ClippedOptimizer):
+    """The chain of the reference's ``make_optimizer``: the global-norm clip,
+    then ``torch.optim.AdamW`` with optax's constants written out (betas 0.9
+    / 0.999, eps 1e-8 outside the root, decoupled decay)."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  learning_rate: float, weight_decay: float,
                  grad_clip: float):
-        self.params = list(params)
-        self.grad_clip = float(grad_clip)
-        self.adamw = torch.optim.AdamW(
-            self.params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
-            weight_decay=weight_decay)
-
-    def step(self) -> None:
-        """One update from the gradients in ``p.grad``."""
-        grads = [p.grad for p in self.params]
-        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
-        scale = self.grad_clip / torch.clamp(norm, min=self.grad_clip)
-        for g in grads:
-            g.mul_(scale)
-        self.adamw.step()
-
-    def zero_grad(self) -> None:
-        self.adamw.zero_grad(set_to_none=True)
-
-    def state_dict(self) -> dict:
-        return self.adamw.state_dict()
-
-    def load_state_dict(self, sd: dict) -> None:
-        self.adamw.load_state_dict(sd)
+        params = list(params)
+        super().__init__(params, torch.optim.AdamW(
+            params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+            weight_decay=weight_decay), grad_clip)
 
 
 def make_optimizer(params, learning_rate: float, weight_decay: float,
@@ -81,8 +109,8 @@ def make_optimizer(params, learning_rate: float, weight_decay: float,
     return HeadOptimizer(params, learning_rate, weight_decay, grad_clip)
 
 
-def set_lr(optimizer: HeadOptimizer, lr: float) -> HeadOptimizer:
-    for group in optimizer.adamw.param_groups:
+def set_lr(optimizer: ClippedOptimizer, lr: float) -> ClippedOptimizer:
+    for group in optimizer.inner.param_groups:
         group["lr"] = float(lr)
     return optimizer
 

@@ -8,14 +8,15 @@ detections and the ground-truth boxes into a ``DetectionBuffer``, then
 
 ``evaluate`` takes any loader of ``(EventBatch, BatchMeta)``; ``main``
 builds an in-memory synthetic one.  ``--test_checkpoint`` names a
-``torch.save`` of ``{"model": detector.state_dict()}``; without one the
-randomly initialised detector is evaluated.  Runs on the CUDA card unless
-``--device cpu`` is given.
+``torch.save`` of ``{"model": detector.state_dict()}``, with the EMA
+weights under ``"ema"`` where ``train_detector`` wrote it (those are then
+evaluated, as the root script evaluates the EMA weights of its
+checkpoint); without one the randomly initialised detector is evaluated.
+Runs on the CUDA card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
 import sys
-from pathlib import Path
 
 import torch
 
@@ -24,21 +25,17 @@ from .data.synthetic import synthetic_loader
 from .models.dagr import resolve_device
 from .models.detector import detector_forward, init_detector
 from .train import loader_args
+from .utils.checkpoint import load_detector_checkpoint
 from .utils.detection_eval import DetectionBuffer
 
 
-def evaluate(cfg: Config, loader, *, device=None) -> dict:
-    dev = resolve_device(device)
-    detector, bc = init_detector(
-        cfg, torch.Generator().manual_seed(cfg.seed), dev)
-    if cfg.test_checkpoint:
-        obj = torch.load(Path(cfg.test_checkpoint), map_location=dev,
-                         weights_only=True)
-        detector.load_state_dict(obj["model"])
-        print(f"loaded {cfg.test_checkpoint}")
+def detection_metrics(detector, loader, cfg: Config, bc, device) -> dict:
+    """``mAP`` and ``mAP_50`` of ``detector`` in eval mode over a loader of
+    ``(EventBatch, BatchMeta)``: every batch's detections and ground-truth
+    boxes (xywh corners to xyxy) into one ``DetectionBuffer``."""
     buf = DetectionBuffer(num_classes=2)
     for batch, meta in loader:
-        dets, _ = detector_forward(detector, batch.to(dev), cfg, bc,
+        dets, _ = detector_forward(detector, batch.to(device), cfg, bc,
                                    no_events=cfg.no_events)
         dets = {k: v.cpu().numpy() for k, v in dets.items()}
         gt = batch.bbox.numpy()
@@ -49,7 +46,17 @@ def evaluate(cfg: Config, loader, *, device=None) -> dict:
             xyxy[:, 2:4] += xyxy[:, :2]
             buf.update([{k: v[bi] for k, v in dets.items()}],
                        [{"boxes": xyxy[m], "labels": gt[bi, m, 4]}])
-    metrics = buf.compute()
+    return buf.compute()
+
+
+def evaluate(cfg: Config, loader, *, device=None) -> dict:
+    dev = resolve_device(device)
+    detector, bc = init_detector(
+        cfg, torch.Generator().manual_seed(cfg.seed), dev)
+    if cfg.test_checkpoint:
+        load_detector_checkpoint(cfg.test_checkpoint, detector, dev)
+        print(f"loaded {cfg.test_checkpoint}")
+    metrics = detection_metrics(detector, loader, cfg, bc, dev)
     print(f"mAP: {metrics['mAP']:.4f}  mAP@50: {metrics['mAP_50']:.4f}")
     return metrics
 

@@ -1,10 +1,12 @@
-"""Where one head-training step, one scoring forward or one detection
-forward spends its time on the GPU.
+"""Where one head-training step, one scoring forward, one detection
+forward, one streaming step or one detector training step spends its time
+on the GPU.
 
     python3 -m eventad_tpu_torch.tools.profile_step [float32|bfloat16 ...]
     python3 -m eventad_tpu_torch.tools.profile_step scoring [flavour ...]
     python3 -m eventad_tpu_torch.tools.profile_step detector [flavour ...]
     python3 -m eventad_tpu_torch.tools.profile_step streaming
+    python3 -m eventad_tpu_torch.tools.profile_step detector_train [dtype ...]
 
 At the reference operating point (batch 6, 360x240, 16 384 events per item,
 ResNet-50, random weights from seed 0), for each compute dtype named
@@ -41,6 +43,15 @@ then, untraced in the same process, the medians of 9 ``append`` calls, 9
 ``read_scores`` and 9 dense steps (``streaming.runner``, the whole backbone
 on the ring).  Run it in a process of its own: a trace late in a process
 may lose device events (``tools/trace_probe.py``).
+
+With ``detector_train`` first, one detector training step
+(``train_detector.make_detector_train_step``: the forward to the decoded
+outputs, the simOTA loss, the backward through the backbone and the
+ResNet, the clip, AdamW and the EMA) at the same operating point, random
+weights from seed 0, in each compute dtype named (default ``float32``):
+the step untraced (median of 9, one synchronise each), the peak device
+memory of those steps, and a trace of 3 steps.  Run one dtype a process
+where the trace must be complete.
 
 Prints the card's name and power limit first and one JSON line per dtype or
 flavour last.  Needs a CUDA device.
@@ -361,6 +372,45 @@ def profile_streaming(smi: str, n_traced: int = 10) -> dict:
                 read_scores_ms=read_ms, dense_step_ms=dense_ms, **device)
 
 
+def profile_detector_train(dtype: str, smi: str) -> dict:
+    """The ``detector_train`` mode (see the module docstring)."""
+    from ..models.detector import init_detector
+    from ..train_detector import anchor_geometry, make_detector_train_step
+    from ..utils.ema import ema_init
+    from ..utils.schedules import make_detector_optimizer, yolox_schedule
+    dev = torch.device("cuda")
+    cfg = Config(batch_size=6, use_image=True, compute_dtype=dtype,
+                 event_buckets=(16384,))
+    detector, bc = init_detector(cfg, torch.Generator().manual_seed(0), dev)
+    optimizer = make_detector_optimizer(
+        detector.parameters(), cfg.optimizer,
+        yolox_schedule(cfg.lr, warmup_steps=1, total_steps=1000),
+        cfg.weight_decay, cfg.clip)
+    step = make_detector_train_step(detector, cfg, bc, optimizer,
+                                    anchor_geometry(bc, dev))
+    batch = make_synthetic_batch(cfg, seed=0, boxes_per_item=6).to(dev)
+    ema = ema_init(detector.parameters())
+
+    def one_step():
+        nonlocal ema
+        ema, losses = step(batch, ema)
+        return losses
+
+    for _ in range(3):
+        losses = one_step()
+    if not bool(torch.isfinite(losses["total"])):
+        raise RuntimeError("the loss is not finite")
+    torch.cuda.reset_peak_memory_stats()
+    ts = timed_ms(one_step)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = _median(ts)
+    return dict(
+        mode="detector_train", dtype=dtype, card=smi, step_ms=step_ms,
+        step_ms_all=ts, items_per_sec=cfg.batch_size / step_ms * 1e3,
+        peak_memory_bytes=peak,
+        **device_summary(traced_kernels(one_step), step_ms))
+
+
 def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
@@ -377,6 +427,10 @@ def main(argv=None):
         return
     if argv[:1] == ["streaming"]:
         print(json.dumps(profile_streaming(smi)), flush=True)
+        return
+    if argv[:1] == ["detector_train"]:
+        for dtype in argv[1:] or ["float32"]:
+            print(json.dumps(profile_detector_train(dtype, smi)), flush=True)
         return
     if argv[:1] == ["detector"]:
         for flavour in argv[1:] or ["default", "base+bilinear"]:

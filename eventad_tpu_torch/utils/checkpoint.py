@@ -7,6 +7,15 @@ a ``torch.save`` of ``{"model": ..., "optimizer": ...}`` with a JSON sidecar
 the reference's state-dict key layout (``models/convert.
 export_reference_state``), so the head of a checkpoint written here loads
 into the JAX package through its torch converters.
+
+The detector's training writes ``detector_latest.pt`` with
+``save_detector_checkpoint``: the trained weights and running statistics
+(``"model"``, the detector's ``state_dict``), the EMA weights (``"ema"``,
+by parameter name), the optimizer's state and ``{epoch, metrics}``.  The
+JAX package's checkpoint holds no BN state, and its ``test_detector``
+evaluates the EMA weights on the initial running statistics; this one
+keeps the trained statistics, which ``load_detector_checkpoint`` loads
+(``ROADMAP.md``, Queue 3, F5).
 """
 from __future__ import annotations
 
@@ -95,3 +104,37 @@ def find_best_checkpoint(output_dir: str, experiment_name: str,
         if (latest / (name + SUFFIX)).exists():
             return latest / (name + SUFFIX)
     raise FileNotFoundError(f"No checkpoints in {latest}")
+
+
+def save_detector_checkpoint(path, detector, ema, optimizer,
+                             extra: dict) -> None:
+    """``torch.save`` of the detector's ``state_dict``, its EMA weights by
+    parameter name, the optimizer's state and ``extra`` (epoch, metrics;
+    also written beside it as JSON)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    names = [n for n, _ in detector.named_parameters()]
+    torch.save({"model": detector.state_dict(),
+                "ema": dict(zip(names, ema.params)),
+                "ema_updates": ema.updates,
+                "optimizer": optimizer.state_dict(), "extra": extra}, path)
+    with open(path.with_suffix(".json"), "w") as f:
+        json.dump(extra, f)
+
+
+def load_detector_checkpoint(path, detector, device=None) -> dict:
+    """Loads ``"model"`` into ``detector`` in place, then, where the file
+    holds them, the EMA weights over its parameters.  Returns the file's
+    dict."""
+    dev = resolve_device(device)
+    obj = torch.load(Path(path), map_location=dev, weights_only=True)
+    detector.load_state_dict(obj["model"])
+    if obj.get("ema") is not None:
+        params = dict(detector.named_parameters())
+        if set(params) != set(obj["ema"]):
+            raise ValueError(f"{path}: the EMA weights do not name the "
+                             f"detector's parameters")
+        with torch.no_grad():
+            for name, p in params.items():
+                p.copy_(obj["ema"][name])
+    return obj

@@ -29,6 +29,7 @@ from eventad_tpu_torch.test import main as evaluate_main
 from eventad_tpu_torch.test_detector import main as detector_eval_main
 from eventad_tpu_torch.tools.check_fused import main as check_fused_main
 from eventad_tpu_torch.train import main as train_main
+from eventad_tpu_torch.train_detector import main as train_detector_main
 
 import _torch_threads  # noqa: F401  (one intra-op thread)
 
@@ -46,6 +47,7 @@ bad = sorted(n for n in sys.modules
                                     'sklearn', 'h5py'))
 print('MODULES', sum(n.startswith(pkg.__name__) for n in sys.modules))
 print('BAD', bad)
+print('HAS', sorted(n for n in sys.modules if n.startswith(pkg.__name__)))
 """
 
 
@@ -57,6 +59,10 @@ def test_port_imports_no_jax_yaml_or_reference_package():
     n_mods = int(res.stdout.split("MODULES")[1].split()[0])
     # the training, detection and kernel-flavour modules included
     assert n_mods >= 40, res.stdout
+    # detector training's modules among them
+    for name in ("train_detector", "models.yolox_loss", "utils.ema",
+                 "utils.schedules"):
+        assert f"'eventad_tpu_torch.{name}'" in res.stdout, name
 
 
 def test_entry_points_default_to_the_card():
@@ -74,7 +80,8 @@ def test_entry_points_default_to_the_card():
             model.head.parameters(), 1e-3, 1e-5, 1.0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_detector(cfg)
-    for main in (train_main, evaluate_main, detector_eval_main):
+    for main in (train_main, evaluate_main, detector_eval_main,
+                 train_detector_main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--batch_size", "1"])
     for main in (bench_detector_main, check_fused_main):
@@ -149,7 +156,9 @@ def test_config_geometry_matches(kw):
     assert {"learning_rate", "weight_decay", "grad_clip", "lr_decay_factor",
             "lr_patience", "min_lr", "epochs", "seed", "threshold",
             "legacy_frame_collapse", "fps_warmup_batches", "fps_num_batches",
-            "output_dir", "experiment_name", "test_checkpoint"} <= set(names)
+            "output_dir", "experiment_name", "test_checkpoint", "clip",
+            "optimizer", "lr", "lr_scheduler", "no_aug_epochs",
+            "synthetic_data"} <= set(names)
     for name in names:
         assert getattr(a, name) == getattr(b, name), name
 
