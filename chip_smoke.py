@@ -145,6 +145,32 @@ exits non-zero without printing a result:
    counted; step ms, items/s and peak memory per dtype, and the device's
    busy share from ``tools.profile_step detector_train`` in a fresh
    process per dtype.  Every record gains ``train_step_launches``.
+11. The host data path feeding the card (``data/``): six sequences made in
+   memory by the fixture's array generator (``data/fixtures.make_sequence``,
+   frames rendered at model size, 6 boxes, ~16 000 events a window, the
+   anomalous ones' windows after their TOA ~24 000) and cut into 48 Items
+   by ``data/dataset.cut_item`` (``MemoryDataset``: no file, so no h5py,
+   yaml or cv2, which the script checks it never imported).  The
+   ``Loader`` serial, on its prefetch thread and in 4 spawned decode
+   processes (which hide the card from themselves) must give the same 8
+   batches bit for bit and count the same truncated events.  A loader
+   batch's bf16 ``eval_step`` launches K1 once, K2 twice, K3 eight times
+   and K4 once (counters zeroed just before; records gain
+   ``loader_batch_launches``), its logits within 0.05 of the port's CPU
+   run with equal valid slots; three epochs, one a mode, launch that
+   eightfold again.  Then ``collect_predictions``, the metric functions and
+   ``measure_fps`` with the loader in the loop, and the times on a line
+   with the card's name and power limit: ``collate`` ms p50 / p90 (its
+   queue ranks alone), per mode batches/s alone, the consumer's wait a
+   batch and sync bboxes/s with the loader in the loop, and without it on
+   the same batches staged on the card.  Last, the parity fixture's
+   geometry (96x72, batch 2, the 4 096 bucket, lookback 512, seed 7, f32,
+   no image): the head fine-tuned on the CPU by ``parity.
+   _train_fixture_head`` (800 steps) is evaluated on the CPU and on the
+   card (``parity.fixture_metrics``): AUC, AUC_unadjusted, AP and AUC-Frame
+   within 1e-3, mTTA and mRESPONSE equal, the score digests within 1e-3
+   relative; a head trained on the card must lower its loss and give
+   finite metrics.
 
 Each kernel's record also holds ``bound_ms``, the least time the card could
 take for the same work: the larger of its bytes (every input read once,
@@ -1653,6 +1679,311 @@ def detector_training_phase(dev, smi, records, counters):
     return times
 
 
+# phase 11: the host data path feeding the card.  Sequences made in memory by
+# the fixture's array generator at the operating point (frames rendered at
+# model size), cut into Items as SequenceDataset cuts them from files, and
+# batched by the Loader three ways
+LOADER_SEQUENCES = 6      # x 8 items: 48 items, 8 batches of 6
+LOADER_FRAMES = 9
+LOADER_EVENTS = 16_000    # a window holds ~16 000 events, an anomalous
+                          # sequence's after its TOA ~24 000 (truncated)
+LOADER_WORKERS = 4        # the JAX package's num_workers default
+LOADER_MODES = (("serial", dict(prefetch=0, num_workers=0)),
+                ("thread", dict(num_workers=0)),
+                ("processes", dict(num_workers=LOADER_WORKERS)))
+# the fixture of tests/test_parity_fixture.py, evaluated on the card and on
+# the CPU from the same weights
+PARITY_CFG = dict(width=96, height=72, scale=1, batch_size=2,
+                  use_image=False, event_buckets=(4096,), graph_lookback=512,
+                  num_workers=0, seed=7)
+PARITY_METRIC_TOL = 1e-3  # AUC, AUC_unadjusted, AP, AUC-Frame, absolute
+PARITY_SCORE_TOL = 1e-3   # score_mean, score_max, relative
+
+
+def percentile(values, q):
+    v = sorted(values)
+    return v[min(len(v) - 1, int(q * len(v)))]
+
+
+def loader_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, records,
+                 zero_counters, read_counters):
+    """Phase 11: the Loader feeding K1-K4, and the fixture's metrics on the
+    card (see the module docstring)."""
+    from eventad_tpu_torch.config import Config
+    from eventad_tpu_torch.data.batching import Loader, collate
+    from eventad_tpu_torch.data.dataset import MemoryDataset
+    from eventad_tpu_torch.data.fixtures import (fixture_sequences,
+                                                 make_sequence)
+    from eventad_tpu_torch.models.dagr import init_model, model_forward
+    from eventad_tpu_torch.native import queue_ranks
+    from eventad_tpu_torch.parallel.train_step import (make_optimizer,
+                                                       make_train_fns)
+    from eventad_tpu_torch.parity import _train_fixture_head, fixture_metrics
+    from eventad_tpu_torch.utils.evaluation import (
+        calculate_bbox_metrics, calculate_frame_metrics,
+        calculate_response_metrics, calculate_tta_metrics)
+    from eventad_tpu_torch.utils.fps import measure_fps
+    from eventad_tpu_torch.utils.predict import collect_predictions
+
+    # ---- 11.1 items at the operating point ----
+    t0 = time.perf_counter()
+    seqs = [make_sequence(f"loader_{i:02d}", cfg, n_frames=LOADER_FRAMES,
+                          n_objects=BOXES_PER_ITEM, anomalous=(i % 3 == 0),
+                          toa_frame=6, seed=100 + i,
+                          events_per_window=LOADER_EVENTS, frame_scale=1)
+            for i in range(LOADER_SEQUENCES)]
+    ds = MemoryDataset(cfg, seqs)
+    items = [ds[i] for i in range(len(ds))]
+    n_ev = [len(it.events["t"]) for it in items]
+    n_cap = cfg.event_buckets[-1]
+    over = sum(n > n_cap for n in n_ev)
+    log(f"loader items: {len(items)} from {len(seqs)} sequences of "
+        f"{LOADER_FRAMES} frames, {cfg.model_width}x{cfg.model_height}, "
+        f"{BOXES_PER_ITEM} boxes, made and cut in "
+        f"{time.perf_counter() - t0:.2f} s; events per item min {min(n_ev)}"
+        f" p10 {percentile(n_ev, 0.1)} p50 {percentile(n_ev, 0.5)} p90 "
+        f"{percentile(n_ev, 0.9)} max {max(n_ev)}; {over} items over the "
+        f"{n_cap} bucket")
+    if not 0 < over < len(items) // 2 \
+            or abs(percentile(n_ev, 0.5) - n_cap) > 0.1 * n_cap:
+        raise AssertionError("the items do not sit at the 16 384 bucket "
+                             "with a few over it")
+
+    # ---- 11.2 the Loader three ways ----
+    loaders, runs, alone = {}, {}, {}
+    for name, kw in LOADER_MODES:
+        ld = Loader(ds, cfg, shuffle=False, **kw)
+        if ld.mode() != name:
+            raise AssertionError(f"{name}: the Loader chose {ld.mode()}")
+        loaders[name] = ld
+        t0 = time.perf_counter()
+        runs[name] = list(ld)
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n = sum(1 for _ in ld)
+        alone[name] = n / (time.perf_counter() - t0)
+        log(f"loader ({name}): {len(runs[name])} batches, first epoch "
+            f"{first:.3f} s (a pool's start included), then "
+            f"{alone[name]:.2f} batches/s alone")
+    ref = runs["serial"]
+    for name in ("thread", "processes"):
+        for (b, m), (rb, rm) in zip(runs[name], ref, strict=True):
+            if m != rm or not all(torch.equal(x, y) for x, y in zip(b, rb)):
+                raise AssertionError(f"loader ({name}): a batch differs "
+                                     f"from the serial one")
+    truncated = sum(m.truncated_events for _, m in ref)
+    if not truncated > 0 or any(ld.truncated_events != 2 * truncated
+                                for ld in loaders.values()):
+        raise AssertionError("the truncation counter disagrees")
+    log(f"loader: the three modes give the same {len(ref)} batches bit for "
+        f"bit ({LOADER_WORKERS} spawned workers with no CUDA device); "
+        f"{truncated} events truncated an epoch (Loader.truncated_events)")
+    bsz = cfg.batch_size
+    chunks = [items[i:i + bsz] for i in range(0, len(items), bsz)]
+    collate_ms, ranks_ms = [], []
+    for _ in range(3):
+        for c in chunks:
+            t0 = time.perf_counter()
+            collate(c, cfg)
+            collate_ms.append((time.perf_counter() - t0) * 1e3)
+            # its share that a C++ copy of queue_ranks would take over
+            t0 = time.perf_counter()
+            for it in c:
+                n = min(len(it.events["t"]), n_cap)
+                queue_ranks(it.events["x"][-n:], it.events["y"][-n:],
+                            cfg.model_width, cfg.model_height)
+            ranks_ms.append((time.perf_counter() - t0) * 1e3)
+
+    # ---- 11.3 the batches reach the kernels ----
+    fns = make_train_fns(model, bc, mc, gsc, make_optimizer(
+        model.head.parameters(), cfg.learning_rate, cfg.weight_decay,
+        cfg.grad_clip), dev)
+    first_batch = ref[0][0]
+    zero_counters()
+    logits, valid = fns.eval_step(first_batch)[:2]
+    torch.cuda.synchronize()
+    per_batch = read_counters(dict(event_graph_search=1,
+                                   spline_fused_level0=2,
+                                   spline_shift_pooled=8, upsample_rows=1),
+                              "a loader batch's eval_step")
+    for r in records:
+        r["loader_batch_launches"] = per_batch.get(r["name"], 0)
+    t0 = time.perf_counter()
+    cpu_out = model_forward(cpu_model, first_batch, bc, mc, gsc)
+    v = cpu_out.valid
+    if not torch.equal(v, valid.cpu()) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("loader batch 0: valid slots differ from the "
+                             "CPU, or logits not finite")
+    d = (cpu_out.logits[v] - logits.cpu()[v]).abs().max().item()
+    log(f"loader batch 0: GPU vs CPU logits max abs diff {d:.3g} over "
+        f"{int(v.sum())} valid slots (tolerance {LOGIT_TOL}); CPU forward "
+        f"{time.perf_counter() - t0:.1f} s; launches {per_batch}")
+    if not d < LOGIT_TOL:
+        raise AssertionError(f"loader batch 0: logits differ by {d}")
+
+    def consume(loader):
+        """Each batch through eval_step, synchronised: per batch the wait
+        on the loader, the whole step (wait, copy, forward) and the
+        boxes of both frames."""
+        waits, steps, boxes = [], [], []
+        it = iter(loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch, _meta = next(it)
+            except StopIteration:
+                break
+            t1 = time.perf_counter()
+            fns.eval_step(batch)
+            torch.cuda.synchronize()
+            waits.append(t1 - t0)
+            steps.append(time.perf_counter() - t0)
+            boxes.append(int(batch.box_present.sum()))
+        return waits, steps, boxes
+
+    times = {"card": smi, "collate_ms_p50": percentile(collate_ms, 0.5),
+             "collate_ms_p90": percentile(collate_ms, 0.9),
+             "queue_ranks_ms_p50": percentile(ranks_ms, 0.5),
+             "batches": len(ref)}
+    nb = len(ref)
+    zero_counters()
+    for name, _ in LOADER_MODES:
+        waits, steps, boxes = consume(loaders[name])
+        times[name] = dict(
+            batches_per_s_alone=alone[name],
+            wait_ms_p50=percentile(waits, 0.5) * 1e3,
+            wait_ms_mean=sum(waits) / len(waits) * 1e3,
+            step_ms_p50=percentile(steps, 0.5) * 1e3,
+            sync_bboxes_per_s=sum(boxes) / len(boxes)
+            / percentile(steps, 0.5))
+    read_counters({k: 3 * nb * n for k, n in per_batch.items()},
+                  "three loader epochs")
+    staged = [b.to(dev) for b, _ in ref]
+    fwd = []
+    for b in staged:
+        t0 = time.perf_counter()
+        fns.eval_step(b)
+        torch.cuda.synchronize()
+        fwd.append(time.perf_counter() - t0)
+    boxes = [int(b.box_present.sum()) for b in staged]
+    times["without_loader"] = dict(
+        step_ms_p50=percentile(fwd, 0.5) * 1e3,
+        sync_bboxes_per_s=sum(boxes) / len(boxes) / percentile(fwd, 0.5))
+    del staged
+    log(f"loader times on {smi}: collate {times['collate_ms_p50']:.2f} ms "
+        f"p50, {times['collate_ms_p90']:.2f} p90 a batch (its queue ranks "
+        f"{times['queue_ranks_ms_p50']:.2f} ms p50); " + "; ".join(
+            f"{name} {t['batches_per_s_alone']:.2f} batches/s alone, waits "
+            f"{t['wait_ms_p50']:.2f} ms p50 a batch, sync bboxes/s "
+            f"{t['sync_bboxes_per_s']:.1f} with the loader in the loop"
+            for name, t in ((n, times[n]) for n, _ in LOADER_MODES))
+        + f"; without it (the same batches on the card) "
+        f"{times['without_loader']['sync_bboxes_per_s']:.1f} bboxes/s")
+
+    # ---- 11.4 the test pipeline with the loader in the loop ----
+    def forward(batch):
+        logits, valid, labels, _loss, _nv = fns.eval_step(batch)
+        return (logits.cpu().numpy(), valid.cpu().numpy(),
+                labels.cpu().numpy())
+    toa = {s["name"]: s["toa"] for s in seqs if s["toa"] is not None}
+    results = collect_predictions(forward, loaders["processes"],
+                                  threshold=cfg.threshold)
+    bbox = calculate_bbox_metrics(results["all_labels"],
+                                  results["all_scores"])
+    frame = calculate_frame_metrics(results["frame_data"])
+    tta = calculate_tta_metrics(results["video_predictions"],
+                                results["video_first_anomaly"], toa)
+    fps = measure_fps(fns.eval_step, loaders["processes"], warmup_batches=2,
+                      num_batches=nb)
+    response = calculate_response_metrics(results["video_predictions"],
+                                          fps=fps["fps"])
+    for ld in loaders.values():
+        ld.close()
+    log(f"test pipeline over the processes loader (random weights, not "
+        f"gated): {len(results['all_scores'])} scored boxes; AUC "
+        f"{bbox['auc']:.4f} AP {bbox['ap']:.4f} AUC-Frame "
+        f"{frame['auc_frame']:.4f} mTTA {tta.get('mtta')} mRESPONSE "
+        f"{response.get('mresponse')} FPS {fps['fps']:.1f}")
+    if not (fps["fps"] > 0 and all(x == x for x in (
+            bbox["auc"], bbox["ap"], frame["auc_frame"]))):
+        raise AssertionError("the test pipeline's metrics are not finite")
+
+    # ---- 11.5 the fixture's metrics on the card and on the CPU ----
+    pcfg = Config(**PARITY_CFG)
+    groups = {}
+    for g, s in fixture_sequences(pcfg):
+        groups.setdefault(g, []).append(s)
+    ptoa = {s["name"]: s["toa"] for s in groups["val"]
+            if s["toa"] is not None}
+    train_ds = MemoryDataset(pcfg, groups[pcfg.train_split])
+    val_ds = MemoryDataset(pcfg, groups["val"])
+
+    def fixture_loader(d):
+        return Loader(d, pcfg, shuffle=False)
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(pcfg.seed)
+    cpu_m, bcp, mcp = init_model(pcfg, gen, cpu)
+    t0 = time.perf_counter()
+    cpu_losses = _train_fixture_head(pcfg, cpu_m, bcp, mcp,
+                                     fixture_loader(train_ds), cpu)
+    t_train = time.perf_counter() - t0
+    gpu_m, _, _ = init_model(pcfg, torch.Generator().manual_seed(0), dev)
+    gpu_m.load_state_dict(cpu_m.state_dict())
+    t0 = time.perf_counter()
+    m_cpu = fixture_metrics(pcfg, cpu_m, bcp, mcp, fixture_loader(val_ds),
+                            ptoa, cpu)[0]
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_gpu = fixture_metrics(pcfg, gpu_m, bcp, mcp, fixture_loader(val_ds),
+                            ptoa, dev)[0]
+    t_gpu = time.perf_counter() - t0
+    diffs = {k: m_gpu[k] - m_cpu[k] for k in m_cpu}
+    log(f"fixture parity ({pcfg.model_width}x{pcfg.model_height}, batch "
+        f"{pcfg.batch_size}, {pcfg.event_buckets[0]} bucket, lookback "
+        f"{pcfg.graph_lookback}, seed {pcfg.seed}, f32): head trained on "
+        f"the CPU, {len(cpu_losses)} steps in {t_train:.1f} s (per-box "
+        f"loss {float(cpu_losses[0]):.4f} -> {float(cpu_losses[-1]):.4f}); "
+        f"CPU {m_cpu} ({t_cpu:.1f} s); card {m_gpu} ({t_gpu:.1f} s); card "
+        f"- CPU {diffs}")
+    for k in ("AUC", "AUC_unadjusted", "AP", "AUC-Frame"):
+        if not abs(diffs[k]) <= PARITY_METRIC_TOL:
+            raise AssertionError(f"fixture {k}: card {m_gpu[k]} vs CPU "
+                                 f"{m_cpu[k]}")
+    for k in ("mTTA", "mRESPONSE"):
+        if m_gpu[k] != m_cpu[k]:
+            raise AssertionError(f"fixture {k}: card {m_gpu[k]} vs CPU "
+                                 f"{m_cpu[k]}")
+    for k in ("score_mean", "score_max"):
+        if not abs(diffs[k]) <= PARITY_SCORE_TOL * abs(m_cpu[k]):
+            raise AssertionError(f"fixture {k}: card {m_gpu[k]} vs CPU "
+                                 f"{m_cpu[k]}")
+    card_m, _, _ = init_model(pcfg, torch.Generator().manual_seed(
+        pcfg.seed), dev)
+    t0 = time.perf_counter()
+    card_losses = _train_fixture_head(pcfg, card_m, bcp, mcp,
+                                      fixture_loader(train_ds), dev)
+    t_card = time.perf_counter() - t0
+    m_card = fixture_metrics(pcfg, card_m, bcp, mcp, fixture_loader(val_ds),
+                             ptoa, dev)[0]
+    head, tail = card_losses[:50].mean(), card_losses[-50:].mean()
+    log(f"fixture head trained on the card: {len(card_losses)} steps in "
+        f"{t_card:.1f} s, per-box loss of the first 50 steps "
+        f"{float(head):.4f}, of the last 50 {float(tail):.4f}; metrics "
+        f"{m_card}")
+    if not (tail < head and all(v == v and abs(v) < float("inf")
+                                for v in m_card.values())):
+        raise AssertionError("the card-trained head's loss did not fall, "
+                             "or a metric is not finite")
+    times["fixture"] = dict(card_minus_cpu=diffs, cpu=m_cpu, card=m_gpu,
+                            card_trained=m_card)
+    read = [m for m in ("h5py", "yaml", "cv2") if m in sys.modules]
+    if read:
+        raise AssertionError(f"phase 11 imported {read}")
+    print(json.dumps({"loader_times": times}), flush=True)
+    return times
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke run needs "
@@ -2806,6 +3137,10 @@ def main():
 
     # ---- 10. detector training at full width ----
     detector_training_phase(dev, smi, records, all_counters)
+
+    # ---- 11. the Loader feeding the card, the fixture's metrics ----
+    loader_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, records,
+                 zero_counters, read_counters)
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,32 @@
 """Configuration of the PyTorch port: the fields and derived geometry of
-``eventad_tpu.config.Config`` without jax or yaml.
+``eventad_tpu.config.Config`` without jax.
 
 Only the fields the port reads are carried (the scoring forward, head
-training, evaluation, detection serving and training), with the same names
-and defaults (reference dagr-S /
+training, evaluation, detection serving and training, the data layer and
+``parity``), with the same names and defaults (reference dagr-S /
 EventAD values, ``eventad_tpu/config/defaults.py``).  ``parse_args`` gives
-the same ``--field value`` command line, without the YAML overlay.
+the same ``--field value`` command line and the same YAML overlays
+(``--config``, ``--eventad_config``; CLI > YAML > defaults).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Tuple
 
 
 @dataclass
 class Config:
+    # ---- paths (reference config/eventad_config.py:19-33) ----
+    dataset_directory: str = "./data/detector/ROL"
+    checkpoint: str = "./checkpoints/detector/dagr_s_50.pth"
+    config: str = ""            # optional YAML overlay path
+    eventad_config: str = ""    # optional second YAML overlay
+    split: str = "./config/rol_split.yaml"
+    toa: str = "./config/toa_values.json"
+
     # ---- graph (dagr-S, reference ev_tgn.py:22-37) ----
     radius: float = 0.01
     time_window_us: int = 1_000_000
@@ -55,6 +65,10 @@ class Config:
     lr_patience: int = 5
     min_lr: float = 1e-6
     seed: int = 42
+    plot_interval: int = 5           # ROC/PR plots every this many epochs
+    pretrained_model: str = ""
+    resume: str = ""
+    fps: float = 20.0                # mRESPONSE's frame rate in ``parity``
 
     # ---- detector training (reference dagr-S optimisation, train_detector
     # of the JAX package; ``clip`` is DAGR's global-norm clip, not the
@@ -64,9 +78,27 @@ class Config:
     lr: float = 0.003
     lr_scheduler: str = "cosine"     # the detector's is warm-up + cosine
     no_aug_epochs: int = 0           # final epochs with the L1 branch on
-    # the port's entry modules read in-memory synthetic batches whatever
-    # this says: the on-disk loader is not ported yet
+    # generate the on-disk fixture (data/fixtures.py) into
+    # ``dataset_directory`` first, when it holds no split file
     synthetic_data: bool = False
+
+    # ---- data (reference utils/data.py, eventad_config.py:121) ----
+    num_workers: int = 4
+    no_eval: bool = False
+    # reference quirk: training data comes from the split named "test" with
+    # the testing transform (utils/data.py:27-30); override to use "train"
+    train_split: str = "test"
+    use_augmentations: bool = False
+    check_balance: bool = False
+    aug_p_flip: float = 0.5
+    aug_trans: float = 0.1
+    aug_zoom: float = 1.5
+    # lower zoom bound; < 1 enables zoom-out with the density-preserving
+    # event subsample (reference augment.py:139-189 with zoom < 1)
+    aug_zoom_min: float = 1.0
+    # ``parity`` fixture mode: head fine-tune steps on cached features
+    # before the evaluation
+    fixture_train_steps: int = 800
 
     # ---- experiment / test (reference test.py:113-129) ----
     experiment_name: str = "eventad_dagr_experiment"
@@ -138,11 +170,22 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
+def load_yaml_overlay(cfg: Config, path: str) -> Config:
+    """The keys of a YAML file that name :class:`Config` fields replace
+    them (others are ignored); ``yaml`` is imported only here."""
+    import yaml
+    with open(path) as f:
+        overlay = yaml.safe_load(f) or {}
+    known = {f.name for f in dataclasses.fields(Config)}
+    return cfg.replace(**{k: v for k, v in overlay.items() if k in known})
+
+
 def parse_args(argv=None, **overrides) -> Config:
     """``--field value`` for every :class:`Config` field (booleans as
-    ``true``/``false``, ``event_buckets`` comma-separated); the command line
-    wins over the defaults, ``overrides`` over both.  Unknown arguments are
-    left to the caller's own parser."""
+    ``true``/``false``, ``event_buckets`` comma-separated).  The YAML files
+    named by ``--config`` and then ``--eventad_config`` (where they exist)
+    overlay the defaults, the command line wins over them, ``overrides``
+    over all.  Unknown arguments are left to the caller's own parser."""
     parser = argparse.ArgumentParser(add_help=False)
     for f in dataclasses.fields(Config):
         if isinstance(f.default, bool):
@@ -154,4 +197,9 @@ def parse_args(argv=None, **overrides) -> Config:
         parser.add_argument("--" + f.name, default=None, type=kind)
     ns, _ = parser.parse_known_args(argv)
     cli = {k: v for k, v in vars(ns).items() if v is not None}
-    return Config().replace(**{**cli, **overrides})
+    cfg = Config()
+    for path_key in ("config", "eventad_config"):
+        path = cli.get(path_key, "")
+        if path and Path(path).exists():
+            cfg = load_yaml_overlay(cfg, path)
+    return cfg.replace(**{**cli, **overrides})

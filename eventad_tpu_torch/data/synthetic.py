@@ -6,9 +6,8 @@ import numpy as np
 import torch
 
 from ..config import Config
-from .batching import BatchMeta, EventBatch, queue_ranks
-
-MAX_DETECTIONS = 64   # raw-detection slots per item
+from ..native import queue_ranks
+from .batching import MAX_DETECTIONS, BatchMeta, EventBatch
 
 
 def make_synthetic_batch(cfg: Config, seed: int = 0,
@@ -80,6 +79,9 @@ class SyntheticLoader:
 
     def __len__(self):
         return len(self.items)
+
+    def close(self):
+        """Nothing to stop (a ``Loader`` stops its decode processes)."""
 
 
 synthetic_loader = SyntheticLoader

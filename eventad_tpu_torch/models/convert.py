@@ -7,7 +7,9 @@ serves both packages.  ``load_detector_state`` fills the port's detector
 from the reference package's detector parameters and state, handed over as
 nested containers of numpy arrays, and ``export_detector_state`` /
 ``export_detector_grads`` give the detector's parameters, running
-statistics and gradients back in that layout.
+statistics and gradients back in that layout.  ``load_torch_state_dict``,
+``convert_full_model`` and ``export_torch_checkpoints`` read and write the
+reference's ``.pth`` files (``parity``).
 
 Layouts: torch conv weights OIHW (kept as they are); torch Linear ``[O, I]``
 -> ``[I, O]``; GRU ``[3H, In]`` -> ``[In, 3H]``; spline kernels
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.norm import BatchNorm
-from .dagr import EventADModel
+from .dagr import EventADModel, init_model
 from .gru import GRU
 
 _LAYER_NAMES = ("conv_block1", "layer2", "layer3", "layer4", "layer5")
@@ -126,6 +128,40 @@ def load_reference_state(model: EventADModel,
     return model
 
 
+def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A torch checkpoint's state dict as numpy arrays, unwrapped as the
+    JAX package unwraps it: ``["ema"]``, then ``["model"]``, then
+    ``.state_dict()`` (reference utils/model.py:31-32)."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "ema" in obj:
+        obj = obj["ema"]
+    if isinstance(obj, dict) and "model" in obj:
+        obj = obj["model"]
+    if hasattr(obj, "state_dict"):
+        obj = obj.state_dict()
+    return {k: v.detach().cpu().numpy() for k, v in obj.items()}
+
+
+def convert_full_model(cfg, dagr_path: str, eventad_path: str = None,
+                       device=None):
+    """``(model, bc, mc)`` from the reference's torch checkpoints:
+    ``dagr_s_50.pth`` (backbone, and the CNN branch when ``cfg.use_image``)
+    and optionally ``best_rol.pth`` (the trained EventAD head, reference
+    utils/model.py:80-90; its ``module.`` prefixes stripped and its
+    ``dagr_model.`` keys dropped).  Without ``eventad_path`` the head stays
+    randomly initialised (from seed 0).  On ``device`` (the CUDA card
+    unless the caller names the CPU)."""
+    model, bc, mc = init_model(cfg, torch.Generator().manual_seed(0), device)
+    head_sd = None
+    if eventad_path:
+        head_sd = {k.removeprefix("module."): v for k, v in
+                   load_torch_state_dict(eventad_path).items()
+                   if not k.startswith(("dagr_model.",
+                                        "module.dagr_model."))}
+    load_reference_state(model, load_torch_state_dict(dagr_path), head_sd)
+    return model, bc, mc
+
+
 # ---------------------------------------------------------------------------
 # the inverse: the port's modules -> reference-format state dicts
 # ---------------------------------------------------------------------------
@@ -205,6 +241,19 @@ def export_reference_state(model: EventADModel) -> Dict[str, np.ndarray]:
     out = {DAGR_PREFIX + k: v for k, v in dagr.items()}
     _export_head(out, model.head)
     return out
+
+
+def export_torch_checkpoints(model: EventADModel, dagr_path: str,
+                             eventad_path: str):
+    """Writes reference-format torch files from ``model``: the DAGR state
+    under ``["ema"]``, the EventAD head's under ``["model"]`` (the files
+    ``convert_full_model`` reads back)."""
+    dagr, head = split_reference_state(export_reference_state(model))
+
+    def tensors(d):
+        return {k: torch.from_numpy(v) for k, v in d.items()}
+    torch.save({"ema": tensors(dagr)}, dagr_path)
+    torch.save({"model": tensors(head)}, eventad_path)
 
 
 def split_reference_state(sd: Mapping):

@@ -119,6 +119,23 @@ def dagr_extract_features(dagr: DAGR, pos, polarity, valid, image,
     return backbone_forward(dagr.backbone, g0, feats, bc)
 
 
+def box_inputs(dagr: DAGR, batch: EventBatch, bc: BackboneConfig,
+               gsc: tuple):
+    """The head's inputs from the frozen feature path, without gradients:
+    ``(feats [B, 2, S, C] f32, coords [B, S, 4])``, the box features of
+    both frames and the current frame's boxes normalised by the image
+    size."""
+    with torch.no_grad():
+        _, out4 = dagr_extract_features(
+            dagr, batch.pos, batch.polarity, batch.valid, batch.image, bc,
+            gsc, ranks=batch.rank)
+        feats = extract_box_features(out4, batch.boxes, batch.box_present,
+                                     bc.batch_size, bc.width, bc.height)
+        denom = constant((bc.width, bc.height, bc.width, bc.height),
+                         torch.float32, feats.device)
+        return feats.to(torch.float32), batch.boxes[:, 1] / denom
+
+
 def model_forward(model: EventADModel, batch: EventBatch, bc: BackboneConfig,
                   mc: EventADConfig, gsc: tuple, *, training: bool = False,
                   generator: torch.Generator = None) -> EventADOutputs:
@@ -127,16 +144,7 @@ def model_forward(model: EventADModel, batch: EventBatch, bc: BackboneConfig,
     frozen feature path's compute dtype) and records them when
     ``training``.  ``generator`` seeds the head's dropout (off without
     one)."""
-    with torch.no_grad():
-        _, out4 = dagr_extract_features(
-            model.dagr, batch.pos, batch.polarity, batch.valid, batch.image,
-            bc, gsc, ranks=batch.rank)
-        feats = extract_box_features(out4, batch.boxes, batch.box_present,
-                                     bc.batch_size, bc.width, bc.height)
-        feats = feats.to(torch.float32)
-        denom = constant((bc.width, bc.height, bc.width, bc.height),
-                         torch.float32, feats.device)
-        coords = batch.boxes[:, 1] / denom
+    feats, coords = box_inputs(model.dagr, batch, bc, gsc)
     with torch.set_grad_enabled(training):
         return eventad_forward(model.head, mc, feats, coords,
                                batch.box_present[:, 1], batch.box_labels,

@@ -4,17 +4,22 @@ loss, LR schedule and EMA): the whole detector trains, through the
 backbone and the ResNet, on the simOTA loss; AdamW (or SGD) after a
 global-norm clip, on a YOLOX warm-up + cosine schedule; an EMA of the
 weights; per epoch the mAP of the EMA weights on the validation batches,
-then ``detector_latest.pt``.
+then ``detector_latest.pt``; losses and metrics also go to a ``RunLogger``
+(``<output_dir>/results/<experiment>_det_<stamp>/metrics.jsonl``).
 
+    python -m eventad_tpu_torch.train_detector --synthetic_data true \\
+        --dataset_directory /tmp/synth --epochs 2 --output_dir out
     python -m eventad_tpu_torch.train_detector --epochs 2 \\
         --train_batches 4 --val_batches 2 --output_dir out
 
-``fit_detector`` takes any loaders of ``(EventBatch, BatchMeta)``; ``main``
-builds in-memory synthetic ones (``--train_batches``, ``--val_batches``),
-as the port's ``train`` does: the on-disk loader, its augmentations and
-the run logger are not ported yet.  The final ``no_aug_epochs`` epochs
-switch the L1 branch on.  Runs on the CUDA card unless ``--device cpu`` is
-given.
+``main`` reads the "train" split of ``dataset_directory`` (through the
+training transform with ``--use_augmentations true``) and "val" through
+``SequenceDataset`` and ``Loader``, as the port's ``train`` does;
+``--train_batches N`` / ``--val_batches N`` read in-memory synthetic
+batches instead.  ``fit_detector`` takes any loaders of ``(EventBatch,
+BatchMeta)``.  The final ``no_aug_epochs`` epochs switch the L1 branch on
+and the augmentations off.  Runs on the CUDA card unless ``--device cpu``
+is given.
 """
 from __future__ import annotations
 
@@ -33,9 +38,11 @@ from .models.yolox_loss import (AnchorGeometry, convert_to_training_format,
                                 logits_of_decoded, make_anchor_geometry,
                                 yolox_loss)
 from .test_detector import detection_metrics
-from .train import loader_args
+from .train import dataset_loaders, loader_args, prepare_dataset
 from .utils.checkpoint import save_detector_checkpoint
 from .utils.ema import EMAState, ema_init, ema_update, ema_weights
+from .utils.logging import RunLogger
+from .utils.result import setup_directories
 from .utils.schedules import make_detector_optimizer, yolox_schedule
 
 
@@ -74,7 +81,10 @@ def make_detector_train_step(detector: Detector, cfg: Config,
 def fit_detector(cfg: Config, train_loader, val_loader, *,
                  device=None) -> dict:
     """Trains the detector for ``cfg.epochs`` epochs; returns
-    ``dict(detector, ema, optimizer, history, checkpoint)``."""
+    ``dict(detector, ema, optimizer, history, checkpoint)``.  In the
+    no-aug epochs a dataset behind ``train_loader`` (``train_loader.ds``)
+    loses its transform, and the loader's decode processes, which hold a
+    copy of it, are stopped so that the next epoch starts them anew."""
     dev = resolve_device(device)
     detector, bc = init_detector(
         cfg, torch.Generator().manual_seed(cfg.seed), dev)
@@ -86,9 +96,10 @@ def fit_detector(cfg: Config, train_loader, val_loader, *,
                                         schedule, cfg.weight_decay, cfg.clip)
     ema = ema_init(detector.parameters())
     train_step = make_detector_train_step(detector, cfg, bc, optimizer, geom)
-    stamp = time.strftime("%Y%m%d_%H%M%S")
-    path = (Path(cfg.output_dir) / "models"
-            / f"{cfg.experiment_name}_det_{stamp}" / "detector_latest.pt")
+    dirs = setup_directories(cfg.output_dir, cfg.experiment_name + "_det",
+                             "train")
+    path = Path(dirs["model_dir"]) / "detector_latest.pt"
+    logger = RunLogger(dirs["result_dir"], hparams=cfg)
 
     history, step = [], 0
     for epoch in range(cfg.epochs):
@@ -97,6 +108,11 @@ def fit_detector(cfg: Config, train_loader, val_loader, *,
         no_aug = (cfg.no_aug_epochs > 0
                   and epoch >= cfg.epochs - cfg.no_aug_epochs)
         l1_weight = 1.0 if no_aug else 0.0
+        ds = getattr(train_loader, "ds", None)
+        if no_aug and getattr(ds, "transform", None) is not None:
+            print(f"epoch {epoch}: no-aug phase (L1 on, augmentations off)")
+            ds.transform = None
+            train_loader.close()
         losses = None
         for batch, _meta in train_loader:
             if not bool(batch.bbox_mask.any()):
@@ -104,20 +120,24 @@ def fit_detector(cfg: Config, train_loader, val_loader, *,
             ema, losses = train_step(batch.to(dev), ema, l1_weight)
             step += 1
             if step % 20 == 0:
+                logged = {k: float(v) for k, v in losses.items()}
+                logger.log(logged, step=step)
                 print(f"step {step}: " + " ".join(
-                    f"{k} {float(v):.4f}" for k, v in losses.items()))
+                    f"{k} {v:.4f}" for k, v in logged.items()))
         # the mAP of the EMA weights on the live running statistics
         with torch.no_grad(), ema_weights(detector.parameters(), ema):
             metrics = detection_metrics(detector, val_loader, cfg, bc, dev)
         last = {k: float(v) for k, v in (losses or {}).items()}
         history.append(dict(epoch=epoch, l1_weight=l1_weight, **last,
                             **metrics))
+        logger.log({"epoch": epoch, **metrics})
         print(f"epoch {epoch}: loss {last.get('total', float('nan')):.4f} "
               f"mAP {metrics['mAP']:.4f} mAP50 {metrics['mAP_50']:.4f} "
               f"lr {schedule(step):.2e} ({time.time() - t0:.1f}s)",
               flush=True)
         save_detector_checkpoint(path, detector, ema, optimizer,
                                  dict(epoch=epoch, **metrics))
+    logger.close()
     print(f"checkpoint: {path}")
     return dict(detector=detector, ema=ema, optimizer=optimizer,
                 history=history, checkpoint=path)
@@ -128,12 +148,21 @@ def main(argv=None):
     args = loader_args(argv)
     dev = resolve_device(args.device)
     print(f"device: {dev}")
-    train_loader = synthetic_loader(cfg, args.train_batches, seed=cfg.seed)
-    val_loader = synthetic_loader(cfg, args.val_batches,
-                                  seed=cfg.seed + 10_000)
-    print(f"train batches: {len(train_loader)}, val batches: "
-          f"{len(val_loader)}")
-    return fit_detector(cfg, train_loader, val_loader, device=dev)
+    if args.in_memory:
+        train_loader = synthetic_loader(cfg, args.train_batches,
+                                        seed=cfg.seed)
+        val_loader = synthetic_loader(cfg, args.val_batches,
+                                      seed=cfg.seed + 10_000)
+        print(f"train batches: {len(train_loader)}, val batches: "
+              f"{len(val_loader)} (in memory)")
+    else:
+        cfg = prepare_dataset(cfg)
+        train_loader, val_loader = dataset_loaders(cfg, "train")
+    try:
+        return fit_detector(cfg, train_loader, val_loader, device=dev)
+    finally:
+        train_loader.close()
+        val_loader.close()
 
 
 if __name__ == "__main__":

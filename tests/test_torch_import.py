@@ -25,6 +25,7 @@ from eventad_tpu_torch.parallel.train_step import (make_optimizer,
                                                    make_train_fns)
 from eventad_tpu_torch.bench_detector import main as bench_detector_main
 from eventad_tpu_torch.models.detector import init_detector
+from eventad_tpu_torch.parity import main as parity_main
 from eventad_tpu_torch.test import main as evaluate_main
 from eventad_tpu_torch.test_detector import main as detector_eval_main
 from eventad_tpu_torch.tools.check_fused import main as check_fused_main
@@ -44,7 +45,8 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):
 bad = sorted(n for n in sys.modules
              if n.split('.')[0] in ('jax', 'jaxlib', 'yaml', 'ml_dtypes',
                                     'eventad_tpu', 'triton', 'optax',
-                                    'sklearn', 'h5py'))
+                                    'sklearn', 'h5py', 'cv2', 'matplotlib',
+                                    'wandb'))
 print('MODULES', sum(n.startswith(pkg.__name__) for n in sys.modules))
 print('BAD', bad)
 print('HAS', sorted(n for n in sys.modules if n.startswith(pkg.__name__)))
@@ -59,9 +61,12 @@ def test_port_imports_no_jax_yaml_or_reference_package():
     n_mods = int(res.stdout.split("MODULES")[1].split()[0])
     # the training, detection and kernel-flavour modules included
     assert n_mods >= 40, res.stdout
-    # detector training's modules among them
+    # detector training's modules among them, and the data layer's
     for name in ("train_detector", "models.yolox_loss", "utils.ema",
-                 "utils.schedules"):
+                 "utils.schedules", "native", "data.h5io", "data.tracks",
+                 "data.dataset", "data.augment", "data.fixtures",
+                 "data.batching", "utils.result", "utils.logging",
+                 "utils.visualization", "utils.viz", "parity"):
         assert f"'eventad_tpu_torch.{name}'" in res.stdout, name
 
 
@@ -81,7 +86,7 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_detector(cfg)
     for main in (train_main, evaluate_main, detector_eval_main,
-                 train_detector_main):
+                 train_detector_main, parity_main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--batch_size", "1"])
     for main in (bench_detector_main, check_fused_main):
