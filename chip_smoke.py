@@ -171,6 +171,26 @@ exits non-zero without printing a result:
    within 1e-3, mTTA and mRESPONSE equal, the score digests within 1e-3
    relative; a head trained on the card must lower its loss and give
    finite metrics.
+12. The ``bench`` module's two records (``bench.run``: the headline and
+   the head-training figure, with the card's name and power limit), then
+   the parallel paths of ``parallel/`` on a world-size-1 NCCL group made
+   through a ``FileStore`` (one card: NCCL refuses two ranks on one card),
+   each against the same work without a group, from deep copies of the
+   same weights: the data-parallel eval in bf16 on mesh "1" (logits within
+   1e-6 of scale, valid slots and labels equal); the f32 head step with
+   dropout on, under ``torch.use_deterministic_algorithms`` (loss within
+   1e-6 relative, each head leaf's gradient and updated value within 1e-6
+   of its scale, beside the plain step run twice; running statistics
+   equal); the detector's f32 step on mesh "1x1" (losses within
+   1e-5 relative); ``seq_sharded_features`` at D = 1 against the streaming
+   ``refresh`` on one stream of the operating point's length (f32 within
+   1e-5 of each level's scale, bf16 within 2e-2).  Each kernel's launches
+   on the mesh must equal those without a group and include the path's
+   kernels (K1 and K6a; K1-K4; K1, K6a and K6b; K1 and K6a, with K3 in
+   bf16); records gain ``dp_train_step_launches``, ``dp_eval_launches``,
+   ``dp_detector_step_launches`` and ``seq_sp_launches``.  Then the f32
+   head step's median time with and without the group, and a
+   ``{"parallel_times": ...}`` JSON line.
 
 Each kernel's record also holds ``bound_ms``, the least time the card could
 take for the same work: the larger of its bytes (every input read once,
@@ -1984,6 +2004,269 @@ def loader_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, records,
     return times
 
 
+# phase 12: the ``bench`` module's records, and the parallel paths of
+# ``parallel/`` at world size 1 under NCCL against the same work without a
+# process group (one card: NCCL refuses two ranks on one card)
+# the DP head step against the plain one, relative: the loss, and each head
+# leaf (its gradient, and its value after the update) of that leaf's
+# scale.  The steps run under torch.use_deterministic_algorithms: the
+# feature path's index_add_ (the pooled cells' mean positions,
+# ops/pooling.py) sums with CUDA atomics in an order that varies from run
+# to run, ~1e-7 of the features, which Adam's first update turns into up
+# to the rate where a gradient is small
+DP_LOSS_TOL = 1e-6
+DP_LEAF_TOL = 1e-6
+DP_EVAL_TOL = 1e-6        # of the logits' scale
+DP_DET_LOSS_TOL = 1e-5    # relative, the 1x1 detector step's losses
+SEQ_SP_TOL = 1e-5         # of each level's scale, f32 (the JAX tool's bound)
+SEQ_SP_BF16_TOL = KERNEL_TOL
+DP_TIMED_STEPS = 5
+
+
+def parallel_phase(dev, smi, cfg, model, bc, mc, gsc, records, counters):
+    """Phase 12 (see the module docstring).  ``model`` is the operating
+    point's seed-0 model (the bench's weights; its head moves)."""
+    import copy
+
+    import torch.distributed as dist
+
+    from eventad_tpu_torch import bench
+    from eventad_tpu_torch.data.synthetic import make_synthetic_batch
+    from eventad_tpu_torch.models import detector as tdet
+    from eventad_tpu_torch.ops import gather_window as gw
+    from eventad_tpu_torch.parallel.mesh import (init_distributed,
+                                                 make_mesh, shard_batch)
+    from eventad_tpu_torch.parallel.seq_shard import seq_sharded_features
+    from eventad_tpu_torch.parallel.sharding import (shard_params,
+                                                     sharded_init)
+    from eventad_tpu_torch.parallel.train_step import (make_optimizer,
+                                                       make_train_fns)
+    from eventad_tpu_torch.streaming import incremental as inc
+    from eventad_tpu_torch.train_detector import (anchor_geometry,
+                                                  make_detector_train_step)
+    from eventad_tpu_torch.utils.ema import ema_init
+    from eventad_tpu_torch.utils.schedules import make_detector_optimizer
+
+    counters = dict(counters, gather_window_rows=gw.gather_window_rows_cuda,
+                    scatter_window_rows=gw.scatter_window_rows_cuda)
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {n: c.launches for n, c in counters.items()
+                     if c.launches}
+
+    def same_launches(what, plain, par, need):
+        log(f"{what}: launches without a group {plain}, on the mesh {par}")
+        if plain != par or not set(need) <= set(par):
+            raise AssertionError(f"{what}: launches {par} on the mesh, "
+                                 f"{plain} without a group (needs {need})")
+
+    # ---- 12.1 the bench module's two records ----
+    batch = make_synthetic_batch(cfg, boxes_per_item=BOXES_PER_ITEM).to(dev)
+    print(smi, flush=True)
+    rec = bench.run(model, batch, cfg, bc, mc, gsc, smi)
+    for key in ("value", "pipelined_bboxes_per_sec", "train_items_per_sec"):
+        if not rec[key] > 0:
+            raise AssertionError(f"bench: {key} {rec[key]}")
+
+    # ---- 12.2 a world-size-1 NCCL group through a FileStore ----
+    store = Path(tempfile.mkdtemp()) / "store"
+    init_distributed(dev, store_path=store, rank=0, world_size=1)
+    log(f"process group: {dist.get_backend()}, world size "
+        f"{dist.get_world_size()}")
+    try:
+        mesh = make_mesh("1")
+        bc32 = bc._replace(compute_dtype="float32")
+        batch1 = make_synthetic_batch(cfg, seed=1,
+                                      boxes_per_item=BOXES_PER_ITEM).to(dev)
+        plain_m = copy.deepcopy(model)
+        dp_m = copy.deepcopy(model)
+
+        def fns(m, bcx, mesh=None):
+            opt = make_optimizer(m.head.parameters(), cfg.learning_rate,
+                                 cfg.weight_decay, cfg.grad_clip)
+            return make_train_fns(m, bcx, mc, gsc, opt, dev, mesh=mesh)
+        # ---- 12.3 DP eval in bf16 (the copies as they are) ----
+        plain16, dp16 = fns(plain_m, bc), fns(dp_m, bc, mesh)
+        with torch.no_grad():
+            ev_p, e_p = counted(lambda: plain16.eval_step(batch1))
+            ev_d, e_d = counted(lambda: dp16.eval_step(
+                shard_batch(batch1, mesh)))
+        ev_err = float((ev_d[0] - ev_p[0]).abs().max()
+                       / (ev_p[0].abs().max() + 1e-12))
+        log(f"DP eval (bf16, mesh 1): logits {tuple(ev_d[0].shape)}, "
+            f"{ev_err:.3g} of scale from the plain eval (bit-identical "
+            f"{torch.equal(ev_d[0], ev_p[0])}; tolerance {DP_EVAL_TOL}), "
+            f"valid and labels equal {torch.equal(ev_d[1], ev_p[1])} "
+            f"{torch.equal(ev_d[2], ev_p[2])}")
+        if not (ev_err <= DP_EVAL_TOL and torch.equal(ev_d[1], ev_p[1])
+                and torch.equal(ev_d[2], ev_p[2])):
+            raise AssertionError("DP eval differs from the plain eval")
+        same_launches("DP eval", e_p, e_d,
+                      ("event_graph_search", "spline_fused_level0",
+                       "spline_shift_pooled", "upsample_rows"))
+        # ---- 12.4 the DP head step in f32, and the plain step twice ----
+        ctl_m = copy.deepcopy(plain_m)
+        plain, dp = fns(plain_m, bc32), fns(dp_m, bc32, mesh)
+        gens = [torch.Generator(device=dev).manual_seed(1) for _ in "abc"]
+        # an op without a deterministic version warns on stderr
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            out_p, n_p = counted(lambda: plain.train_step(batch1, gens[0]))
+            out_d, n_d = counted(lambda: dp.train_step(
+                shard_batch(batch1, mesh), gens[1]))
+            out_c = fns(ctl_m, bc32).train_step(batch1, gens[2])
+        finally:
+            torch.use_deterministic_algorithms(False)
+        lp, ld, lc = (float(o["loss"]) for o in (out_p, out_d, out_c))
+
+        def worst(m, ref, of):
+            """The worst head leaf (``of(p)``: the parameter or its
+            gradient) of ``m`` from ``ref``'s, of that leaf's scale."""
+            return max(float((of(a) - of(b)).abs().max()
+                             / (of(b).abs().max() + 1e-12))
+                       for a, b in zip(m.head.parameters(),
+                                       ref.head.parameters()))
+        grad = lambda p: p.grad  # noqa: E731
+        leaf = lambda p: p.detach()  # noqa: E731
+        g_err, g_ctl = worst(dp_m, plain_m, grad), worst(ctl_m, plain_m,
+                                                         grad)
+        l_err, l_ctl = worst(dp_m, plain_m, leaf), worst(ctl_m, plain_m,
+                                                         leaf)
+        stats_equal = all(torch.equal(a, b) for a, b in zip(
+            dp_m.buffers(), plain_m.buffers()))
+        log(f"DP head step (f32, dropout on, mesh 1, deterministic "
+            f"algorithms): loss {ld} vs {lp} without a group (the plain "
+            f"step again: {lc}); head gradients (after the clip) worst "
+            f"{g_err:.3g} of scale, leaves after the update worst "
+            f"{l_err:.3g} (tolerance {DP_LEAF_TOL}; the plain step again "
+            f"{g_ctl:.3g} / {l_ctl:.3g}); running statistics equal "
+            f"{stats_equal}")
+        if not (abs(ld - lp) <= DP_LOSS_TOL * abs(lp)
+                and g_err <= DP_LEAF_TOL and l_err <= DP_LEAF_TOL
+                and stats_equal and out_d["finite"] and out_p["finite"]):
+            raise AssertionError("DP head step differs from the plain one")
+        del ctl_m
+        same_launches("DP head step", n_p, n_d,
+                      ("event_graph_search", "gather_window_rows"))
+        step_ms = {}
+        for name, f, b in (("plain", plain, batch1),
+                           ("mesh", dp, shard_batch(batch1, mesh))):
+            ts = []
+            for _ in range(DP_TIMED_STEPS):
+                t0 = time.perf_counter()
+                f.train_step(b, gens[0])
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            step_ms[name] = sorted(ts)[len(ts) // 2]
+        del plain_m, dp_m, plain, dp, plain16, dp16
+
+        # ---- 12.5 the detector's step on mesh 1x1 ----
+        cfg32 = cfg.replace(compute_dtype="float32")
+        det_p, bcd = tdet.init_detector(
+            cfg32, torch.Generator().manual_seed(0), dev)
+        det_d = copy.deepcopy(det_p)
+        geom = anchor_geometry(bcd, dev)
+        mesh11 = make_mesh("1x1")
+        sharded = shard_params(det_d, mesh11)
+
+        def det_step(det, params, sh):
+            opt = make_detector_optimizer(
+                params, cfg32.optimizer, lambda step: cfg32.lr,
+                cfg32.weight_decay, cfg32.clip,
+                grad_norm=None if sh is None else sh.grad_norm)
+            return make_detector_train_step(det, cfg32, bcd, opt, geom, sh)
+        step_p = det_step(det_p, list(det_p.parameters()), None)
+        step_d = det_step(det_d, sharded.locals, sharded)
+        ema_p = ema_init(det_p.parameters())
+        ema_d = sharded_init(ema_init, sharded)
+        (_, loss_p), d_p = counted(lambda: step_p(batch1, ema_p))
+        (_, loss_d), d_d = counted(lambda: step_d(
+            shard_batch(batch1, mesh11), ema_d))
+        loss_d = {k: float(v) for k, v in loss_d.items()}
+        worst = max(abs(loss_d[k] - float(v)) / max(abs(float(v)), 1e-12)
+                    for k, v in loss_p.items())
+        log(f"detector step (f32, mesh 1x1, {sharded.n_sharded} weights "
+            f"sharded): losses {loss_d}, worst {worst:.3g} relative from "
+            f"the replicated step's (tolerance {DP_DET_LOSS_TOL})")
+        if not worst <= DP_DET_LOSS_TOL:
+            raise AssertionError("the 1x1 detector step's losses differ")
+        same_launches("detector step", d_p, d_d,
+                      ("event_graph_search", "gather_window_rows",
+                       "scatter_window_rows"))
+        del det_p, det_d, sharded, step_p, step_d, ema_p, ema_d
+
+        # ---- 12.6 seq_sharded_features at D = 1 against refresh ----
+        n = cfg.event_buckets[0]
+        cfg1 = cfg.replace(batch_size=1)
+        g = torch.Generator().manual_seed(5)
+        pos = torch.stack([
+            torch.randint(0, cfg1.model_width, (n,), generator=g),
+            torch.randint(0, cfg1.model_height, (n,), generator=g),
+            1_000_000 + torch.sort(torch.randint(0, 200_000, (n,),
+                                                 generator=g)).values],
+            1).to(torch.int32).to(dev)
+        pol = (torch.randint(0, 2, (n,), generator=g) * 2 - 1).float() \
+            .to(dev)
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        image = torch.rand((cfg1.model_height, cfg1.model_width, 3),
+                           generator=g).to(dev)
+        seq_launches = {}
+        for dt_name, bcx, tol in (
+                ("float32", bc32._replace(batch_size=1), SEQ_SP_TOL),
+                ("bfloat16", bc._replace(batch_size=1), SEQ_SP_BF16_TOL)):
+            st = inc.update_image(model, inc.init_incremental_state(
+                n, bcx, mc, cfg1.max_neighbors, dev), image)
+            refresh, _ = inc.make_incremental_step(model, bcx, mc, gsc,
+                                                   n_chunk=256, n_buf=n)
+            ref_st = refresh(inc.insert_raw(st, pos, pol, n))
+            with torch.no_grad():
+                ref = inc.pooled_backbone_outs(
+                    model, bcx, ref_st,
+                    inc._norm_pos(ref_st.pos, ref_st.t_now, gsc), gsc)
+            outs, seq_n = counted(lambda: seq_sharded_features(
+                model, bcx, gsc, pos, pol, valid, st.image_feats,
+                make_mesh("1")))
+            errs = []
+            for gr, gs in zip(ref, outs):
+                if not torch.equal(gr.node_mask, gs.node_mask):
+                    raise AssertionError("seq SP: active cells differ")
+                m = gr.node_mask[:, None]
+                xr = torch.where(m, gr.x.float(), 0.0)
+                xs = torch.where(m, gs.x.float(), 0.0)
+                errs.append(float((xr - xs).abs().max()
+                                  / (xr.abs().max() + 1e-6)))
+            log(f"seq_sharded_features ({dt_name}, D = 1, {n} events, "
+                f"lookback {cfg1.graph_lookback}) vs refresh: out3/out4 "
+                f"{errs} of scale (tolerance {tol}); launches {seq_n}")
+            if not max(errs) <= tol:
+                raise AssertionError(f"seq SP ({dt_name}) differs from "
+                                     f"refresh: {errs}")
+            need = {"event_graph_search", "gather_window_rows"}
+            if dt_name == "bfloat16":
+                need.add("spline_shift_pooled")
+            if not need <= set(seq_n):
+                raise AssertionError(f"seq SP ({dt_name}) launched {seq_n}")
+            seq_launches[dt_name] = seq_n
+    finally:
+        dist.destroy_process_group()
+    times = dict(card=smi, head_step_ms=step_ms, bench=rec)
+    log(f"parallel times on {smi}: f32 head step median of "
+        f"{DP_TIMED_STEPS}: {step_ms['plain']:.2f} ms without a group, "
+        f"{step_ms['mesh']:.2f} ms on the world-size-1 mesh")
+    for r in records:
+        r["dp_train_step_launches"] = n_d.get(r["name"], 0)
+        r["dp_eval_launches"] = e_d.get(r["name"], 0)
+        r["dp_detector_step_launches"] = d_d.get(r["name"], 0)
+        r["seq_sp_launches"] = {k: v.get(r["name"], 0)
+                                for k, v in seq_launches.items()}
+    print(json.dumps({"parallel_times": times}), flush=True)
+    return times
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke run needs "
@@ -3141,6 +3424,10 @@ def main():
     # ---- 11. the Loader feeding the card, the fixture's metrics ----
     loader_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, records,
                  zero_counters, read_counters)
+
+    # ---- 12. the bench module and the parallel paths ----
+    parallel_phase(dev, smi, cfg, model, bc, mc, gsc, records,
+                   all_counters)
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,12 @@
 ``eventad_tpu.config.Config`` without jax.
 
 Only the fields the port reads are carried (the scoring forward, head
-training, evaluation, detection serving and training, the data layer and
-``parity``), with the same names and defaults (reference dagr-S /
-EventAD values, ``eventad_tpu/config/defaults.py``).  ``parse_args`` gives
-the same ``--field value`` command line and the same YAML overlays
-(``--config``, ``--eventad_config``; CLI > YAML > defaults).
+training, evaluation, detection serving and training, the data layer,
+``parity`` and the process mesh), with the same names and defaults
+(reference dagr-S / EventAD values, ``eventad_tpu/config/defaults.py``).
+``parse_args`` gives the same ``--field value`` command line and the same
+YAML overlays (``--config``, ``--eventad_config``; CLI > YAML >
+defaults).
 """
 from __future__ import annotations
 
@@ -119,6 +120,10 @@ class Config:
     graph_lookback: int = 1024
     max_queue_size: int = 128
     compute_dtype: str = "float32"
+
+    # ---- parallelism (eventad_tpu/config/defaults.py:97-98): "N" data
+    # parallel, "NxM" data x model; the processes come from torchrun ----
+    mesh: str = "1"
 
     @property
     def model_width(self) -> int:

@@ -50,6 +50,10 @@ class EventBatch(NamedTuple):
     def to(self, device) -> "EventBatch":
         return EventBatch(*(a.to(device) for a in self))
 
+    def select(self, items: slice) -> "EventBatch":
+        """The batch of the items ``items`` (every field's leading axis)."""
+        return EventBatch(*(a[items] for a in self))
+
     def is_empty(self) -> bool:
         """No current-frame box in the whole batch: the training and
         evaluation loops skip such a batch."""
@@ -84,6 +88,17 @@ def _batch_specs(cfg: Config, n_cap: int, d: int = MAX_DETECTIONS):
         ("bbox0_mask", np.bool_, (b, d)),
         ("bbox", np.float32, (b, d, 6)),
     ]
+
+
+def rank_items(batch_size: int, rank: int, world: int) -> slice:
+    """The items of a ``batch_size`` batch that rank ``rank`` of ``world``
+    data-parallel ranks holds: a contiguous block, rank 0 first, so that
+    the ranks' blocks in rank order are the batch in item order."""
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} does not divide over "
+                         f"{world} data-parallel ranks")
+    b = batch_size // world
+    return slice(rank * b, (rank + 1) * b)
 
 
 def pick_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -242,13 +257,22 @@ class Loader:
     caller's.  Every mode yields the same batches.  The dataset is pickled
     to the workers (h5 handles dropped; each reopens its own).
     ``truncated_events`` counts the events dropped by overflowing items;
-    the first truncation warns.  ``close()`` stops the pool."""
+    the first truncation warns.  ``close()`` stops the pool.
+
+    ``rank`` / ``world``: rank ``rank`` of ``world`` data-parallel ranks
+    loads its block of every batch of ``cfg.batch_size`` items
+    (:func:`rank_items`), ``cfg.batch_size / world`` items padded to that
+    size; the ranks' batches in rank order hold the items of the
+    single-process batches, in their order."""
 
     def __init__(self, dataset, cfg: Config, shuffle: bool = False,
                  seed: int = 0, drop_last: bool = False,
-                 prefetch: int = 2, num_workers: Optional[int] = None):
+                 prefetch: int = 2, num_workers: Optional[int] = None,
+                 rank: int = 0, world: int = 1):
         self.ds = dataset
-        self.cfg = cfg
+        self.global_batch = cfg.batch_size
+        self.items = rank_items(cfg.batch_size, rank, world)
+        self.cfg = cfg.replace(batch_size=cfg.batch_size // world)
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
@@ -273,7 +297,7 @@ class Loader:
 
     def __len__(self):
         n = len(self.ds)
-        b = self.cfg.batch_size
+        b = self.global_batch
         return n // b if self.drop_last else -(-n // b)
 
     def mode(self) -> str:
@@ -306,8 +330,8 @@ class Loader:
             yield batch, meta
 
     def _chunk(self, order, i):
-        b = self.cfg.batch_size
-        return order[i * b:(i + 1) * b]
+        b = self.global_batch
+        return order[i * b:(i + 1) * b][self.items]
 
     def _iter_serial(self, order, n_batches):
         for i in range(n_batches):

@@ -7,7 +7,7 @@ import torch
 
 from ..config import Config
 from ..native import queue_ranks
-from .batching import MAX_DETECTIONS, BatchMeta, EventBatch
+from .batching import MAX_DETECTIONS, BatchMeta, EventBatch, rank_items
 
 
 def make_synthetic_batch(cfg: Config, seed: int = 0,
@@ -59,20 +59,24 @@ class SyntheticLoader:
     batches (seeds ``seed``, ``seed + 1``, ...), made once and yielded as
     ``(EventBatch, BatchMeta)`` in the same order on every pass.  Batch
     ``i`` holds ``batch_size`` consecutive frames of the video
-    ``synthetic_<i // batches_per_video>``."""
+    ``synthetic_<i // batches_per_video>``.  ``rank`` / ``world``: the
+    rank's block of every batch, as ``Loader`` gives it."""
 
     def __init__(self, cfg: Config, n_batches: int, seed: int = 0, *,
-                 boxes_per_item: int = 4, batches_per_video: int = 2):
+                 boxes_per_item: int = 4, batches_per_video: int = 2,
+                 rank: int = 0, world: int = 1):
         b = cfg.batch_size
+        part = rank_items(b, rank, world)
         self.items = []
         for i in range(n_batches):
             batch = make_synthetic_batch(cfg, seed=seed + i,
                                          boxes_per_item=boxes_per_item)
             first = (i % batches_per_video) * b
+            frames = list(range(first, first + b))[part]
             meta = BatchMeta(
-                sequences=[f"synthetic_{i // batches_per_video:04d}"] * b,
-                frame_ids=list(range(first, first + b)), n_items=b)
-            self.items.append((batch, meta))
+                sequences=[f"synthetic_{i // batches_per_video:04d}"]
+                * len(frames), frame_ids=frames, n_items=len(frames))
+            self.items.append((batch.select(part), meta))
 
     def __iter__(self):
         return iter(self.items)

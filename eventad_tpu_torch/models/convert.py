@@ -387,18 +387,22 @@ def load_detector_state(detector, params, state):
 # the inverse for the detector: the port's modules -> the reference
 # package's DetectorParams / DetectorState layout
 # ---------------------------------------------------------------------------
+HWIO_AXES = (2, 3, 1, 0)   # np.transpose's axes from OIHW to HWIO
+
+
 def _hwio(w: np.ndarray) -> np.ndarray:
     """A conv kernel in the port's OIHW layout as HWIO."""
-    return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+    return np.ascontiguousarray(np.transpose(w, HWIO_AXES))
 
 
-def _detector_tree(detector, param, buffer):
+def _detector_tree(detector, param, buffer, conv=None):
     """``(params, state)`` of ``detector`` in the reference package's
     layout: its named tuples as ``SimpleNamespace``s (the same field
     names), its dicts as dicts, its tuples and lists as lists; the leaves
     ``param(p)`` of every parameter, ``buffer(b)`` of every running
     statistic.  Conv kernels of the image branch and the CNN head go from
-    OIHW to HWIO; spline kernels, roots and linear maps are verbatim."""
+    OIHW to HWIO (``conv(w)`` in place of that where given); spline
+    kernels, roots and linear maps are verbatim."""
     ns = SimpleNamespace
 
     def bn_p(bn):
@@ -418,7 +422,7 @@ def _detector_tree(detector, param, buffer):
                   bias=None if conv.bias is None else param(conv.bias))
 
     def conv_w(w):
-        return _hwio(param(w))
+        return conv(w) if conv is not None else _hwio(param(w))
 
     layers_p, layers_s = [], []
     for layer in detector.dagr.backbone.layers:
@@ -499,6 +503,21 @@ def export_detector_state(detector):
     lists, numpy arrays as leaves), which :func:`load_detector_state` reads
     back."""
     return _detector_tree(detector, _np, _np)
+
+
+def detector_layout_axes(detector) -> Dict[torch.nn.Parameter, tuple]:
+    """Every parameter of ``detector`` -> the axes (``np.transpose``'s)
+    that lay it out as the reference package lays out its counterpart:
+    :data:`HWIO_AXES` for the conv kernels, the identity for the rest."""
+    axes = {}
+
+    def param(p):
+        axes[p] = tuple(range(p.dim()))
+
+    def conv(w):
+        axes[w] = HWIO_AXES
+    _detector_tree(detector, param, lambda b: None, conv)
+    return axes
 
 
 def export_detector_grads(detector):

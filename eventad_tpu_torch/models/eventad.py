@@ -96,12 +96,14 @@ def eventad_forward(head: EventADHead, mc: EventADConfig,
                     features: torch.Tensor, coords: torch.Tensor,
                     bbox_present: torch.Tensor,
                     labels: torch.Tensor, *, training: bool = False,
-                    generator: torch.Generator = None) -> EventADOutputs:
+                    generator: torch.Generator = None,
+                    loss_items: slice = slice(None)) -> EventADOutputs:
     """``features [B, 2, S, x_dim]``, ``coords [B, S, 4]`` normalized xywh,
     ``bbox_present [B, S]``, ``labels [B, S]``.  Dropout (``mc.dropout``,
     between the event GRU's layers and before the last fusion layer) is
     active only when ``training`` and a ``generator`` on the features'
-    device is given."""
+    device is given.  ``loss`` sums the items ``loss_items`` (all by
+    default; a data-parallel rank sums its own)."""
     b, _, s1, _ = features.shape
     dev = features.device
     curr_feat = features[:, 1]
@@ -135,5 +137,5 @@ def eventad_forward(head: EventADHead, mc: EventADConfig,
         seen = seen | v
         all_logits.append(logits)
     return EventADOutputs(torch.stack(all_logits), valid, labels,
-                          torch.stack(losses).sum(),
+                          torch.stack(losses[loss_items]).sum(),
                           valid.sum().to(torch.int32))

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.norm import MOMENTUM, BatchNorm, batch_norm
+from ..ops.norm import MOMENTUM, BatchNorm, batch_norm, channel_statistics
 from ..ops.spline_basis import ACTS
 from ..ops.spline_conv import SplineConv, spline_conv
 from .backbone import BackboneConfig, ConvBlock
@@ -159,13 +159,12 @@ def _base_conv(x: torch.Tensor, m: BaseConv, training: bool,
     h = F.conv2d(x, m.weight.to(dt), padding=(m.weight.shape[2] - 1) // 2)
     bn = m.bn
     if training:
-        mean = h.mean(dim=(0, 2, 3))
-        var = h.var(dim=(0, 2, 3), unbiased=False)
-        cnt = h.numel() // h.shape[1]
+        mean, var, cnt = channel_statistics(h)
+        denom = (max(cnt - 1, 1) if isinstance(cnt, int)
+                 else (cnt - 1).clamp(min=1))
         with torch.no_grad():
             bn.mean.mul_(1 - MOMENTUM).add_(MOMENTUM * mean)
-            bn.var.mul_(1 - MOMENTUM).add_(
-                MOMENTUM * var * cnt / max(cnt - 1, 1))
+            bn.var.mul_(1 - MOMENTUM).add_(MOMENTUM * var * cnt / denom)
         y = ((h - mean[:, None, None])
              * torch.rsqrt(var + eps)[:, None, None]
              * bn.scale[:, None, None] + bn.offset[:, None, None])

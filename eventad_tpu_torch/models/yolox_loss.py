@@ -23,6 +23,9 @@ from __future__ import annotations
 from typing import NamedTuple, Sequence
 
 import torch
+import torch.distributed as dist
+
+from ..ops.group_sum import stats_group
 
 
 def _zero(x: torch.Tensor) -> torch.Tensor:
@@ -152,7 +155,11 @@ def yolox_loss(outputs: torch.Tensor, targets: torch.Tensor,
     ``l1_weight`` gates YOLOX's L1 branch (on in the final no-augmentation
     epochs).  The L1 is taken on the decoded boxes: the decode is
     invertible, so ``|raw - l1_target|`` is ``|d_centre| / stride`` and
-    ``|log(w_pred / w_gt)|`` exactly."""
+    ``|log(w_pred / w_gt)|`` exactly.
+
+    Inside ``ops.group_sum.batch_stats_group`` the losses are this rank's
+    parts: its sums over the foreground count of every rank of the group
+    (``num_fg`` stays this rank's count)."""
     matched, m_any, m_gt = simota_assign(
         outputs, targets, target_mask, geom, num_classes, center_radius,
         topk_candidates)
@@ -182,7 +189,14 @@ def yolox_loss(outputs: torch.Tensor, targets: torch.Tensor,
           + torch.abs(torch.log(torch.maximum(boxes[..., 3], tiny)
                                 / torch.maximum(mb[..., 3], tiny))))
     l1_l = torch.where(m_any, l1, 0.0).sum(-1)
-    nfg = torch.clamp(num_fg.sum(), min=1.0)
+    total_fg = num_fg.sum()
+    group = stats_group()
+    if group is not None:
+        # each rank's loss is its part of the global loss: the divisor is
+        # the foreground count of the whole batch
+        total_fg = total_fg.clone()
+        dist.all_reduce(total_fg, group=group)
+    nfg = torch.clamp(total_fg, min=1.0)
     iou_total = 5.0 * iou_l.sum() / nfg
     obj_total = obj_l.sum() / nfg
     cls_total = cls_l.sum() / nfg

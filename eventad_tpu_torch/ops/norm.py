@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .group_sum import all_reduce_sum, stats_group
+
 
 MOMENTUM = 0.1   # of the running statistics, torch's default
 
@@ -24,13 +26,41 @@ class BatchNorm(nn.Module):
 
 def batch_statistics(x: torch.Tensor, mask: torch.Tensor):
     """``(mean, biased var, count)`` of ``x [N, C]`` over the rows of
-    ``mask [N]``, in f32."""
+    ``mask [N]``, in f32.  Inside ``ops.group_sum.batch_stats_group`` the
+    rows are those of every rank of the group, in the same two passes: the
+    masked sums and the count, then the squared deviations from the mean."""
     xf = x.to(torch.float32)
     m = mask[:, None].to(torch.float32)
-    cnt = m.sum().clamp(min=1.0)
-    mean = (xf * m).sum(dim=0) / cnt
+    group = stats_group()
+    if group is None:
+        cnt = m.sum().clamp(min=1.0)
+        mean = (xf * m).sum(dim=0) / cnt
+        d = (xf - mean) * m
+        return mean, (d * d).sum(dim=0) / cnt, cnt
+    sums = all_reduce_sum(torch.cat([(xf * m).sum(dim=0), m.sum()[None]]),
+                          group)
+    cnt = sums[-1].clamp(min=1.0)
+    mean = sums[:-1] / cnt
     d = (xf - mean) * m
-    return mean, (d * d).sum(dim=0) / cnt, cnt
+    return mean, all_reduce_sum((d * d).sum(dim=0), group) / cnt, cnt
+
+
+def channel_statistics(h: torch.Tensor):
+    """``(mean, biased var, count)`` of an NCHW map per channel, over the
+    batch and the pixels of this map (``count`` an int), or of every rank
+    of the group named by ``ops.group_sum.batch_stats_group`` inside one
+    (``count`` a tensor), in :func:`batch_statistics`' two passes."""
+    group = stats_group()
+    if group is None:
+        return (h.mean(dim=(0, 2, 3)), h.var(dim=(0, 2, 3), unbiased=False),
+                h.numel() // h.shape[1])
+    sums = all_reduce_sum(torch.cat([
+        h.sum(dim=(0, 2, 3)), h.new_tensor([h.numel() // h.shape[1]])]),
+        group)
+    cnt = sums[-1]
+    mean = sums[:-1] / cnt
+    d = h - mean[:, None, None]
+    return mean, all_reduce_sum((d * d).sum(dim=(0, 2, 3)), group) / cnt, cnt
 
 
 def batch_norm(x: torch.Tensor, mask: torch.Tensor, bn: BatchNorm,

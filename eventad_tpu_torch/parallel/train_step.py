@@ -14,8 +14,11 @@ from __future__ import annotations
 from typing import Callable, Iterable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
-from ..models.dagr import EventADModel, model_forward, resolve_device
+from ..models.dagr import EventADModel, box_inputs, resolve_device
+from ..models.eventad import eventad_forward
+from .mesh import data_rank, gather_items
 
 
 class PlateauState(NamedTuple):
@@ -49,15 +52,19 @@ class ClippedOptimizer:
     (a torch optimizer skips a parameter without ``.grad``).  With a
     ``schedule`` (a function of the update count) the rate is set from the
     number of updates made before each one, as optax evaluates its schedule
-    (the first update at 0)."""
+    (the first update at 0).  ``grad_norm`` (a function of the gradients)
+    takes the norm's place where the parameters are shards of larger ones
+    (``parallel.sharding.ShardedParams.grad_norm``)."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  inner: torch.optim.Optimizer, clip: float,
-                 schedule: Callable[[int], float] = None):
+                 schedule: Callable[[int], float] = None,
+                 grad_norm: Callable[[list], torch.Tensor] = None):
         self.params = list(params)
         self.clip = float(clip)
         self.inner = inner
         self.schedule = schedule
+        self.grad_norm = grad_norm
         self.count = 0
 
     def step(self) -> None:
@@ -66,8 +73,11 @@ class ClippedOptimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
+        if self.grad_norm is not None:
+            norm = self.grad_norm(grads)
+        else:
+            norm = torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm(grads)))
         torch._foreach_mul_(grads, self.clip / torch.clamp(norm,
                                                            min=self.clip))
         if self.schedule is not None:
@@ -121,7 +131,8 @@ class TrainStepFns(NamedTuple):
 
 
 def make_train_fns(model: EventADModel, bc, mc, gsc,
-                   optimizer: HeadOptimizer, device=None) -> TrainStepFns:
+                   optimizer: HeadOptimizer, device=None,
+                   mesh=None) -> TrainStepFns:
     """Builds the train and eval steps of ``model`` on ``device`` (the CUDA
     card unless the caller names the CPU; the model must already be there).
     Batches are moved to the device by the steps.
@@ -132,34 +143,73 @@ def make_train_fns(model: EventADModel, bc, mc, gsc,
     loss or a gradient is non-finite (the head and the optimizer state are
     then left as they were; ``finite`` is read on the host once per step).
 
-    ``eval_step(batch) -> (logits, valid, labels, loss, n_valid)``."""
+    ``eval_step(batch) -> (logits, valid, labels, loss, n_valid)``.
+
+    With a ``mesh`` (``parallel.mesh.make_mesh``) the steps are data
+    parallel over its "data" axis, as the JAX package's sharded step: each
+    rank passes its block of the batch (``parallel.mesh.shard_batch``) and
+    runs the frozen feature path on it; the box features are gathered into
+    item order, since the head's track state flows from item to item, and
+    every rank runs the head over the whole batch (its dropout draws those
+    of one process from the same generator) with the loss of its own items.
+    The head's gradients are summed over the data group (the loss is a sum
+    over boxes) and the clip and the update follow on every rank, or are
+    skipped on every rank where the summed loss or a summed gradient is
+    non-finite.  ``loss`` and ``n_valid`` are the batch's; the eval step
+    returns the whole batch's outputs on every rank."""
     dev = resolve_device(device)
     for p in model.parameters():
         if p.device.type != dev.type:
             raise ValueError(f"the model is on {p.device}, the steps were "
                              f"asked for {dev}")
     head_params = list(model.head.parameters())
+    group = None if mesh is None else mesh.get_group("data")
+
+    def forward(batch, training, generator=None):
+        batch = batch.to(dev)
+        b = batch.pos.shape[0]
+        feats, coords = box_inputs(model.dagr, batch,
+                                   bc._replace(batch_size=b), gsc)
+        parts = (feats, coords, batch.box_present[:, 1], batch.box_labels)
+        own = slice(None)
+        if group is not None:
+            parts = [gather_items(t, group) for t in parts]
+            if training:
+                own = slice(data_rank(mesh) * b, (data_rank(mesh) + 1) * b)
+        with torch.set_grad_enabled(training):
+            return eventad_forward(model.head, mc, *parts, training=training,
+                                   generator=generator, loss_items=own)
 
     def train_step(batch, generator: torch.Generator = None) -> dict:
         optimizer.zero_grad()
-        out = model_forward(model, batch.to(dev), bc, mc, gsc, training=True,
-                            generator=generator)
+        out = forward(batch, True, generator)
         out.loss.backward()
         for p in head_params:
             # a parameter the loss does not reach (the attention weights
             # of a one-item batch) still takes its weight decay
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        flags = [torch.isfinite(out.loss)] + [
+        loss = out.loss.detach()
+        if group is not None:
+            # one sum over the data group for the gradients and the loss;
+            # the finite flag then reads the same numbers on every rank
+            flat = torch.cat([p.grad.reshape(-1) for p in head_params]
+                             + [loss.reshape(1)])
+            dist.all_reduce(flat, group=group)
+            off = 0
+            for p in head_params:
+                p.grad = flat[off:off + p.numel()].view_as(p)
+                off += p.numel()
+            loss = flat[-1]
+        flags = [torch.isfinite(loss)] + [
             torch.isfinite(p.grad).all() for p in head_params]
         finite = bool(torch.stack(flags).all())
         if finite:
             optimizer.step()
-        return dict(loss=out.loss.detach(), n_valid=out.n_valid,
-                    finite=finite)
+        return dict(loss=loss, n_valid=out.n_valid, finite=finite)
 
     def eval_step(batch):
-        out = model_forward(model, batch.to(dev), bc, mc, gsc)
+        out = forward(batch, False)
         return out.logits, out.valid, out.labels, out.loss, out.n_valid
 
     return TrainStepFns(train_step, eval_step)

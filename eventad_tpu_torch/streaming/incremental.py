@@ -102,22 +102,23 @@ def _norm_pos(pos, t_now, gsc):
                         pos.device)
 
 
-def _input_rows(state, posn_rows, pol_rows, valid_rows, bc):
+def input_rows(image_feats, posn_rows, pol_rows, valid_rows, bc):
     """The level-0 layer's input rows (polarity, image_feats[0] row, rel-xy)
-    and the image_feats[1] rows of the given events."""
+    and the image_feats[1] rows (one zero column without an image) of the
+    given events."""
     n = posn_rows.shape[0]
     dev = posn_rows.device
     feats = [torch.where(valid_rows[:, None], pol_rows[:, None], 0.0)]
-    img1 = torch.zeros((n, state.img1.shape[1]), device=dev)
+    img1 = torch.zeros((n, 1), device=dev)
     if bc.use_image:
         # image_feats[0] and [1] are kept upsampled to full resolution
         # (update_image): a row lookup equals the batch path's
         # upsample + lookup
         zeros = torch.zeros((n,), dtype=torch.int32, device=dev)
         feats.append(lookup_pixel_features(
-            state.image_feats[0], posn_rows, zeros, valid_rows, bc.width,
+            image_feats[0], posn_rows, zeros, valid_rows, bc.width,
             bc.height))
-        img1 = lookup_pixel_features(state.image_feats[1], posn_rows, zeros,
+        img1 = lookup_pixel_features(image_feats[1], posn_rows, zeros,
                                      valid_rows, bc.width, bc.height)
     feats.append(torch.where(valid_rows[:, None], posn_rows[:, :2], 0.0))
     return torch.cat(feats, 1), img1
@@ -215,8 +216,8 @@ def make_incremental_step(model, bc: BackboneConfig,
     @torch.no_grad()
     def refresh(state: IncrementalState) -> IncrementalState:
         posn = _norm_pos(state.pos, state.t_now, gsc)
-        x_in, img1 = _input_rows(state, posn, state.polarity, state.valid,
-                                 bc)
+        x_in, img1 = input_rows(state.image_feats, posn, state.polarity,
+                                state.valid, bc)
         nbr, nbrm, doff = (t[0] for t in build_graph_auto(
             state.pos[None], state.valid[None], lookback=lb_exact,
             **search))
@@ -248,8 +249,8 @@ def make_incremental_step(model, bc: BackboneConfig,
 
         # 2. the new rows' input features
         posn = _norm_pos(pos, t_now, gsc)
-        x_rows, img1_rows = _input_rows(state, posn[-k:], pol[-k:],
-                                        valid[-k:], bc)
+        x_rows, img1_rows = input_rows(state.image_feats, posn[-k:],
+                                       pol[-k:], valid[-k:], bc)
         x_in = push_rows(state.x_in, x_rows)
 
         # 3. neighbour search: the chunk's rows as destinations over the

@@ -15,7 +15,9 @@ and ``Loader``; ``--synthetic_data true`` generates the on-disk fixture
 there first.  ``--train_batches N`` / ``--val_batches N`` read that many
 in-memory synthetic batches instead.  ``fit`` takes any loaders of
 ``(EventBatch, BatchMeta)``.  Runs on the CUDA card unless ``--device
-cpu`` is given.
+cpu`` is given.  ``--mesh N`` under ``torchrun --nproc_per_node N`` trains
+data parallel (``parallel/``): each rank loads its block of every batch;
+rank 0 writes the files.
 """
 from __future__ import annotations
 
@@ -32,6 +34,9 @@ from .data.batching import Loader
 from .data.dataset import SequenceDataset, check_dataset_balance
 from .data.synthetic import synthetic_loader
 from .models.dagr import graph_static_config, init_model, resolve_device
+from .parallel.mesh import (batch_is_empty, end_distributed,
+                            is_main_process, mesh_slot, process_mesh,
+                            replicated, shard_batch)
 from .parallel.train_step import (make_optimizer, make_train_fns,
                                   plateau_init, plateau_update, set_lr)
 from .utils import checkpoint as ckpt
@@ -41,19 +46,31 @@ from .utils.visualization import validate_and_visualize
 
 
 def fit(cfg: Config, train_loader, val_loader, *, device=None,
-        resume: str = "") -> dict:
+        resume: str = "", mesh=None) -> dict:
     """Trains the head for ``cfg.epochs`` epochs; returns ``dict(model,
-    model_dir, result_dir, best_auc, best_ap, history)``."""
+    model_dir, result_dir, best_auc, best_ap, history)``.  With a ``mesh``
+    the steps are data parallel: ``train_loader`` yields this rank's block
+    of every batch, ``val_loader`` whole batches; rank 0 alone writes the
+    checkpoints, the CSV and the plots."""
     dev = resolve_device(device)
-    dirs = setup_directories(cfg.output_dir, cfg.experiment_name, "train")
-    model_dir, result_dir = Path(dirs["model_dir"]), dirs["result_dir"]
-    result_file = setup_result_file(result_dir, cfg)
+    main_rank = is_main_process()
+    model_dir = result_dir = None
+    if main_rank:
+        dirs = setup_directories(cfg.output_dir, cfg.experiment_name,
+                                 "train")
+        model_dir, result_dir = Path(dirs["model_dir"]), dirs["result_dir"]
+        result_file = setup_result_file(result_dir, cfg)
     model, bc, mc = init_model(cfg, torch.Generator().manual_seed(cfg.seed),
                                dev)
     gsc = graph_static_config(cfg)
     optimizer = make_optimizer(model.head.parameters(), cfg.learning_rate,
                                cfg.weight_decay, cfg.grad_clip)
-    fns = make_train_fns(model, bc, mc, gsc, optimizer, dev)
+    fns = make_train_fns(model, bc, mc, gsc, optimizer, dev, mesh=mesh)
+    eval_step = fns.eval_step
+    if mesh is not None:
+        replicated(model)
+        eval_step = lambda batch: fns.eval_step(  # noqa: E731
+            shard_batch(batch, mesh))
 
     start_epoch, best_auc, best_ap = 0, 0.0, 0.0
     plateau = plateau_init()
@@ -74,7 +91,7 @@ def fit(cfg: Config, train_loader, val_loader, *, device=None,
             t0 = time.time()
             losses, skipped = [], 0
             for batch, _meta in train_loader:
-                if batch.is_empty():
+                if batch_is_empty(batch, mesh):
                     skipped += 1
                     continue
                 m = fns.train_step(batch, dropout_rng)
@@ -89,35 +106,39 @@ def fit(cfg: Config, train_loader, val_loader, *, device=None,
                 raise RuntimeError("No valid batches during training")
             train_loss = float(np.mean(losses))
             val_loss, auc, ap = validate_and_visualize(
-                fns.eval_step, val_loader, result_dir, epoch,
-                plot=(epoch % cfg.plot_interval == 0))
+                eval_step, val_loader, result_dir, epoch,
+                plot=main_rank and epoch % cfg.plot_interval == 0)
             plateau = plateau_update(plateau, val_loss,
                                      factor=cfg.lr_decay_factor,
                                      patience=cfg.lr_patience)
-            append_epoch_row(result_file, epoch, train_loss, val_loss, auc,
-                             ap, lr)
             is_best_auc = auc == auc and auc > best_auc
             is_best_ap = ap == ap and ap > best_ap
             best_auc = max(best_auc, auc if auc == auc else 0.0)
             best_ap = max(best_ap, ap if ap == ap else 0.0)
-            ckpt.save_checkpoint(model_dir, model, optimizer, epoch,
-                                 best_auc, best_ap, is_best_auc, is_best_ap)
+            if main_rank:
+                append_epoch_row(result_file, epoch, train_loss, val_loss,
+                                 auc, ap, lr)
+                ckpt.save_checkpoint(model_dir, model, optimizer, epoch,
+                                     best_auc, best_ap, is_best_auc,
+                                     is_best_ap)
+                print(f"epoch {epoch}: train {train_loss:.4f} val "
+                      f"{val_loss:.4f} auc {auc:.4f} ap {ap:.4f} lr "
+                      f"{lr:.2e} ({time.time() - t0:.1f}s)", flush=True)
             history.append(dict(epoch=epoch, train_loss=train_loss,
                                 val_loss=val_loss, auc=auc, ap=ap, lr=lr,
                                 skipped=skipped))
-            print(f"epoch {epoch}: train {train_loss:.4f} val {val_loss:.4f} "
-                  f"auc {auc:.4f} ap {ap:.4f} lr {lr:.2e} "
-                  f"({time.time() - t0:.1f}s)", flush=True)
             if lr < cfg.min_lr:
                 print(f"lr {lr:.2e} below min_lr, early stop")
                 break
     except Exception as e:  # crash-save (reference train.py:134-140)
         print(f"Error during training: {e}")
-        ckpt.save_checkpoint(model_dir, model, optimizer, epoch, best_auc,
-                             best_ap, False, False)
+        if main_rank:
+            ckpt.save_checkpoint(model_dir, model, optimizer, epoch,
+                                 best_auc, best_ap, False, False)
         raise
-    print(f"done. best AUC {best_auc:.4f} best AP {best_ap:.4f}")
-    print(f"models: {model_dir}\nresults: {result_dir}")
+    if main_rank:
+        print(f"done. best AUC {best_auc:.4f} best AP {best_ap:.4f}")
+        print(f"models: {model_dir}\nresults: {result_dir}")
     return dict(model=model, model_dir=model_dir, result_dir=result_dir,
                 best_auc=best_auc, best_ap=best_ap, history=history)
 
@@ -156,10 +177,11 @@ def prepare_dataset(cfg: Config) -> Config:
                        toa=str(root / "toa_values.json"))
 
 
-def dataset_loaders(cfg: Config, train_split: str):
+def dataset_loaders(cfg: Config, train_split: str, mesh=None):
     """``(train, val)`` loaders of the dataset directory: ``train_split``
     shuffled with ``cfg.seed``, through the reference's training transform
-    where ``cfg.use_augmentations``; "val" in order."""
+    where ``cfg.use_augmentations``; "val" in order.  With a ``mesh`` the
+    training loader loads this rank's block of every batch."""
     transform = None
     if cfg.use_augmentations:
         from .data.augment import training_transform
@@ -168,8 +190,23 @@ def dataset_loaders(cfg: Config, train_split: str):
     train_ds = SequenceDataset(cfg, root, train_split, transform=transform)
     val_ds = SequenceDataset(cfg, root, "val")
     print(f"train items: {len(train_ds)}, val items: {len(val_ds)}")
-    return (Loader(train_ds, cfg, shuffle=True, seed=cfg.seed),
+    rank, world = mesh_slot(mesh)
+    return (Loader(train_ds, cfg, shuffle=True, seed=cfg.seed, rank=rank,
+                   world=world),
             Loader(val_ds, cfg, shuffle=False))
+
+
+def in_memory_loaders(cfg: Config, args, mesh=None):
+    """``(train, val)`` in-memory synthetic loaders of ``args``' batch
+    counts; with a ``mesh`` the training loader yields this rank's block
+    of every batch."""
+    rank, world = mesh_slot(mesh)
+    train = synthetic_loader(cfg, args.train_batches, seed=cfg.seed,
+                             rank=rank, world=world)
+    val = synthetic_loader(cfg, args.val_batches, seed=cfg.seed + 10_000)
+    print(f"train batches: {len(train)}, val batches: {len(val)} "
+          f"(in memory)")
+    return train, val
 
 
 def main(argv=None):
@@ -177,25 +214,25 @@ def main(argv=None):
     args = loader_args(argv)
     dev = resolve_device(args.device)
     print(f"device: {dev}")
-    if args.in_memory:
-        train_loader = synthetic_loader(cfg, args.train_batches,
-                                        seed=cfg.seed)
-        val_loader = synthetic_loader(cfg, args.val_batches,
-                                      seed=cfg.seed + 10_000)
-        print(f"train batches: {len(train_loader)}, val batches: "
-              f"{len(val_loader)} (in memory)")
-    else:
-        cfg = prepare_dataset(cfg)
-        train_loader, val_loader = dataset_loaders(cfg, cfg.train_split)
+    mesh = process_mesh(cfg.mesh, dev, cfg.batch_size)
     try:
-        if cfg.check_balance:
-            check_dataset_balance({"train": train_loader,
-                                   "val": val_loader})
-        return fit(cfg, train_loader, val_loader, device=dev,
-                   resume=cfg.pretrained_model or cfg.resume)
+        if args.in_memory:
+            train_loader, val_loader = in_memory_loaders(cfg, args, mesh)
+        else:
+            cfg = prepare_dataset(cfg)
+            train_loader, val_loader = dataset_loaders(cfg, cfg.train_split,
+                                                       mesh)
+        try:
+            if cfg.check_balance:
+                check_dataset_balance({"train": train_loader,
+                                       "val": val_loader})
+            return fit(cfg, train_loader, val_loader, device=dev,
+                       resume=cfg.pretrained_model or cfg.resume, mesh=mesh)
+        finally:
+            train_loader.close()
+            val_loader.close()
     finally:
-        train_loader.close()
-        val_loader.close()
+        end_distributed()
 
 
 if __name__ == "__main__":

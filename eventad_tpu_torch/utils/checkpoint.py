@@ -106,18 +106,18 @@ def find_best_checkpoint(output_dir: str, experiment_name: str,
     raise FileNotFoundError(f"No checkpoints in {latest}")
 
 
-def save_detector_checkpoint(path, detector, ema, optimizer,
+def save_detector_checkpoint(path, detector, ema, optimizer_state: dict,
                              extra: dict) -> None:
     """``torch.save`` of the detector's ``state_dict``, its EMA weights by
-    parameter name, the optimizer's state and ``extra`` (epoch, metrics;
-    also written beside it as JSON)."""
+    parameter name, the optimizer's state dict and ``extra`` (epoch,
+    metrics; also written beside it as JSON)."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     names = [n for n, _ in detector.named_parameters()]
     torch.save({"model": detector.state_dict(),
                 "ema": dict(zip(names, ema.params)),
                 "ema_updates": ema.updates,
-                "optimizer": optimizer.state_dict(), "extra": extra}, path)
+                "optimizer": optimizer_state, "extra": extra}, path)
     with open(path.with_suffix(".json"), "w") as f:
         json.dump(extra, f)
 

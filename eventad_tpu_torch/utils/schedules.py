@@ -55,14 +55,15 @@ def step_schedule(base_lr: float, boundaries,
 def make_detector_optimizer(params: Iterable[torch.nn.Parameter], kind: str,
                             schedule: Callable[[int], float],
                             weight_decay: float, clip: float,
-                            momentum: float = 0.9) -> ClippedOptimizer:
+                            momentum: float = 0.9,
+                            grad_norm=None) -> ClippedOptimizer:
     """``clip_by_global_norm(clip)`` then ``sgd(schedule, momentum)`` for
     ``kind == "sgd"``, else ``adamw(schedule, weight_decay)``, over every
-    parameter in ``params``."""
+    parameter in ``params`` (``grad_norm``: see ``ClippedOptimizer``)."""
     params = list(params)
     if kind == "sgd":
         inner = torch.optim.SGD(params, lr=0.0, momentum=momentum)
     else:
         inner = torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999),
                                   eps=1e-8, weight_decay=weight_decay)
-    return ClippedOptimizer(params, inner, clip, schedule)
+    return ClippedOptimizer(params, inner, clip, schedule, grad_norm)

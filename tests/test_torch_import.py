@@ -23,12 +23,14 @@ from eventad_tpu_torch.models.backbone import make_backbone_config
 from eventad_tpu_torch.models.dagr import init_model, resolve_device
 from eventad_tpu_torch.parallel.train_step import (make_optimizer,
                                                    make_train_fns)
+from eventad_tpu_torch.bench import main as bench_main
 from eventad_tpu_torch.bench_detector import main as bench_detector_main
 from eventad_tpu_torch.models.detector import init_detector
 from eventad_tpu_torch.parity import main as parity_main
 from eventad_tpu_torch.test import main as evaluate_main
 from eventad_tpu_torch.test_detector import main as detector_eval_main
 from eventad_tpu_torch.tools.check_fused import main as check_fused_main
+from eventad_tpu_torch.tools.extract_sp import main as extract_sp_main
 from eventad_tpu_torch.train import main as train_main
 from eventad_tpu_torch.train_detector import main as train_detector_main
 
@@ -66,7 +68,10 @@ def test_port_imports_no_jax_yaml_or_reference_package():
                  "utils.schedules", "native", "data.h5io", "data.tracks",
                  "data.dataset", "data.augment", "data.fixtures",
                  "data.batching", "utils.result", "utils.logging",
-                 "utils.visualization", "utils.viz", "parity"):
+                 "utils.visualization", "utils.viz", "parity", "bench",
+                 "parallel.mesh", "ops.group_sum", "parallel.sharding",
+                 "parallel.seq_shard", "parallel.launch",
+                 "tools.extract_sp", "tools.dryrun_multichip"):
         assert f"'eventad_tpu_torch.{name}'" in res.stdout, name
 
 
@@ -89,9 +94,11 @@ def test_entry_points_default_to_the_card():
                  train_detector_main, parity_main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--batch_size", "1"])
-    for main in (bench_detector_main, check_fused_main):
+    for main in (bench_detector_main, check_fused_main, bench_main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["256"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        extract_sp_main(["--devices", "1"])
 
 
 def test_check_fused_flavours_on_the_cpu(capsys):
@@ -120,8 +127,9 @@ def test_chip_smoke_imports_nothing_of_jax():
             tops |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom):
             tops.add(node.module.split(".")[0])
-    assert tops <= {"importlib", "json", "pathlib", "subprocess", "sys",
-                    "tempfile", "time", "torch", "eventad_tpu_torch"}, tops
+    assert tops <= {"copy", "importlib", "json", "pathlib", "subprocess",
+                    "sys", "tempfile", "time", "torch",
+                    "eventad_tpu_torch"}, tops
     # importlib.import_module targets are strings: none names the reference
     assert "eventad_tpu." not in src.replace("eventad_tpu_torch", ""), src
 
