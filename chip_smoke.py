@@ -161,9 +161,11 @@ exits non-zero without printing a result:
    eightfold again.  Then ``collect_predictions``, the metric functions and
    ``measure_fps`` with the loader in the loop, and the times on a line
    with the card's name and power limit: ``collate`` ms p50 / p90 (its
-   queue ranks alone), per mode batches/s alone, the consumer's wait a
-   batch and sync bboxes/s with the loader in the loop, and without it on
-   the same batches staged on the card.  Last, the parity fixture's
+   queue ranks alone, in the C++ of ``native/evio.cpp``, which must equal
+   the numpy plain version on every item, and that version's time), per
+   mode batches/s alone, the consumer's wait a batch and sync bboxes/s with
+   the loader in the loop, and without it on the same batches staged on
+   the card.  Last, the parity fixture's
    geometry (96x72, batch 2, the 4 096 bucket, lookback 512, seed 7, f32,
    no image): the head fine-tuned on the CPU by ``parity.
    _train_fixture_head`` (800 steps) is evaluated on the CPU and on the
@@ -171,9 +173,7 @@ exits non-zero without printing a result:
    within 1e-3, mTTA and mRESPONSE equal, the score digests within 1e-3
    relative; a head trained on the card must lower its loss and give
    finite metrics.
-12. The ``bench`` module's two records (``bench.run``: the headline and
-   the head-training figure, with the card's name and power limit), then
-   the parallel paths of ``parallel/`` on a world-size-1 NCCL group made
+12. The parallel paths of ``parallel/`` on a world-size-1 NCCL group made
    through a ``FileStore`` (one card: NCCL refuses two ranks on one card),
    each against the same work without a group, from deep copies of the
    same weights: the data-parallel eval in bf16 on mesh "1" (logits within
@@ -191,6 +191,25 @@ exits non-zero without printing a result:
    ``dp_detector_step_launches`` and ``seq_sp_launches``.  Then the f32
    head step's median time with and without the group, and a
    ``{"parallel_times": ...}`` JSON line.
+13. The bf16 scoring forward of phase 4 (batch 0) captured in a CUDA graph
+   (``utils/devtime.capture``: 3 warm-up forwards on a side stream, after
+   which the cached tables and K2/K3 packs exist, then the capture): the
+   launch counters read during the capture must be K1 1, K2 2, K3 8, K4 1
+   (records gain ``graph_capture_launches``); a replay's logits within
+   0.05 of the port's CPU run of phase 4, valid slots equal; two replays
+   no further apart than the largest spread of 10 eager forwards on the
+   card (the ``index_add_`` atomics make f32 sums vary from run to run).
+   Then ``python -m eventad_tpu_torch.bench`` and ``.bench_streaming`` in
+   fresh processes (each takes its profiler trace early in its process):
+   bench's four records, each a superset of the one before, with ``0 <
+   mfu < 1``, no ``roofline_warning``, ``scan_device_ms_per_batch`` at most
+   ``batch_ms`` and at least ``roofline_bound_ms``, and
+   ``trace_device_ms_per_batch`` at most 1.10 times the scan time (the
+   profiler lengthens each kernel);
+   bench_streaming's ``device_step_ms``, ``device_append_ms``,
+   ``device_step_trace_ms`` and ``dispatch_floor_ms`` finite and positive,
+   the trace at most ``device_step_ms``.  Then a ``{"graph_times": ...}``
+   JSON line.
 
 Each kernel's record also holds ``bound_ms``, the least time the card could
 take for the same work: the larger of its bytes (every input read once,
@@ -1735,7 +1754,7 @@ def loader_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, records,
     from eventad_tpu_torch.data.fixtures import (fixture_sequences,
                                                  make_sequence)
     from eventad_tpu_torch.models.dagr import init_model, model_forward
-    from eventad_tpu_torch.native import queue_ranks
+    from eventad_tpu_torch.native import queue_ranks, queue_ranks_plain
     from eventad_tpu_torch.parallel.train_step import (make_optimizer,
                                                        make_train_fns)
     from eventad_tpu_torch.parity import _train_fixture_head, fixture_metrics
@@ -1800,19 +1819,32 @@ def loader_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, records,
         f"{truncated} events truncated an epoch (Loader.truncated_events)")
     bsz = cfg.batch_size
     chunks = [items[i:i + bsz] for i in range(0, len(items), bsz)]
-    collate_ms, ranks_ms = [], []
+    collate_ms, ranks_ms, plain_ranks_ms = [], [], []
     for _ in range(3):
         for c in chunks:
             t0 = time.perf_counter()
             collate(c, cfg)
             collate_ms.append((time.perf_counter() - t0) * 1e3)
-            # its share that a C++ copy of queue_ranks would take over
-            t0 = time.perf_counter()
+            # its queue ranks (the C++ of native/evio.cpp), and the numpy
+            # plain version on the same events, which they must equal
+            cols = []
             for it in c:
                 n = min(len(it.events["t"]), n_cap)
-                queue_ranks(it.events["x"][-n:], it.events["y"][-n:],
-                            cfg.model_width, cfg.model_height)
+                cols.append((it.events["x"][-n:], it.events["y"][-n:]))
+            t0 = time.perf_counter()
+            got = [queue_ranks(x, y, cfg.model_width, cfg.model_height)
+                   for x, y in cols]
             ranks_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            want = [queue_ranks_plain(x, y, cfg.model_width,
+                                      cfg.model_height) for x, y in cols]
+            plain_ranks_ms.append((time.perf_counter() - t0) * 1e3)
+            if not all(a.shape == b.shape and bool((a == b).all())
+                       for a, b in zip(got, want)):
+                raise AssertionError("queue_ranks (C++) differs from its "
+                                     "plain version on a loader batch")
+    log(f"queue_ranks (C++) equal to the numpy plain version on "
+        f"{len(collate_ms) * bsz} items ({len(chunks)} batches, 3 passes)")
 
     # ---- 11.3 the batches reach the kernels ----
     fns = make_train_fns(model, bc, mc, gsc, make_optimizer(
@@ -1865,6 +1897,7 @@ def loader_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, records,
     times = {"card": smi, "collate_ms_p50": percentile(collate_ms, 0.5),
              "collate_ms_p90": percentile(collate_ms, 0.9),
              "queue_ranks_ms_p50": percentile(ranks_ms, 0.5),
+             "queue_ranks_plain_ms_p50": percentile(plain_ranks_ms, 0.5),
              "batches": len(ref)}
     nb = len(ref)
     zero_counters()
@@ -1893,7 +1926,9 @@ def loader_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, records,
     del staged
     log(f"loader times on {smi}: collate {times['collate_ms_p50']:.2f} ms "
         f"p50, {times['collate_ms_p90']:.2f} p90 a batch (its queue ranks "
-        f"{times['queue_ranks_ms_p50']:.2f} ms p50); " + "; ".join(
+        f"{times['queue_ranks_ms_p50']:.3f} ms p50 in C++, "
+        f"{times['queue_ranks_plain_ms_p50']:.2f} by the numpy plain "
+        f"version); " + "; ".join(
             f"{name} {t['batches_per_s_alone']:.2f} batches/s alone, waits "
             f"{t['wait_ms_p50']:.2f} ms p50 a batch, sync bboxes/s "
             f"{t['sync_bboxes_per_s']:.1f} with the loader in the loop"
@@ -2030,7 +2065,6 @@ def parallel_phase(dev, smi, cfg, model, bc, mc, gsc, records, counters):
 
     import torch.distributed as dist
 
-    from eventad_tpu_torch import bench
     from eventad_tpu_torch.data.synthetic import make_synthetic_batch
     from eventad_tpu_torch.models import detector as tdet
     from eventad_tpu_torch.ops import gather_window as gw
@@ -2064,13 +2098,8 @@ def parallel_phase(dev, smi, cfg, model, bc, mc, gsc, records, counters):
             raise AssertionError(f"{what}: launches {par} on the mesh, "
                                  f"{plain} without a group (needs {need})")
 
-    # ---- 12.1 the bench module's two records ----
-    batch = make_synthetic_batch(cfg, boxes_per_item=BOXES_PER_ITEM).to(dev)
-    print(smi, flush=True)
-    rec = bench.run(model, batch, cfg, bc, mc, gsc, smi)
-    for key in ("value", "pipelined_bboxes_per_sec", "train_items_per_sec"):
-        if not rec[key] > 0:
-            raise AssertionError(f"bench: {key} {rec[key]}")
+    # (12.1, the bench module's records, runs in phase 13, in a process of
+    # its own: its profiler trace is to be taken early in a process)
 
     # ---- 12.2 a world-size-1 NCCL group through a FileStore ----
     store = Path(tempfile.mkdtemp()) / "store"
@@ -2253,7 +2282,7 @@ def parallel_phase(dev, smi, cfg, model, bc, mc, gsc, records, counters):
             seq_launches[dt_name] = seq_n
     finally:
         dist.destroy_process_group()
-    times = dict(card=smi, head_step_ms=step_ms, bench=rec)
+    times = dict(card=smi, head_step_ms=step_ms)
     log(f"parallel times on {smi}: f32 head step median of "
         f"{DP_TIMED_STEPS}: {step_ms['plain']:.2f} ms without a group, "
         f"{step_ms['mesh']:.2f} ms on the world-size-1 mesh")
@@ -2264,6 +2293,138 @@ def parallel_phase(dev, smi, cfg, model, bc, mc, gsc, records, counters):
         r["seq_sp_launches"] = {k: v.get(r["name"], 0)
                                 for k, v in seq_launches.items()}
     print(json.dumps({"parallel_times": times}), flush=True)
+    return times
+
+
+# phase 13: the bf16 scoring forward captured in a CUDA graph (the forward
+# ``bench`` times on the card), and the device-true records of ``bench``
+# and ``bench_streaming``, each module in a fresh process of its own (its
+# profiler trace is then early in its process; late in this one a trace may
+# lose device events)
+GRAPH_EAGER_RUNS = 10     # eager forwards whose spread bounds two replays'
+GRAPH_LAUNCHES = dict(event_graph_search=1, spline_fused_level0=2,
+                      spline_shift_pooled=8, upsample_rows=1)
+# trace_device_ms may exceed the replay time by this: the profiler lengthens
+# each of a forward's ~2 400 kernels; on one H100 the traced kernels of a
+# capture summed to 6.19-6.25 ms while untraced replays of captures took
+# 5.85-6.90 ms, 1.065 times at the most
+TRACE_OVER_SCAN = 1.10
+MODULE_TIMEOUT_S = 300
+
+
+def module_records(module, *args):
+    """The JSON records a ``python -m eventad_tpu_torch.<module>`` run prints,
+    after echoing its standard output; raises if it fails."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", f"eventad_tpu_torch.{module}", *args],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=MODULE_TIMEOUT_S)
+    for line in res.stdout.splitlines():
+        log(f"{module}: {line}")
+    if res.returncode != 0:
+        raise AssertionError(f"{module} exited {res.returncode}:\n"
+                             f"{res.stderr[-4000:]}")
+    log(f"{module}: {time.perf_counter() - t0:.1f} s in a fresh process")
+    return [json.loads(line) for line in res.stdout.splitlines()
+            if line.startswith("{")]
+
+
+def graph_phase(dev, smi, model, batch, cpu_ref, bc, mc, gsc, records,
+                counters):
+    """Phase 13 (see the module docstring).  ``batch``: batch 0 on the card;
+    ``cpu_ref``: the port's CPU run of it (phase 4)."""
+    from eventad_tpu_torch.bench_streaming import CARD_KEYS
+    from eventad_tpu_torch.models.dagr import model_forward
+    from eventad_tpu_torch.utils.devtime import capture
+
+    seen = []
+
+    def fwd():
+        for c in counters.values():
+            c.launches = 0
+        with torch.no_grad():
+            o = model_forward(model, batch, bc, mc, gsc)
+        seen.append({n: c.launches for n, c in counters.items()
+                     if c.launches})
+        return o.logits, o.valid
+
+    # ---- 13.1 the spread of eager forwards on the card ----
+    eager = [fwd()[0].clone() for _ in range(GRAPH_EAGER_RUNS)]
+    stack = torch.stack(eager)
+    spread = float((stack.max(0).values - stack.min(0).values).max())
+    # ---- 13.2 capture (after 3 warm-up forwards on a side stream) ----
+    graph, (logits, valid) = capture(fwd)
+    if seen[-1] != GRAPH_LAUNCHES:
+        raise AssertionError(f"the captured forward launched {seen[-1]}, "
+                             f"expected {GRAPH_LAUNCHES}")
+    for r in records:
+        r["graph_capture_launches"] = seen[-1].get(r["name"], 0)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(logits.clone())
+    replay_diff = float((replays[0] - replays[1]).abs().max())
+    v = cpu_ref.valid
+    if not torch.equal(valid.cpu(), v) \
+            or not bool(torch.isfinite(replays[0]).all()):
+        raise AssertionError("graph replay: valid slots differ from the CPU "
+                             "run, or logits not finite")
+    d = (cpu_ref.logits[v] - replays[0].cpu()[v]).abs().max().item()
+    log(f"graph-captured forward (bf16): launches during capture "
+        f"{seen[-1]}; replay vs CPU logits max abs diff {d:.3g} over "
+        f"{int(v.sum())} valid slots (tolerance {LOGIT_TOL}); two replays "
+        f"{replay_diff:.3g} apart, {GRAPH_EAGER_RUNS} eager forwards "
+        f"{spread:.3g} apart at most (the tolerance)")
+    if not d < LOGIT_TOL:
+        raise AssertionError(f"graph replay vs CPU logits differ by {d}")
+    if not replay_diff <= spread:
+        raise AssertionError(f"two replays differ by {replay_diff}, more "
+                             f"than eager forwards ({spread})")
+    del graph, logits, valid, replays, eager, stack
+
+    # ---- 13.3 bench's records, in a fresh process ----
+    recs = module_records("bench")
+    if len(recs) != 4:
+        raise AssertionError(f"bench printed {len(recs)} records, not 4")
+    for a, b in zip(recs, recs[1:]):
+        if {k: b.get(k) for k in a} != a:
+            raise AssertionError("a bench record is no superset of the one "
+                                 "before")
+    last = recs[-1]
+    scan, bound = last["scan_device_ms_per_batch"], last["roofline_bound_ms"]
+    checks = {
+        "0 < mfu < 1": 0 < last["mfu"] < 1,
+        "no roofline_warning": "roofline_warning" not in last,
+        "scan_device_ms_per_batch <= batch_ms": scan <= last["batch_ms"],
+        f"trace_device_ms_per_batch <= {TRACE_OVER_SCAN} x scan":
+            last["trace_device_ms_per_batch"] <= TRACE_OVER_SCAN * scan,
+        "scan_device_ms_per_batch >= roofline_bound_ms": scan >= bound,
+        "value, pipelined and train figures > 0": min(
+            last["value"], last["pipelined_bboxes_per_sec"],
+            last["train_items_per_sec"]) > 0}
+    log(f"bench on {smi}: scan_device_ms_per_batch {scan:.4f}, batch_ms "
+        f"{last['batch_ms']:.3f}, est_rtt_ms {last['est_rtt_ms']:.3f}, "
+        f"trace_device_ms_per_batch {last['trace_device_ms_per_batch']:.4f}"
+        f", mfu {last['mfu']:.5f} of {last['mfu_peak_tflops']} TFLOP/s, "
+        f"hbm_gbps_min {last['hbm_gbps_min']:.1f}, bound {bound:.4f} ms; "
+        f"checks {checks}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"bench records fail {failed}")
+
+    # ---- 13.4 bench_streaming's device-time keys, in a fresh process ----
+    (srec,) = module_records("bench_streaming")
+    vals = {k: srec.get(k) for k in CARD_KEYS}
+    log(f"bench_streaming on {smi}: {vals}")
+    if not all(isinstance(x, float) and 0 < x < float("inf")
+               for x in vals.values()) \
+            or not vals["device_step_trace_ms"] <= vals["device_step_ms"]:
+        raise AssertionError(f"bench_streaming's device keys {vals}")
+    times = dict(card=smi, eager_spread=spread, replay_diff=replay_diff,
+                 replay_vs_cpu=d, bench=recs, bench_streaming=srec)
+    print(json.dumps({"graph_times": times}), flush=True)
     return times
 
 
@@ -3425,9 +3586,13 @@ def main():
     loader_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, records,
                  zero_counters, read_counters)
 
-    # ---- 12. the bench module and the parallel paths ----
+    # ---- 12. the parallel paths ----
     parallel_phase(dev, smi, cfg, model, bc, mc, gsc, records,
                    all_counters)
+
+    # ---- 13. the graph-captured forward, bench and bench_streaming ----
+    graph_phase(dev, smi, model, batches[0], cpu_refs_bf16[0], bc, mc, gsc,
+                records, all_counters)
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,18 +7,43 @@ harness counts it: bounding boxes per second (counterpart of the root
 
     python -m eventad_tpu_torch.bench [n_events] [compute_dtype] [--device cpu]
 
-Prints the card's name and power limit, then two JSON lines: the headline
-(``metric``, ``value``, ``unit``, ``vs_baseline`` against the reference's
-595.48 bboxes/s, ``batch_ms``, the pipelined figures, ``frames_per_sec``,
-``events_per_item``, ``device``, ``power_limit_w``), then the same record
-with the head-training figure added (``train_items_per_sec``,
-``train_ms_per_batch``, ``train_compute_dtype``).  Timing: 5 warm-up
-forwards, 20 with one synchronise each (their median), then 20 enqueued
-and one synchronise; training 2 warm-up steps, then 10 on one batch and
-one synchronise.  Any failure ends the run with a non-zero code.  Other
-``Config`` fields (``--width``, ``--batch_size``, ...) may be given; runs
-on the CUDA card unless ``--device cpu`` is given, and without a card and
-without that flag it raises.
+Prints the card's name and power limit, then JSON lines, each a superset of
+the one before:
+
+1. the headline (``metric``, ``value``, ``unit``, ``vs_baseline`` against
+   the reference's 595.48 bboxes/s, ``batch_ms``, the pipelined figures,
+   ``frames_per_sec``, ``events_per_item``, ``device``, ``power_limit_w``);
+2. the model's analytic counts (``model_gflops_per_batch``,
+   ``model_gbytes_min_per_batch``, ``utils/roofline.forward_roofline``)
+   and, on the card, the device-true time of a forward: under the JAX
+   bench's ``scan_`` names, which there mean a program of n forwards, here
+   CUDA-graph replay (``utils/devtime``: the forward captured once after
+   the warm-up, replayed 10 and 50 times, the difference per replay):
+   ``scan_device_ms_per_batch``, ``scan_bboxes_per_sec``,
+   ``scan_vs_baseline``, ``est_rtt_ms`` (``batch_ms`` less that time: the
+   host's share), and the roofline over it (``mfu``, ``mfu_peak_tflops``,
+   ``hbm_gbps_min``, ``roofline_bound_ms``, ``roofline_warning`` if a rate
+   is impossible);
+3. on the card, ``trace_device_ms_per_batch``: the union of the device
+   intervals of one replay of the captured forward in a ``torch.profiler``
+   trace taken right after the capture's warm-up, the process's first
+   trace (``utils/devtime.trace_device_ms``).  It traces the captured
+   forward, the one the scan time replays: the same forward run eagerly
+   keeps the card busier (its kernels' intervals sum to a few per cent
+   more), and the profiler itself lengthens each kernel slightly;
+4. the head-training figure (``train_items_per_sec``,
+   ``train_ms_per_batch``, ``train_compute_dtype``).
+
+Timing: 5 warm-up forwards, 20 with one synchronise each (their median),
+then 20 enqueued and one synchronise; training 2 warm-up steps, then 10 on
+one batch and one synchronise; then, on the card, the capture (5 warm-up
+forwards), the trace and the replays.  The first record is printed as
+soon as it is measured, the others at the end.  Any failure ends the run with a non-zero
+code.  Other ``Config`` fields (``--width``, ``--batch_size``, ...) may be
+given; runs on the CUDA card unless ``--device cpu`` is given, and without
+a card and without that flag it raises.  Not ported from the root script:
+the ``xla_*`` keys (XLA's cost model) and the ``EVENTAD_BENCH_*`` time
+budgets.
 """
 from __future__ import annotations
 
@@ -36,11 +61,14 @@ from .data.synthetic import make_synthetic_batch
 from .models.dagr import (graph_static_config, init_model, model_forward,
                           resolve_device)
 from .parallel.train_step import make_optimizer, make_train_fns
+from .utils.devtime import capture, replay_ms, trace_device_ms
+from .utils.roofline import forward_roofline, roofline_rates
 
 BASELINE_FPS = 595.48      # reference committed run (BASELINE.md)
 BOXES_PER_ITEM = 6
 WARMUP, ITERS = 5, 20
 TRAIN_WARMUP, TRAIN_ITERS = 2, 10
+TRACE_ITERS = 6
 
 
 def _sync(device) -> None:
@@ -48,18 +76,27 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def count_boxes(batch) -> int:
+    """Boxes per batch, counted like the reference (bbox + bbox0)."""
+    return int(batch.bbox_mask.sum()) + int(batch.bbox0_mask.sum())
+
+
+def scoring_forward(model, batch, bc, mc, gsc):
+    """The benched call: ``model_forward`` on ``batch`` without gradients,
+    returning the logits."""
+    def fwd():
+        with torch.no_grad():
+            return model_forward(model, batch, bc, mc, gsc).logits
+    return fwd
+
+
 def headline(model, batch, cfg: Config, bc, mc, gsc) -> dict:
     """The inference record of ``model`` on ``batch`` (on the model's
     device): sync bboxes/s from the median of ``ITERS`` synchronised
     forwards after ``WARMUP``, pipelined from ``ITERS`` enqueued ones."""
     dev = batch.pos.device
-
-    def fwd():
-        with torch.no_grad():
-            return model_forward(model, batch, bc, mc, gsc).logits
-
-    # boxes per batch, counted like the reference (bbox + bbox0)
-    n_boxes = int(batch.bbox_mask.sum()) + int(batch.bbox0_mask.sum())
+    fwd = scoring_forward(model, batch, bc, mc, gsc)
+    n_boxes = count_boxes(batch)
     for _ in range(WARMUP):
         fwd()
     _sync(dev)
@@ -90,6 +127,23 @@ def headline(model, batch, cfg: Config, bc, mc, gsc) -> dict:
     }
 
 
+def device_records(graph, batch, cfg: Config, roof: dict,
+                   batch_ms: float) -> dict:
+    """The card's own time for a forward (a replay of its capture
+    ``graph``), its share of ``batch_ms`` and the roofline ``roof`` over it
+    (the second record's card keys)."""
+    scan_ms = replay_ms(graph)
+    bps = count_boxes(batch) / scan_ms * 1e3
+    out = {"scan_device_ms_per_batch": scan_ms,
+           "scan_bboxes_per_sec": bps,
+           "scan_vs_baseline": bps / BASELINE_FPS,
+           "est_rtt_ms": max(batch_ms - scan_ms, 0.0)}
+    out.update(roofline_rates(
+        roof, scan_ms / 1e3, torch.cuda.get_device_name(batch.pos.device),
+        cfg.compute_dtype))
+    return out
+
+
 def training_figure(model, batch, cfg: Config, bc, mc, gsc) -> dict:
     """Head training on ``batch``: ``TRAIN_WARMUP`` steps, then
     ``TRAIN_ITERS`` with one synchronise (a fresh optimizer, dropout from
@@ -113,18 +167,39 @@ def training_figure(model, batch, cfg: Config, bc, mc, gsc) -> dict:
 
 
 def run(model, batch, cfg: Config, bc, mc, gsc, card: str) -> dict:
-    """Prints the headline record of ``model`` on ``batch``, then that
-    record with the training figure added, and returns the latter
-    (``card``: ``nvidia-smi``'s name and power limit, or "cpu")."""
+    """Prints the records of ``model`` on ``batch`` (see the module
+    docstring) and returns the last (``card``: ``nvidia-smi``'s name and
+    power limit, or "cpu").  The headline and the training figure are
+    measured first, so that no host-clock figure runs after a profiler
+    trace or beside a held graph."""
     dev = batch.pos.device
+    on_card = dev.type == "cuda"
     result = headline(model, batch, cfg, bc, mc, gsc)
-    result["device"] = (torch.cuda.get_device_name(dev)
-                        if dev.type == "cuda" else "cpu")
+    result["device"] = torch.cuda.get_device_name(dev) if on_card else "cpu"
     result["power_limit_w"] = (float(card.split(",")[-1].split()[0])
-                               if dev.type == "cuda" else None)
+                               if on_card else None)
     print(json.dumps(result), flush=True)
-    result.update(training_figure(model, batch, cfg, bc, mc, gsc))
-    print(json.dumps(result), flush=True)
+    training = training_figure(model, batch, cfg, bc, mc, gsc)
+    roof = forward_roofline(cfg, int(batch.pos.shape[1]))
+    result["model_gflops_per_batch"] = roof["flops"] / 1e9
+    result["model_gbytes_min_per_batch"] = roof["bytes"] / 1e9
+    records = []
+    if on_card:
+        # one capture for the trace and the replay time (a capture's time
+        # can differ from another's); the trace right after the capture's
+        # warm-up, the process's first: late traces lose device events
+        graph, _ = capture(scoring_forward(model, batch, bc, mc, gsc),
+                           warmup=WARMUP)
+        trace_ms = trace_device_ms(graph.replay, iters=TRACE_ITERS)
+        result.update(device_records(graph, batch, cfg, roof,
+                                     result["batch_ms"]))
+        del graph
+        records.append(dict(result))
+        result["trace_device_ms_per_batch"] = trace_ms
+    records.append(dict(result))
+    result.update(training)
+    for r in records + [result]:
+        print(json.dumps(r), flush=True)
     return result
 
 

@@ -12,7 +12,12 @@ p50, refresh, read, and the ``append_many`` / ``step.many`` loops per
 chunk) and the detection read-out (``latency_bench_detect``), and counts
 the dense and incremental FLOPs (``flops_report``).  Every time is the
 host-clock time of one call ending in a synchronise, the host's share
-inside.  Prints the card's name and power limit, then one JSON line.
+inside.  On the card, last, ``device_times_incremental`` adds the root
+script's ``device_step_ms`` and ``device_append_ms`` (30 calls on chunks
+staged on the card, one synchronise, per call), ``device_step_trace_ms``
+(one step's device intervals in a profiler trace) and
+``dispatch_floor_ms`` (a scalar add's dispatch).  Prints the card's name
+and power limit, then one JSON line.
 Without a card and without ``--device cpu`` it raises.
 """
 from __future__ import annotations
@@ -26,8 +31,13 @@ import torch
 from .bench_detector import card_name_and_limit
 from .config import parse_args
 from .models.dagr import init_model, resolve_device
-from .streaming.evaluate import (flops_report, latency_bench_detect,
+from .streaming.evaluate import (device_times_incremental, flops_report,
+                                 latency_bench_detect,
                                  latency_bench_incremental)
+
+# the root script's device-time keys, measured on the card only
+CARD_KEYS = ("device_step_ms", "device_step_trace_ms", "dispatch_floor_ms",
+             "device_append_ms")
 
 
 def main(argv=None):
@@ -48,6 +58,11 @@ def main(argv=None):
                                     n_chunk=args.n_chunk, iters=args.iters)
     det = latency_bench_detect(cfg, n_buf=args.n_buf, n_chunk=args.n_chunk,
                                iters=args.iters, device=dev)
+    # last, so that no host-clock time runs after a profiler trace; the
+    # trace is still the process's first, which keeps every device event
+    card_times = (device_times_incremental(model, cfg, n_buf=args.n_buf,
+                                           n_chunk=args.n_chunk)
+                  if dev.type == "cuda" else {})
     fl = flops_report(cfg, n_events=args.n_buf, changed_events=args.n_chunk)
     result = {
         "metric": "streaming_p50_latency_ms",
@@ -60,6 +75,7 @@ def main(argv=None):
         "device_read_detections_ms": det["device_read_detections_ms"],
         "device_append_scan_ms": lat["device_append_scan_ms"],
         "device_step_scan_ms": lat["device_step_scan_ms"],
+        **card_times,
         "compute_dtype": args.compute_dtype,
         "events_per_chunk": args.n_chunk,
         "n_buf": args.n_buf,

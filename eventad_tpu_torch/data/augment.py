@@ -6,8 +6,8 @@ Reference: src/dagr/data/augment.py — RandomHFlip (:85-104), Crop (:107-136),
 RandomZoom with density-preserving event subsampling (:13-37,139-189),
 RandomCrop (:192-229), RandomTranslate (:232-269); training pipeline order
 and constants from Augmentations (:272-284). The reference's numba
-accumulator kernel is ``native.zoom_subsample_mask`` here (numpy, cells in
-parallel, each in event order); ``cv2`` is imported only by the zoom's image
+accumulator kernel is ``native.zoom_subsample_mask`` here (the port's C++,
+one pass in event order); ``cv2`` is imported only by the zoom's image
 resize.
 
 Reference quirk preserved at the pipeline level: training uses the *testing*

@@ -4,7 +4,9 @@ latency benches and the dense-against-incremental FLOP count (counterpart of
 src/dagr/asynchronous/evaluate_flops.py:82-261).
 
 Times are host-clock milliseconds of one call ending in a synchronise of the
-card (on the CPU, of the call alone), the host's share of the call inside.
+card (on the CPU, of the call alone), the host's share of the call inside;
+on the card :func:`device_times_incremental` gives per-dispatch and
+device-true times (``utils/devtime``).
 """
 from __future__ import annotations
 
@@ -14,11 +16,13 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..data.batching import EventBatch, queue_ranks
+from ..data.batching import EventBatch
 from ..models.backbone import make_backbone_config
 from ..models.dagr import EventADModel, graph_static_config, model_forward
 from ..models.detector import init_detector
 from ..models.eventad import EventADConfig
+from ..native import queue_ranks
+from ..utils.devtime import dispatch_floor_ms, trace_device_ms
 from ..utils.flops import backbone_flops
 from . import incremental as inc
 from .detect import make_incremental_detector, update_image_detector
@@ -51,6 +55,12 @@ def _p50(ts) -> float:
 def _p99(ts) -> float:
     ts = np.sort(ts)
     return float(ts[max(int(len(ts) * 0.99) - 1, 0)])
+
+
+# device_times_incremental: steps traced after warm-up steps, and calls a
+# pipelined run enqueues
+TRACE_WARM, TRACE_ITERS = 3, 8
+PIPELINED_CALLS = 30
 
 
 def _head_config(cfg: Config) -> EventADConfig:
@@ -196,16 +206,11 @@ def latency_bench(model: EventADModel, cfg: Config, *, n_buf: int = 16384,
             "mean_ms": float(np.mean(times)), "events_per_chunk": n_chunk}
 
 
-def latency_bench_incremental(model: EventADModel, cfg: Config, *,
-                              n_buf: int = 16384, n_chunk: int = 512,
-                              iters: int = 50, boxes_per_frame: int = 4,
-                              seed: int = 0) -> dict:
-    """Latencies of the incremental streaming step: the ring filled with
-    ``n_buf`` events and refreshed, then per chunk a ``step`` (append +
-    read) and an ``append``, ``iters`` of each after 5 warm-up rounds; one
-    ``read_scores`` per call on the final state; ``append_many`` and
-    ``step.many`` over ``iters`` chunks (times per chunk, the chunks' times
-    moved past the stream's clock, on the card before the clock starts)."""
+def _filled_stream(model: EventADModel, cfg: Config, n_buf: int,
+                   n_chunk: int, boxes_per_frame: int, seed: int) -> tuple:
+    """An incremental stream of ``SyntheticStream(seed)`` chunks, the ring
+    filled raw with ``n_buf`` events (and the image), then refreshed:
+    ``(stream, state, refresh, step, boxes, present, ones)``."""
     dev = _device(model)
     cfg1 = cfg.replace(batch_size=1)
     bc = make_backbone_config(cfg1)
@@ -221,10 +226,24 @@ def latency_bench_incremental(model: EventADModel, cfg: Config, *,
                                               n_chunk=n_chunk, n_buf=n_buf)
     boxes, present = bench_boxes(cfg, boxes_per_frame, dev)
     ones = torch.ones((n_chunk,), device=dev)
-
     for _ in range(n_buf // n_chunk):
         st = inc.insert_raw(st, ev.chunk(), ones, n_chunk)
-    st = refresh(st)
+    return ev, refresh(st), refresh, step, boxes, present, ones
+
+
+def latency_bench_incremental(model: EventADModel, cfg: Config, *,
+                              n_buf: int = 16384, n_chunk: int = 512,
+                              iters: int = 50, boxes_per_frame: int = 4,
+                              seed: int = 0) -> dict:
+    """Latencies of the incremental streaming step: the ring filled with
+    ``n_buf`` events and refreshed, then per chunk a ``step`` (append +
+    read) and an ``append``, ``iters`` of each after 5 warm-up rounds; one
+    ``read_scores`` per call on the final state; ``append_many`` and
+    ``step.many`` over ``iters`` chunks (times per chunk, the chunks' times
+    moved past the stream's clock, on the card before the clock starts)."""
+    dev = _device(model)
+    ev, st, refresh, step, boxes, present, ones = _filled_stream(
+        model, cfg, n_buf, n_chunk, boxes_per_frame, seed)
     st, refresh_ms = _timed_ms(lambda: refresh(st), dev)
 
     times, atimes = [], []
@@ -275,6 +294,54 @@ def latency_bench_incremental(model: EventADModel, cfg: Config, *,
         "refresh_ms": refresh_ms, "device_read_ms": _p50(rtimes),
         "device_append_scan_ms": append_scan_ms,
         "device_step_scan_ms": step_scan_ms, "events_per_chunk": n_chunk}
+
+
+def device_times_incremental(model: EventADModel, cfg: Config, *,
+                             n_buf: int = 16384, n_chunk: int = 512,
+                             boxes_per_frame: int = 4,
+                             seed: int = 0) -> dict:
+    """The card's figures of the incremental step (the root bench's keys),
+    on a stream set up as :func:`latency_bench_incremental` sets it up:
+    ``device_step_trace_ms``, the union of one step's device intervals in a
+    trace of ``TRACE_ITERS`` steps after ``TRACE_WARM``; ``device_step_ms``
+    and ``device_append_ms``, ``PIPELINED_CALLS`` calls on chunks staged on
+    the card, then one synchronise, per call; ``dispatch_floor_ms``, a
+    scalar add's.  The trace comes first; it must be the process's first
+    (later traces lose device events, and then this raises).  Raises on the
+    CPU."""
+    ev, st, _, step, boxes, present, ones = _filled_stream(
+        model, cfg, n_buf, n_chunk, boxes_per_frame, seed)
+    dev = _device(model)
+    cks = [ev.chunk() for _ in range(TRACE_WARM + TRACE_ITERS)]
+    live = [st]
+
+    def one_step():
+        live[0] = step(live[0], cks.pop(0), ones, n_chunk, boxes,
+                       present)[0]
+    for _ in range(TRACE_WARM):
+        one_step()
+    out = {"device_step_trace_ms": trace_device_ms(one_step,
+                                                   iters=TRACE_ITERS)}
+    st = live[0]
+
+    def pipelined_ms(call):
+        """ms per call of ``call(state, chunk) -> state`` over
+        ``PIPELINED_CALLS`` calls on staged chunks, one synchronise, after
+        one call to warm up."""
+        staged = [ev.chunk() for _ in range(PIPELINED_CALLS + 1)]
+        s = call(st, staged[0])
+        _sync(dev)
+        t0 = time.perf_counter()
+        for ck in staged[1:]:
+            s = call(s, ck)
+        _sync(dev)
+        return (time.perf_counter() - t0) / PIPELINED_CALLS * 1e3
+    out["device_step_ms"] = pipelined_ms(
+        lambda s, ck: step(s, ck, ones, n_chunk, boxes, present)[0])
+    out["device_append_ms"] = pipelined_ms(
+        lambda s, ck: step.append(s, ck, ones, n_chunk))
+    out["dispatch_floor_ms"] = dispatch_floor_ms()
+    return out
 
 
 def latency_bench_detect(cfg: Config, *, n_buf: int = 16384,

@@ -31,6 +31,7 @@ from eventad_tpu_torch.test import main as evaluate_main
 from eventad_tpu_torch.test_detector import main as detector_eval_main
 from eventad_tpu_torch.tools.check_fused import main as check_fused_main
 from eventad_tpu_torch.tools.extract_sp import main as extract_sp_main
+from eventad_tpu_torch.tools.replay_probe import main as replay_probe_main
 from eventad_tpu_torch.train import main as train_main
 from eventad_tpu_torch.train_detector import main as train_detector_main
 
@@ -71,7 +72,8 @@ def test_port_imports_no_jax_yaml_or_reference_package():
                  "utils.visualization", "utils.viz", "parity", "bench",
                  "parallel.mesh", "ops.group_sum", "parallel.sharding",
                  "parallel.seq_shard", "parallel.launch",
-                 "tools.extract_sp", "tools.dryrun_multichip"):
+                 "tools.extract_sp", "tools.dryrun_multichip",
+                 "utils.roofline", "utils.devtime", "tools.replay_probe"):
         assert f"'eventad_tpu_torch.{name}'" in res.stdout, name
 
 
@@ -99,6 +101,8 @@ def test_entry_points_default_to_the_card():
             main(["256"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         extract_sp_main(["--devices", "1"])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        replay_probe_main([])
 
 
 def test_check_fused_flavours_on_the_cpu(capsys):

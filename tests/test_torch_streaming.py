@@ -30,6 +30,7 @@ from eventad_tpu.ops.spline_conv import SplineConvParams
 from eventad_tpu.ops.spline_conv import spline_conv as jax_spline_conv
 from eventad_tpu.streaming import incremental as jinc
 from eventad_tpu.streaming.evaluate import flops_report as jax_flops
+from eventad_tpu_torch import bench_streaming
 from eventad_tpu_torch.bench_streaming import main as bench_main
 from eventad_tpu_torch.config import Config
 from eventad_tpu_torch.models.backbone import backbone_forward
@@ -568,5 +569,7 @@ def test_bench_streaming_on_the_cpu(capsys):
         assert np.isfinite(res[key]) and res[key] > 0, key
     assert res["metric"] == "streaming_p50_latency_ms"
     assert res["events_per_chunk"] == 128
+    # the device-time keys come from the card only
+    assert not set(bench_streaming.CARD_KEYS) & set(res)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench_main(["128"])
