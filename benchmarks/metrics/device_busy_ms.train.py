@@ -1,0 +1,2 @@
+"""``device_busy_ms.train``: see ``harness/readers.device_busy_ms``."""
+from benchmarks.harness.readers import device_busy_ms as read  # noqa: F401

@@ -1,0 +1,2 @@
+"""``device_idle_pct.stream``: see ``harness/readers.device_idle_pct``."""
+from benchmarks.harness.readers import device_idle_pct as read  # noqa: F401

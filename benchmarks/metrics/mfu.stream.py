@@ -1,0 +1,2 @@
+"""``mfu.stream``: see ``harness/readers.mfu``."""
+from benchmarks.harness.readers import mfu as read  # noqa: F401
