@@ -27,6 +27,7 @@ import torch
 
 from ..config import Config
 from ..native import queue_ranks  # noqa: F401  (re-exported)
+from ..utils.spans import count, recording, span
 
 # raw-detection slots per item: one number for the batch arrays and the
 # shared-memory slot layout
@@ -176,9 +177,15 @@ def _to_batch(arrays) -> EventBatch:
 def collate(items: list, cfg: Config,
             max_detections: int = MAX_DETECTIONS) -> tuple:
     """Pads a list of Items into ``(EventBatch of CPU tensors,
-    BatchMeta)``."""
-    arrays, meta = collate_arrays(items, cfg, max_detections)
-    return _to_batch(arrays), meta
+    BatchMeta)``, in the span ``data/collate``; counts ``events`` (valid)
+    and ``event_slots`` (bucket x batch), the padded work's useful share."""
+    with span("data/collate"):
+        arrays, meta = collate_arrays(items, cfg, max_detections)
+        if recording():
+            valid = arrays["valid"]
+            count("events", int(valid.sum()))
+            count("event_slots", valid.size)
+        return _to_batch(arrays), meta
 
 
 def _slot_layout(cfg: Config):
@@ -263,7 +270,11 @@ class Loader:
     loads its block of every batch of ``cfg.batch_size`` items
     (:func:`rank_items`), ``cfg.batch_size / world`` items padded to that
     size; the ranks' batches in rank order hold the items of the
-    single-process batches, in their order."""
+    single-process batches, in their order.
+
+    Under a ``torch.profiler`` session the spans ``data/item`` and
+    ``data/collate`` (``utils/spans``) run on the thread that batches: the
+    caller's or the prefetch thread; decode processes record none."""
 
     def __init__(self, dataset, cfg: Config, shuffle: bool = False,
                  seed: int = 0, drop_last: bool = False,

@@ -30,6 +30,7 @@ import numpy as np
 
 from ..config import Config
 from ..native import window_rebase
+from ..utils.spans import span
 from .h5io import EventFile
 from .tracks import (DEFAULT_MAPPING, DSEC_CLASSES, compute_class_mapping,
                      filter_small_bboxes, interpolate_tracks,
@@ -230,13 +231,16 @@ class SequenceDataset(_Items):
                           interpolation=cv2.INTER_CUBIC)
 
     def __getitem__(self, idx: int) -> Item:
-        si, i0 = self.index[idx]
-        d = self.dirs[si]
-        ts = self._timestamps[d.name]
-        t0, t1 = int(ts[i0]), int(ts[i0 + 1])
-        raw, toff = self._read_events(d, t0, self._window_end(t0, t1))
-        return self._cut(raw, toff, self._tracks[d.name], t0, t1,
-                         self._load_image(d, i0), d.name, i0 + 1)
+        with span("data/item"):
+            si, i0 = self.index[idx]
+            d = self.dirs[si]
+            ts = self._timestamps[d.name]
+            t0, t1 = int(ts[i0]), int(ts[i0 + 1])
+            with span("data/read"):
+                raw, toff = self._read_events(d, t0,
+                                              self._window_end(t0, t1))
+            return self._cut(raw, toff, self._tracks[d.name], t0, t1,
+                             self._load_image(d, i0), d.name, i0 + 1)
 
 
 class MemoryDataset(_Items):
@@ -262,11 +266,13 @@ class MemoryDataset(_Items):
                                                      - 1))
 
     def __getitem__(self, idx: int) -> Item:
-        si, i0 = self.index[idx]
-        s = self.sequences[si]
-        ts = s["timestamps"]
-        return self._cut(s["events"], 0, s["tracks"], int(ts[i0]),
-                         int(ts[i0 + 1]), s["images"][i0], s["name"], i0 + 1)
+        with span("data/item"):
+            si, i0 = self.index[idx]
+            s = self.sequences[si]
+            ts = s["timestamps"]
+            return self._cut(s["events"], 0, s["tracks"], int(ts[i0]),
+                             int(ts[i0 + 1]), s["images"][i0], s["name"],
+                             i0 + 1)
 
 
 def check_dataset_balance(loaders) -> dict:

@@ -45,9 +45,14 @@ from ..ops import spline_fused
 from ..ops.spline_shift import (pack_shift_weights, prepare_shift,
                                 shift_spline_conv)
 from ..ops.upsample_flat import upsample_rows
+from ..utils.spans import span
 from ..utils.tensors import constant
 from .graph import Graph, neighbor_rows, sample_image_features, \
     upsample_lookup
+
+
+# the span of each pyramid level (``utils/spans``), named once
+LEVEL_SPANS = tuple(f"model/level{i}" for i in range(5))
 
 
 class ConvBlock(nn.Module):
@@ -361,7 +366,8 @@ def backbone_forward(backbone: Backbone, g0: Graph,
     """Runs the 5-level pyramid on the level-0 event graph (``g0.x`` the
     polarity ``[N, 1]``) with the 5 NHWC CNN maps (or None).  Returns
     ``(out3, out4)``, the graphs after layers 4 and 5 (net.py:165-184).
-    ``training``: BN by batch statistics in every layer.
+    ``training``: BN by batch statistics in every layer.  Each level runs in
+    the span ``model/level<i>``, its pooling in ``model/pool``.
 
     ``start_level > 0`` resumes the pyramid from a cached intermediate (the
     incremental streaming path): ``g0`` is then the output graph of level
@@ -421,39 +427,42 @@ def backbone_forward(backbone: Backbone, g0: Graph,
     outs = []
     pos_nbr = pos_src0
     for level in range(start_level, end_level):
-        pos_nbr_pre = None
-        if level > 0:
-            # the next level's CNN features are appended at the previous
-            # level's node positions, then pooled (net.py:116-169)
-            if level > start_level:
-                g = cat_image(g, level)
-            aggr = "mean" if level == 4 else bc.pooling_aggr   # net.py:94
-            # after the level-0 self-edge fold pos_nbr has K-1 columns: the
-            # dropped slot 0 is the self edge, which pooling discards
-            s0 = (g.nbr.shape[1] - pos_nbr.shape[1]
-                  if pos_nbr is not None else 0)
-            g = pool_graph(
-                g.x, g.pos, g.nbr[:, s0:], g.nbr_mask[:, s0:], g.node_mask,
-                g.batch, grid=bc.grids[level - 1], batch_size=bc.batch_size,
-                width=bc.width, height=bc.height, aggr=aggr, span=2,
-                keep_temporal_ordering=bc.keep_temporal_ordering,
-                pos_src=pos_nbr, return_pos_nbr=fused_pooled)
-            if fused_pooled:
-                g, pos_nbr_pre = g
-        else:
-            g = cat_image(g, 0)
-        g = cat_rel(g)
-        g, pos_nbr = apply_layer(
-            backbone.layers[level], g, kernel_size=bc.kernel_size,
-            aggr=bc.aggr, activation_name=bc.activation,
-            cart_max=bc.cart_max[level],
-            grid=bc.grids[level - 1] if level > 0 else None,
-            batch_size=bc.batch_size,
-            attr_range=level0_attr_range(bc) if level == 0 else None,
-            self_slot0=level == 0, width=bc.width, height=bc.height,
-            pos_nbr_pre=pos_nbr_pre, gather_lookback=bc.gather_lookback,
-            training=training, fused_two_block=bc.fused_two_block,
-            fused_shift=bc.fused_shift)
+        with span(LEVEL_SPANS[level]):
+            pos_nbr_pre = None
+            if level > 0:
+                # the next level's CNN features are appended at the previous
+                # level's node positions, then pooled (net.py:116-169)
+                if level > start_level:
+                    g = cat_image(g, level)
+                aggr = "mean" if level == 4 else bc.pooling_aggr  # net.py:94
+                # after the level-0 self-edge fold pos_nbr has K-1 columns:
+                # the dropped slot 0 is the self edge, which pooling discards
+                s0 = (g.nbr.shape[1] - pos_nbr.shape[1]
+                      if pos_nbr is not None else 0)
+                with span("model/pool"):
+                    g = pool_graph(
+                        g.x, g.pos, g.nbr[:, s0:], g.nbr_mask[:, s0:],
+                        g.node_mask, g.batch, grid=bc.grids[level - 1],
+                        batch_size=bc.batch_size, width=bc.width,
+                        height=bc.height, aggr=aggr, span=2,
+                        keep_temporal_ordering=bc.keep_temporal_ordering,
+                        pos_src=pos_nbr, return_pos_nbr=fused_pooled)
+                if fused_pooled:
+                    g, pos_nbr_pre = g
+            else:
+                g = cat_image(g, 0)
+            g = cat_rel(g)
+            g, pos_nbr = apply_layer(
+                backbone.layers[level], g, kernel_size=bc.kernel_size,
+                aggr=bc.aggr, activation_name=bc.activation,
+                cart_max=bc.cart_max[level],
+                grid=bc.grids[level - 1] if level > 0 else None,
+                batch_size=bc.batch_size,
+                attr_range=level0_attr_range(bc) if level == 0 else None,
+                self_slot0=level == 0, width=bc.width, height=bc.height,
+                pos_nbr_pre=pos_nbr_pre, gather_lookback=bc.gather_lookback,
+                training=training, fused_two_block=bc.fused_two_block,
+                fused_shift=bc.fused_shift)
         if level >= 3:
             outs.append(g)
     if end_level < 5 and not outs:

@@ -17,6 +17,7 @@ from torch import nn
 from ..config import Config
 from ..data.batching import EventBatch
 from ..ops.event_graph import build_graph_auto
+from ..utils.spans import span
 from ..utils.tensors import constant
 from .backbone import (Backbone, BackboneConfig, backbone_forward,
                        make_backbone_config)
@@ -112,11 +113,14 @@ def dagr_extract_features(dagr: DAGR, pos, polarity, valid, image,
                           bc: BackboneConfig, gsc: tuple, *, ranks=None):
     """Frozen-DAGR feature path (reference dagr.py:108-130): returns the
     (out3, out4) graphs."""
-    g0 = build_level0_graph(pos, polarity, valid, gsc, ranks)
+    with span("model/graph"):
+        g0 = build_level0_graph(pos, polarity, valid, gsc, ranks)
     feats = None
     if bc.use_image:
-        feats = cnn_branch_forward(dagr.cnn, image, bc.compute_dtype)
-    return backbone_forward(dagr.backbone, g0, feats, bc)
+        with span("model/cnn"):
+            feats = cnn_branch_forward(dagr.cnn, image, bc.compute_dtype)
+    with span("model/backbone"):
+        return backbone_forward(dagr.backbone, g0, feats, bc)
 
 
 def box_inputs(dagr: DAGR, batch: EventBatch, bc: BackboneConfig,
@@ -129,8 +133,10 @@ def box_inputs(dagr: DAGR, batch: EventBatch, bc: BackboneConfig,
         _, out4 = dagr_extract_features(
             dagr, batch.pos, batch.polarity, batch.valid, batch.image, bc,
             gsc, ranks=batch.rank)
-        feats = extract_box_features(out4, batch.boxes, batch.box_present,
-                                     bc.batch_size, bc.width, bc.height)
+        with span("model/box_features"):
+            feats = extract_box_features(out4, batch.boxes,
+                                         batch.box_present, bc.batch_size,
+                                         bc.width, bc.height)
         denom = constant((bc.width, bc.height, bc.width, bc.height),
                          torch.float32, feats.device)
         return feats.to(torch.float32), batch.boxes[:, 1] / denom
@@ -143,9 +149,13 @@ def model_forward(model: EventADModel, batch: EventBatch, bc: BackboneConfig,
     records gradients; the recurrent head always runs f32 (bf16 is only the
     frozen feature path's compute dtype) and records them when
     ``training``.  ``generator`` seeds the head's dropout (off without
-    one)."""
-    feats, coords = box_inputs(model.dagr, batch, bc, gsc)
-    with torch.set_grad_enabled(training):
-        return eventad_forward(model.head, mc, feats, coords,
-                               batch.box_present[:, 1], batch.box_labels,
-                               training=training, generator=generator)
+    one).  Spans (``utils/spans``): ``model/forward``, around ``model/graph``,
+    ``model/cnn``, ``model/backbone`` (its levels inside),
+    ``model/box_features`` and ``model/head``."""
+    with span("model/forward"):
+        feats, coords = box_inputs(model.dagr, batch, bc, gsc)
+        with torch.set_grad_enabled(training), span("model/head"):
+            return eventad_forward(model.head, mc, feats, coords,
+                                   batch.box_present[:, 1],
+                                   batch.box_labels, training=training,
+                                   generator=generator)

@@ -38,6 +38,7 @@ from ..ops.event_graph import build_graph_auto
 from ..ops.norm import batch_norm
 from ..ops.spline_basis import ACTS
 from ..ops.spline_conv import offset_attr, spline_conv
+from ..utils.spans import span
 from ..utils.tensors import constant
 from .runner import head_step, push_rows
 
@@ -176,9 +177,11 @@ def _upper_levels_and_head(model, bc, mc, state, posn, boxes, box_present,
                            gsc):
     """Levels 1-4 from the caches, then the recurrent head."""
     (_r, _d, _k, _q, _l, width, height, _tw) = gsc
-    _, out4 = pooled_backbone_outs(model, bc, state, posn, gsc)
-    return head_step(model, mc, state, out4, boxes, box_present, width,
-                     height)
+    with span("stream/levels"):
+        _, out4 = pooled_backbone_outs(model, bc, state, posn, gsc)
+    with span("stream/head"):
+        return head_step(model, mc, state, out4, boxes, box_present, width,
+                         height)
 
 
 def make_incremental_step(model, bc: BackboneConfig,
@@ -199,7 +202,12 @@ def make_incremental_step(model, bc: BackboneConfig,
 
     ``mc=None`` builds the level-0 machinery without an anomaly head (the
     streaming detector's mode, ``detect.py``): ``refresh`` and ``append``
-    work, the head's entry points raise."""
+    work, the head's entry points raise.
+
+    Spans (``utils/spans``): ``stream/step`` around ``stream/append``
+    (``stream/search``, the tail search; ``stream/layer0``) and
+    ``stream/read_scores`` (``stream/levels``, ``stream/head``);
+    ``stream/refresh`` and ``stream/update_image`` on their own."""
     if bc.batch_size != 1:
         raise ValueError("streaming runs one stream (batch_size=1)")
     (radius_px, delta_t_us, max_nb, max_q, lookback, width, height,
@@ -215,17 +223,18 @@ def make_incremental_step(model, bc: BackboneConfig,
 
     @torch.no_grad()
     def refresh(state: IncrementalState) -> IncrementalState:
-        posn = _norm_pos(state.pos, state.t_now, gsc)
-        x_in, img1 = input_rows(state.image_feats, posn, state.polarity,
-                                state.valid, bc)
-        nbr, nbrm, doff = (t[0] for t in build_graph_auto(
-            state.pos[None], state.valid[None], lookback=lb_exact,
-            **search))
-        attr = offset_attr(doff, nbrm, bc.cart_max[0], width, height)
-        h_b1, h1, _ = _layer1_rows(layer0, bc, x_in, state.h_b1[:0], nbr,
-                                   nbrm, attr, x_in, state.valid)
-        return state._replace(x_in=x_in, img1=img1, nbr0=nbr, nbrm0=nbrm,
-                              off0=doff, h_b1=h_b1, h1=h1)
+        with span("stream/refresh"):
+            posn = _norm_pos(state.pos, state.t_now, gsc)
+            x_in, img1 = input_rows(state.image_feats, posn, state.polarity,
+                                    state.valid, bc)
+            nbr, nbrm, doff = (t[0] for t in build_graph_auto(
+                state.pos[None], state.valid[None], lookback=lb_exact,
+                **search))
+            attr = offset_attr(doff, nbrm, bc.cart_max[0], width, height)
+            h_b1, h1, _ = _layer1_rows(layer0, bc, x_in, state.h_b1[:0],
+                                       nbr, nbrm, attr, x_in, state.valid)
+            return state._replace(x_in=x_in, img1=img1, nbr0=nbr,
+                                  nbrm0=nbrm, off0=doff, h_b1=h_b1, h1=h1)
 
     @torch.no_grad()
     def append(state: IncrementalState, new_pos, new_pol,
@@ -234,45 +243,52 @@ def make_incremental_step(model, bc: BackboneConfig,
         if new_pos.shape[0] != k:
             raise ValueError(f"a chunk holds {k} event slots, got "
                              f"{new_pos.shape[0]}")
-        # 1. advance the ring caches; neighbour indices shift with the
-        # ring, evicted sources mask out
-        slot_ok = torch.arange(k, device=new_pos.device) < n_new
-        pos = push_rows(state.pos, torch.where(slot_ok[:, None], new_pos, 0))
-        pol = push_rows(state.polarity, torch.where(slot_ok, new_pol, 0.0))
-        valid = push_rows(state.valid, slot_ok)
-        t_now = torch.maximum(
-            state.t_now, torch.where(slot_ok, new_pos[:, 2], 0).max())
-        nbr_keep = state.nbr0[k:] - k
-        nbrm_keep = state.nbrm0[k:] & (nbr_keep >= 0)
-        nbr_keep = torch.where(nbrm_keep, nbr_keep, 0)
-        off_keep = torch.where(nbrm_keep[..., None], state.off0[k:], 0)
+        with span("stream/append"):
+            # 1. advance the ring caches; neighbour indices shift with the
+            # ring, evicted sources mask out
+            slot_ok = torch.arange(k, device=new_pos.device) < n_new
+            pos = push_rows(state.pos,
+                            torch.where(slot_ok[:, None], new_pos, 0))
+            pol = push_rows(state.polarity,
+                            torch.where(slot_ok, new_pol, 0.0))
+            valid = push_rows(state.valid, slot_ok)
+            t_now = torch.maximum(
+                state.t_now, torch.where(slot_ok, new_pos[:, 2], 0).max())
+            nbr_keep = state.nbr0[k:] - k
+            nbrm_keep = state.nbrm0[k:] & (nbr_keep >= 0)
+            nbr_keep = torch.where(nbrm_keep, nbr_keep, 0)
+            off_keep = torch.where(nbrm_keep[..., None], state.off0[k:], 0)
 
-        # 2. the new rows' input features
-        posn = _norm_pos(pos, t_now, gsc)
-        x_rows, img1_rows = input_rows(state.image_feats, posn[-k:],
-                                       pol[-k:], valid[-k:], bc)
-        x_in = push_rows(state.x_in, x_rows)
+            # 2. the new rows' input features
+            posn = _norm_pos(pos, t_now, gsc)
+            x_rows, img1_rows = input_rows(state.image_feats, posn[-k:],
+                                           pol[-k:], valid[-k:], bc)
+            x_in = push_rows(state.x_in, x_rows)
 
-        # 3. neighbour search: the chunk's rows as destinations over the
-        # buffer tail, every destination reaching back exactly `lookback`
-        # events
-        w0 = n_buf - (lookback + k)
-        nbr_t, nbrm_t, doff_t = (t[0, -k:] for t in build_graph_auto(
-            pos[None, w0:], valid[None, w0:], lookback=lookback, **search))
-        nbr_c = torch.where(nbrm_t, nbr_t + w0, 0)
+            # 3. neighbour search: the chunk's rows as destinations over
+            # the buffer tail, every destination reaching back exactly
+            # `lookback` events
+            w0 = n_buf - (lookback + k)
+            with span("stream/search"):
+                nbr_t, nbrm_t, doff_t = (t[0, -k:] for t in build_graph_auto(
+                    pos[None, w0:], valid[None, w0:], lookback=lookback,
+                    **search))
+                nbr_c = torch.where(nbrm_t, nbr_t + w0, 0)
 
-        # 4. the level-0 layer for the chunk's rows only
-        attr = offset_attr(doff_t, nbrm_t, bc.cart_max[0], width, height)
-        _, h1_rows, h_b1 = _layer1_rows(layer0, bc, x_in, state.h_b1[k:],
-                                        nbr_c, nbrm_t, attr, x_rows,
-                                        valid[-k:])
-        return state._replace(
-            pos=pos, polarity=pol, valid=valid, t_now=t_now, x_in=x_in,
-            img1=push_rows(state.img1, img1_rows),
-            nbr0=torch.cat([nbr_keep, nbr_c]),
-            nbrm0=torch.cat([nbrm_keep, nbrm_t]),
-            off0=torch.cat([off_keep, doff_t]), h_b1=h_b1,
-            h1=push_rows(state.h1, h1_rows))
+            # 4. the level-0 layer for the chunk's rows only
+            with span("stream/layer0"):
+                attr = offset_attr(doff_t, nbrm_t, bc.cart_max[0], width,
+                                   height)
+                _, h1_rows, h_b1 = _layer1_rows(
+                    layer0, bc, x_in, state.h_b1[k:], nbr_c, nbrm_t, attr,
+                    x_rows, valid[-k:])
+            return state._replace(
+                pos=pos, polarity=pol, valid=valid, t_now=t_now, x_in=x_in,
+                img1=push_rows(state.img1, img1_rows),
+                nbr0=torch.cat([nbr_keep, nbr_c]),
+                nbrm0=torch.cat([nbrm_keep, nbrm_t]),
+                off0=torch.cat([off_keep, doff_t]), h_b1=h_b1,
+                h1=push_rows(state.h1, h1_rows))
 
     def _require_head():
         if mc is None:
@@ -285,15 +301,17 @@ def make_incremental_step(model, bc: BackboneConfig,
     @torch.no_grad()
     def read_scores(state: IncrementalState, boxes, box_present):
         _require_head()
-        posn = _norm_pos(state.pos, state.t_now, gsc)
-        return _upper_levels_and_head(model, bc, mc, state, posn, boxes,
-                                      box_present, gsc)
+        with span("stream/read_scores"):
+            posn = _norm_pos(state.pos, state.t_now, gsc)
+            return _upper_levels_and_head(model, bc, mc, state, posn, boxes,
+                                          box_present, gsc)
 
     def step(state: IncrementalState, new_pos, new_pol, n_new, boxes,
              box_present):
         _require_head()
-        return read_scores(append(state, new_pos, new_pol, n_new), boxes,
-                           box_present)
+        with span("stream/step"):
+            return read_scores(append(state, new_pos, new_pol, n_new),
+                               boxes, box_present)
 
     def append_many(state: IncrementalState, pos_chunks, pol_chunks,
                     n_chunks) -> IncrementalState:
@@ -353,5 +371,6 @@ def update_image(model, state: IncrementalState, image: torch.Tensor,
     W, 3]``; call ``refresh`` after it."""
     w = width if width is not None else image.shape[1]
     h = height if height is not None else image.shape[0]
-    feats = cnn_branch_forward(model.dagr.cnn, image[None])
-    return state._replace(image_feats=upsampled_pyramid(feats, w, h))
+    with span("stream/update_image"):
+        feats = cnn_branch_forward(model.dagr.cnn, image[None])
+        return state._replace(image_feats=upsampled_pyramid(feats, w, h))

@@ -1,6 +1,6 @@
-"""Where one head-training step, one scoring forward, one detection
-forward, one streaming step or one detector training step spends its time
-on the GPU.
+"""Where one head-training step, one scoring batch, one detection forward,
+one streaming step or one detector training step spends its time, stage by
+stage, on the host and on the GPU.
 
     python3 -m eventad_tpu_torch.tools.profile_step [float32|bfloat16 ...]
     python3 -m eventad_tpu_torch.tools.profile_step scoring [flavour ...]
@@ -8,56 +8,70 @@ on the GPU.
     python3 -m eventad_tpu_torch.tools.profile_step streaming
     python3 -m eventad_tpu_torch.tools.profile_step detector_train [dtype ...]
 
-At the reference operating point (batch 6, 360x240, 16 384 events per item,
-ResNet-50, random weights from seed 0), for each compute dtype named
-(default both):
+Each mode warms its call up, times it untraced (host clock, one synchronise
+a call), then traces ``n_traced`` calls in one ``torch.profiler`` session,
+each call in a range of its own.  Only a process's first trace keeps every
+device event (``PERF.md`` §6, PRs 1-12), so run one mode, dtype or flavour
+a process where the trace must be whole.  From the trace:
 
-* stage times: host-clock medians over 7 steps with a device synchronise
-  after each stage (graph, CNN, backbone, box features, head forward, head
-  backward, guard + clip + AdamW);
-* the whole ``train_step`` and ``eval_step``, untraced, median of 9, one
-  synchronise per step;
-* a ``torch.profiler`` trace of 3 train steps: device-busy time and the
-  number of device operations per step, the idle share of the untraced
-  step, and the ten kernels with the most device time.
+* the card: device operations (kernels, copies, sets) and busy
+  milliseconds per call, busy being the union of their intervals (the
+  arithmetic of ``utils/devtime.trace_device_ms``); the idle share of the
+  traced window (the first call's start to the last call's end or the last
+  device operation's, whichever is later); the ten device operations that
+  took most time;
+* the stages, one row per program span (``utils/spans``: name and parent)
+  with, per call: its calls, its host self milliseconds from the program's
+  own summary, the device operations it launched (each joined to its
+  launching runtime call by the profiler's correlation id, and so to the
+  innermost span open at the launch) and their busy milliseconds, and its
+  host-blocking runtime calls (stream, device and event synchronisations,
+  ``cudaMemcpy``, copies from pageable memory) with their milliseconds.
+  Work outside every span is the row "outside program spans"; a device
+  operation whose runtime call is not in the trace is counted as
+  ``unjoined_device_ops``;
+* the ten longest idle gaps of the card, each named by the innermost
+  program span the host was in at the gap's middle (``runtime/gc`` is a
+  garbage collection).
 
-With ``scoring`` first, the bf16 scoring forward (``model_forward`` in
-eval mode) in each kernel flavour named (``default``, ``base``,
-``bilinear``; default ``base``): the whole forward untraced and the trace
-of 3 forwards.
+Modes, at the reference operating point (batch 6, 360x240, ResNet-50,
+random weights from seed 0):
 
-With ``detector`` first, the same for ``detector_forward`` in eval mode
-(bf16 features) in each kernel flavour named (``default``, ``base``,
-``bilinear``, ``base+bilinear``; default the first and the last): stage
-times (graph, CNN, backbone, heads, decode + NMS), the whole forward
-untraced, and the trace of 3 forwards.  The detector's BN running statistics
-are first moved to one batch's by ten batch-statistics passes, since random
-weights on the initial statistics overflow the box decode.
-
-With ``streaming`` first, the incremental streaming step (append + score
-read, ``streaming.incremental``) at the root ``bench_streaming.py``'s
-operating point (batch 1, a ring of 16 384 events, chunks of 512, bf16):
-the step untraced (median of 9, one synchronise each) and a trace of 10
-steps, their chunks on the card before it starts;
-then, untraced in the same process, the medians of 9 ``append`` calls, 9
-``read_scores`` and 9 dense steps (``streaming.runner``, the whole backbone
-on the ring).  Run it in a process of its own: a trace late in a process
-may lose device events (``tools/trace_probe.py``).
-
-With ``detector_train`` first, one detector training step
-(``train_detector.make_detector_train_step``: the forward to the decoded
-outputs, the simOTA loss, the backward through the backbone and the
-ResNet, the clip, AdamW and the EMA) at the same operating point, random
-weights from seed 0, in each compute dtype named (default ``float32``):
-the step untraced (median of 9, one synchronise each), the peak device
-memory of those steps, and a trace of 3 steps.  Run one dtype a process
-where the trace must be complete.
+* no mode word: ``train_step`` (the frozen features, the head's forward and
+  backward, guard, clip, AdamW) in each compute dtype named (default both),
+  and ``eval_step`` untraced; 3 steps traced.
+* ``scoring``: one scoring batch as the benchmark's ``rol.score`` cell
+  runs it: the next batch from the serial ``Loader`` over a
+  ``MemoryDataset`` of moving-edge sequences (``data/fixtures.
+  make_sequence``, 6 objects, items of about 15 000 events), the copy to
+  the card, ``model_forward`` in eval mode and the logits back on the host;
+  bf16 features in each kernel flavour named (``default``, ``base``,
+  ``bilinear``; default ``default``, the path the cell runs); 12 batches
+  traced.
+* ``detector``: ``detector_forward`` in eval mode (bf16 features) on one
+  synthetic batch in each kernel flavour named (``default``, ``base``,
+  ``bilinear``, ``base+bilinear``; default the first and the last); the
+  BN running statistics first moved to the batch's by ten batch-statistics
+  passes (random weights on the initial statistics overflow the box
+  decode); 3 forwards traced.
+* ``streaming``: the incremental step (``append`` + ``read_scores``) at the
+  streaming bench's operating point (batch 1, a ring of 16 384 events,
+  chunks of 512, bf16), its chunks on the card before the clock starts; 10
+  steps traced; then, untraced, the medians of 9 ``append`` calls, 9
+  ``read_scores`` and 9 dense steps (``streaming.runner``, the whole
+  backbone on the ring).
+* ``detector_train``: one detector training step (``train_detector.
+  make_detector_train_step``: the forward, the simOTA loss, the backward
+  through the backbone and the ResNet, clip, AdamW, EMA) in each dtype
+  named (default ``float32``), with the peak device memory of the timed
+  steps; 3 steps traced.
 
 Prints the card's name and power limit first and one JSON line per dtype or
 flavour last.  Needs a CUDA device.
 """
 from __future__ import annotations
 
+import bisect
 import json
 import subprocess
 import sys
@@ -67,66 +81,23 @@ import torch
 
 from ..config import Config
 from ..data.synthetic import make_synthetic_batch
-from ..models.backbone import backbone_forward
-from ..models.dagr import (build_level0_graph, graph_static_config,
-                           init_model, model_forward)
-from ..models.eventad import eventad_forward
-from ..models.feature_extract import extract_box_features
-from ..models.resnet import cnn_branch_forward
+from ..models.dagr import graph_static_config, init_model, model_forward
 from ..parallel.train_step import make_optimizer, make_train_fns
+from ..utils import spans
+from ..utils.devtime import union_intervals
 from .check_fused import FLAVOURS
 
-STAGES = ("graph", "cnn", "backbone", "box_features", "head_forward",
-          "head_backward", "guard_clip_adamw")
+CALL = "profile_step/call"
+# device-side ranges of host annotations, not device work
+ANNOTATIONS = ("Optimizer.", "ProfilerStep", spans.PREFIX, CALL)
+# runtime calls that hold the host until the card has caught up
+SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+         "cudaEventSynchronize", "cudaMemcpy")
+OUTSIDE = "outside program spans"
 
 
 def _median(xs):
     return sorted(xs)[len(xs) // 2]
-
-
-def staged_step(model, batch, bc, mc, gsc, optimizer):
-    """One train step, stage by stage, a synchronise after each; returns
-    the stage seconds.  The same calls as ``model_forward`` and
-    ``train_step`` make."""
-    ts = []
-
-    def lap(t0):
-        torch.cuda.synchronize()
-        ts.append(time.perf_counter() - t0)
-        return time.perf_counter()
-
-    optimizer.zero_grad()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        g0 = build_level0_graph(batch.pos, batch.polarity, batch.valid, gsc,
-                                batch.rank)
-        t0 = lap(t0)
-        feats = (cnn_branch_forward(model.dagr.cnn, batch.image,
-                                    bc.compute_dtype)
-                 if bc.use_image else None)
-        t0 = lap(t0)
-        _, out4 = backbone_forward(model.dagr.backbone, g0, feats, bc)
-        t0 = lap(t0)
-        box = extract_box_features(out4, batch.boxes, batch.box_present,
-                                   bc.batch_size, bc.width, bc.height)
-        box = box.to(torch.float32)
-        denom = torch.tensor([bc.width, bc.height, bc.width, bc.height],
-                             dtype=torch.float32, device=box.device)
-        coords = batch.boxes[:, 1] / denom
-        t0 = lap(t0)
-    out = eventad_forward(model.head, mc, box, coords,
-                          batch.box_present[:, 1], batch.box_labels,
-                          training=True)
-    t0 = lap(t0)
-    out.loss.backward()
-    t0 = lap(t0)
-    flags = [torch.isfinite(out.loss)] + [
-        torch.isfinite(p.grad).all() for p in model.head.parameters()]
-    if bool(torch.stack(flags).all()):
-        optimizer.step()
-    lap(t0)
-    return ts
 
 
 def timed_ms(fn, reps=9):
@@ -140,40 +111,179 @@ def timed_ms(fn, reps=9):
     return ts
 
 
-def traced_kernels(fn, n_traced=3):
-    """``(name, device ms per call of fn, launches per call)`` of every
-    device operation in a ``torch.profiler`` trace of ``n_traced`` calls."""
-    from torch.profiler import ProfilerActivity, profile
+def traced(fn, n_traced=3):
+    """``(events, summary)``: the events of one ``torch.profiler`` session
+    over ``n_traced`` calls of ``fn``, each in a range of its own, and the
+    program's span summary of that session."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    spans.reset()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n_traced):
-            fn()
+            with record_function(CALL):
+                fn()
         torch.cuda.synchronize()
-    kernels = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        # device-side spans of host annotations (the optimizer's
-        # record_function) are not device work
-        if us > 0 and str(e.device_type).endswith("CUDA") \
-                and not getattr(e, "is_user_annotation", False) \
-                and not e.key.startswith(("Optimizer.", "ProfilerStep")):
-            kernels.append((e.key, us / 1e3 / n_traced, e.count / n_traced))
-    if not kernels:
+    summary = spans.summary()
+    spans.reset()
+    return prof.events(), summary
+
+
+def _is_device(e) -> bool:
+    return str(e.device_type).endswith("CUDA")
+
+
+def device_ops(events) -> list:
+    """The trace's device operations: kernels, copies and sets, without
+    the device-side ranges of host annotations."""
+    ops = [e for e in events if _is_device(e)
+           and not getattr(e, "is_user_annotation", False)
+           and not e.name.startswith(ANNOTATIONS)]
+    if not ops:
         raise RuntimeError("the profiler recorded no device time")
-    return kernels
+    return ops
 
 
-def device_summary(kernels, step_ms) -> dict:
-    busy = sum(k[1] for k in kernels)
-    top = sorted(kernels, key=lambda k: -k[1])[:10]
+def kernel_table(ops, n_traced) -> list:
+    """``(name, device ms per call, launches per call)`` of every device
+    operation name."""
+    by = {}
+    for e in ops:
+        t = by.setdefault(e.name, [0.0, 0])
+        t[0] += e.time_range.end - e.time_range.start
+        t[1] += 1
+    return [(k, us / 1e3 / n_traced, c / n_traced)
+            for k, (us, c) in by.items()]
+
+
+def traced_kernels(fn, n_traced=3):
+    """``(name, device ms per call of fn, launches per call)`` of every
+    device operation in a trace of ``n_traced`` calls."""
+    return kernel_table(device_ops(traced(fn, n_traced)[0]), n_traced)
+
+
+class _Spans:
+    """The program's spans of one thread in a trace, nested: the innermost
+    span open at a time, with its parent's name."""
+
+    def __init__(self, evs):
+        evs = sorted(evs, key=lambda e: (e[0], -e[1]))
+        self.evs, self.parent, stack = evs, [], []
+        for i, (s, _, _) in enumerate(evs):
+            while stack and evs[stack[-1]][1] < s:
+                stack.pop()
+            self.parent.append(stack[-1] if stack else -1)
+            stack.append(i)
+        self.starts = [e[0] for e in evs]
+
+    def at(self, t):
+        """``(name, parent)`` of the innermost span open at ``t``, or
+        ``(OUTSIDE, None)``."""
+        i = bisect.bisect_right(self.starts, t) - 1
+        while i >= 0 and self.evs[i][1] < t:
+            i = self.parent[i]
+        if i < 0:
+            return OUTSIDE, None
+        up = self.parent[i]
+        return self.evs[i][2], (self.evs[up][2] if up >= 0 else None)
+
+
+def device_summary(events, n_traced, summary) -> dict:
+    """The card's figures, the stages and the idle gaps of a trace of
+    ``n_traced`` calls (see the module docstring)."""
+    n = n_traced
+    ops = device_ops(events)
+    host = [e for e in events if not _is_device(e)]
+    calls = [e.time_range for e in host if e.name == CALL]
+    if len(calls) != n:
+        raise RuntimeError(f"{len(calls)} call ranges in the trace, {n} "
+                           f"calls made")
+    main = next(e.thread for e in host if e.name == CALL)
+    w0 = min(r.start for r in calls)
+    w1 = max(max(r.end for r in calls), max(e.time_range.end for e in ops))
+    busy = union_intervals((e.time_range.start, e.time_range.end)
+                           for e in ops)
+    busy_us = sum(e - s for s, e in busy)
+
+    by_thread = {}
+    for e in host:
+        if e.name.startswith(spans.PREFIX):
+            by_thread.setdefault(e.thread, []).append(
+                (e.time_range.start, e.time_range.end,
+                 e.name[len(spans.PREFIX):]))
+    nests = {th: _Spans(evs) for th, evs in by_thread.items()}
+    empty = _Spans([])
+
+    def stage_at(t, thread):
+        return nests.get(thread, nests.get(main, empty)).at(t)
+
+    rows = {}
+
+    def row(key):
+        return rows.setdefault(key, {"ops": [], "blocking": 0,
+                                     "blocking_us": 0.0})
+
+    runtime = {e.id: e for e in host if e.name.startswith("cu")}
+    unjoined = 0
+    for op in ops:
+        rt = runtime.get(op.id)
+        if rt is None:
+            unjoined += 1
+            continue
+        row(stage_at(rt.time_range.start, rt.thread))["ops"].append(
+            (op.time_range.start, op.time_range.end))
+    op_name = {op.id: op.name for op in ops}
+    for rt in runtime.values():
+        if rt.name in SYNCS or (rt.name.startswith("cudaMemcpy")
+                                and "Pageable" in op_name.get(rt.id, "")):
+            r = row(stage_at(rt.time_range.start, rt.thread))
+            r["blocking"] += 1
+            r["blocking_us"] += rt.time_range.end - rt.time_range.start
+
+    own = {}
+    for r in summary["spans"]:
+        own[(r["name"], r["parent"])] = r
+        row((r["name"], r["parent"]))
+    stages = []
+    for (name, parent), r in rows.items():
+        o = own.get((name, parent), {})
+        stages.append(dict(
+            name=name, parent=parent, calls=o.get("calls", 0) / n,
+            host_self_ms=o.get("self_ms", 0.0) / n,
+            device_ops=len(r["ops"]) / n,
+            device_busy_ms=sum(e - s for s, e in union_intervals(r["ops"]))
+            / 1e3 / n,
+            blocking_calls=r["blocking"] / n,
+            blocking_ms=r["blocking_us"] / 1e3 / n))
+    stages.sort(key=lambda d: -(d["host_self_ms"] + d["blocking_ms"]))
+
+    gaps = []
+    for (_, e0), (s1, _) in zip(busy, busy[1:]):
+        if s1 > e0:
+            gaps.append((s1 - e0, stage_at((e0 + s1) / 2, main)[0]))
+    gaps.sort(reverse=True)
+    top = sorted(kernel_table(ops, n), key=lambda k: -k[1])[:10]
+    window_us = w1 - w0
     return dict(
-        device_busy_ms_per_step=busy,
-        device_ops_per_step=sum(k[2] for k in kernels),
-        device_idle_share=1.0 - busy / step_ms,
+        device_busy_ms_per_step=busy_us / 1e3 / n,
+        device_ops_per_step=len(ops) / n,
+        device_idle_share=1.0 - busy_us / window_us,
+        traced_window_ms_per_step=window_us / 1e3 / n,
         top_kernels=[dict(name=k[0][:100], ms_per_step=k[1],
-                          calls_per_step=k[2]) for k in top])
+                          calls_per_step=k[2]) for k in top],
+        stages=stages, unjoined_device_ops=unjoined / n,
+        idle_gaps=[dict(span=name, ms=g / 1e3) for g, name in gaps[:10]],
+        program_units=summary["units"],
+        counters_per_step={k: v / n for k, v in
+                           summary["counters"].items()})
+
+
+def profile_calls(fn, n_traced=3) -> dict:
+    """``n_traced`` and :func:`device_summary` of a trace of ``n_traced``
+    calls of ``fn``."""
+    events, summary = traced(fn, n_traced)
+    return dict(n_traced=n_traced,
+                **device_summary(events, n_traced, summary))
 
 
 def profile_dtype(dtype: str, smi: str) -> dict:
@@ -191,81 +301,64 @@ def profile_dtype(dtype: str, smi: str) -> dict:
     for _ in range(3):
         fns.train_step(batch, gen)
     torch.cuda.synchronize()
-    stage_runs = [staged_step(model, batch, bc, mc, gsc, optimizer)
-                  for _ in range(7)]
-    stages = {name: _median([r[i] for r in stage_runs]) * 1e3
-              for i, name in enumerate(STAGES)}
-
     train_ts = timed_ms(lambda: fns.train_step(batch, gen))
     eval_ts = timed_ms(lambda: fns.eval_step(batch))
-
-    kernels = traced_kernels(lambda: fns.train_step(batch, gen))
     step_ms = _median(train_ts)
     return dict(
-        dtype=dtype, card=smi, stage_ms=stages,
-        stage_sum_ms=sum(stages.values()), train_step_ms=step_ms,
+        dtype=dtype, card=smi, train_step_ms=step_ms,
         train_step_ms_all=train_ts, eval_step_ms=_median(eval_ts),
         train_items_per_sec=cfg.batch_size / step_ms * 1e3,
-        **device_summary(kernels, step_ms))
+        **profile_calls(lambda: fns.train_step(batch, gen)))
 
 
-def profile_scoring(flavour: str, smi: str) -> dict:
+def scoring_batches(cfg: Config, n_sequences: int = 8, seed: int = 0):
+    """Endless batches of the serial ``Loader`` over a ``MemoryDataset`` of
+    moving-edge sequences at ``cfg``'s model size (6 objects, every third
+    sequence anomalous, about 15 000 events a frame pair), shuffled."""
+    from ..data.batching import Loader
+    from ..data.dataset import MemoryDataset
+    from ..data.fixtures import make_sequence
+    seqs = [make_sequence(f"seq{i:03d}", cfg, n_frames=12, n_objects=6,
+                          anomalous=i % 3 == 0, seed=seed + i,
+                          events_per_window=15000, frame_scale=1)
+            for i in range(n_sequences)]
+    loader = Loader(MemoryDataset(cfg, seqs), cfg, shuffle=True, seed=seed,
+                    prefetch=0, num_workers=0)
+    while True:
+        yield from loader
+
+
+def profile_scoring(flavour: str, smi: str, n_traced: int = 12) -> dict:
     dev = torch.device("cuda")
-    cfg = Config(batch_size=6, use_image=True, compute_dtype="bfloat16",
-                 event_buckets=(16384,))
+    cfg = Config(batch_size=6, use_image=True, compute_dtype="bfloat16")
     model, bc, mc = init_model(cfg, torch.Generator().manual_seed(0), dev)
     bc = bc._replace(**FLAVOURS[flavour])
     gsc = graph_static_config(cfg)
-    batch = make_synthetic_batch(cfg, seed=0, boxes_per_item=6).to(dev)
+    feed = scoring_batches(cfg)
 
-    def forward():
-        return model_forward(model, batch, bc, mc, gsc)
+    def one_batch():
+        batch, _ = next(feed)
+        with torch.no_grad():
+            return model_forward(model, batch.to(dev), bc, mc,
+                                 gsc).logits.cpu()
 
-    for _ in range(3):
-        out = forward()
-    if not bool(torch.isfinite(out.logits).all()):
+    # two epochs of the dataset: every bucket the items reach
+    for _ in range(30):
+        logits = one_batch()
+    if not bool(torch.isfinite(logits).all()):
         raise RuntimeError("the logits are not finite")
-    ts = timed_ms(forward)
+    ts = timed_ms(one_batch)
     batch_ms = _median(ts)
     return dict(
         flavour=flavour, dtype="bfloat16", card=smi, batch_ms=batch_ms,
-        batch_ms_all=ts, **device_summary(traced_kernels(forward), batch_ms))
+        step_ms=batch_ms, batch_ms_all=ts,
+        **profile_calls(one_batch, n_traced))
 
 
 DETECTOR_FLAVOURS = {
     **{k: FLAVOURS[k] for k in ("default", "base", "bilinear")},
     "base+bilinear": {**FLAVOURS["base"], **FLAVOURS["bilinear"]},
 }
-DETECTOR_STAGES = ("graph", "cnn", "backbone", "heads", "decode_nms")
-
-
-def staged_detector_forward(detector, batch, cfg, bc):
-    """One detection forward, stage by stage, a synchronise after each; the
-    stage seconds.  The same calls as ``detector_forward`` makes."""
-    from ..models.detector import decode_detections, head_maps
-    ts = []
-
-    def lap(t0):
-        torch.cuda.synchronize()
-        ts.append(time.perf_counter() - t0)
-        return time.perf_counter()
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        g0 = build_level0_graph(batch.pos, batch.polarity, batch.valid,
-                                graph_static_config(cfg), batch.rank)
-        t0 = lap(t0)
-        feats, image_outs = cnn_branch_forward(
-            detector.dagr.cnn, batch.image, bc.compute_dtype, outputs=True)
-        t0 = lap(t0)
-        outs = backbone_forward(detector.dagr.backbone, g0, feats, bc)
-        t0 = lap(t0)
-        maps, strides = head_maps(detector, outs, image_outs, bc)
-        t0 = lap(t0)
-        decode_detections(maps, strides, bc)
-        lap(t0)
-    return ts
 
 
 def profile_detector(flavour: str, smi: str) -> dict:
@@ -289,17 +382,12 @@ def profile_detector(flavour: str, smi: str) -> dict:
         _, decoded = forward()
     if not bool(torch.isfinite(decoded).all()):
         raise RuntimeError("the decoded outputs are not finite")
-    stage_runs = [staged_detector_forward(detector, batch, cfg, bc)
-                  for _ in range(7)]
-    stages = {name: _median([r[i] for r in stage_runs]) * 1e3
-              for i, name in enumerate(DETECTOR_STAGES)}
     ts = timed_ms(forward)
     batch_ms = _median(ts)
     return dict(
-        flavour=flavour, dtype="bfloat16", card=smi, stage_ms=stages,
-        stage_sum_ms=sum(stages.values()), batch_ms=batch_ms,
+        flavour=flavour, dtype="bfloat16", card=smi, batch_ms=batch_ms,
         batch_ms_all=ts, images_per_sec=cfg.batch_size / batch_ms * 1e3,
-        **device_summary(traced_kernels(forward), batch_ms))
+        **profile_calls(forward))
 
 
 def profile_streaming(smi: str, n_traced: int = 10) -> dict:
@@ -338,7 +426,7 @@ def profile_streaming(smi: str, n_traced: int = 10) -> dict:
         raise RuntimeError("the logits are not finite")
     ts = timed_ms(one_step)
     step_ms = _median(ts)
-    device = device_summary(traced_kernels(one_step, n_traced), step_ms)
+    device = profile_calls(one_step, n_traced)
 
     # untraced, the parts and the dense step beside it; every timed call
     # takes a chunk made before the clock starts
@@ -368,7 +456,7 @@ def profile_streaming(smi: str, n_traced: int = 10) -> dict:
     dense_ms = _median(timed_ms(one_dense))
     return dict(mode="streaming", dtype="bfloat16", card=smi,
                 n_buf=n_buf, events_per_chunk=n_chunk, step_ms=step_ms,
-                step_ms_all=ts, n_traced=n_traced, append_ms=append_ms,
+                step_ms_all=ts, append_ms=append_ms,
                 read_scores_ms=read_ms, dense_step_ms=dense_ms, **device)
 
 
@@ -407,8 +495,7 @@ def profile_detector_train(dtype: str, smi: str) -> dict:
     return dict(
         mode="detector_train", dtype=dtype, card=smi, step_ms=step_ms,
         step_ms_all=ts, items_per_sec=cfg.batch_size / step_ms * 1e3,
-        peak_memory_bytes=peak,
-        **device_summary(traced_kernels(one_step), step_ms))
+        peak_memory_bytes=peak, **profile_calls(one_step))
 
 
 def main(argv=None):
@@ -422,7 +509,7 @@ def main(argv=None):
     print(smi, flush=True)
     argv = list(argv or [])
     if argv[:1] == ["scoring"]:
-        for flavour in argv[1:] or ["base"]:
+        for flavour in argv[1:] or ["default"]:
             print(json.dumps(profile_scoring(flavour, smi)), flush=True)
         return
     if argv[:1] == ["streaming"]:

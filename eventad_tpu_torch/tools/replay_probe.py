@@ -15,8 +15,8 @@ replays, and the device time of each kernel in a ``torch.profiler`` trace of
 and power limit, one line per capture, and a JSON line with every
 capture's figures and the ten kernels whose time differs most between the
 fastest and the slowest capture.  Needs a CUDA device; run it in a process
-of its own, since late traces lose device events
-(``tools/trace_probe.py``).
+of its own, since late traces lose device events (``PERF.md`` §6, PRs
+1-12: a trace has to be its process's first).
 """
 from __future__ import annotations
 

@@ -15,10 +15,10 @@ evaluate.py:267-276``).
   of one capture.
 - :func:`trace_device_ms`: the union of the device intervals (kernels,
   copies, memsets) of each call in a ``torch.profiler`` trace.  Traces
-  taken late in a process lose device events
-  (``eventad_tpu_torch/tools/trace_probe.py``): the function counts the
-  device events of each call and raises when the calls disagree, and
-  callers take this trace early in the process.
+  taken late in a process lose device events (``PERF.md`` §6, PRs 1-12:
+  a trace has to be its process's first): the function counts the device
+  events of each call and raises when the calls disagree, and callers take
+  this trace early in the process.
 - :func:`dispatch_floor_ms`: the per-dispatch time of a scalar add, 50
   enqueued and one synchronise.
 
@@ -91,13 +91,21 @@ def graph_device_ms(fn, n1: int = 10, n2: int = 50, reps: int = 4):
     return replay_ms(graph, n1, n2, reps), out
 
 
-def _union_us(spans) -> float:
-    total, end = 0.0, float("-inf")
+def union_intervals(spans) -> list:
+    """The union of ``(start, end)`` intervals: sorted, disjoint
+    intervals."""
+    out = []
     for lo, hi in sorted(spans):
-        if hi > end:
-            total += hi - max(lo, end)
-            end = hi
-    return total
+        if out and lo <= out[-1][1]:
+            if hi > out[-1][1]:
+                out[-1] = (out[-1][0], hi)
+        else:
+            out.append((lo, hi))
+    return out
+
+
+def _union_us(spans) -> float:
+    return sum(hi - lo for lo, hi in union_intervals(spans))
 
 
 def trace_device_ms(fn, iters: int = 6) -> float:

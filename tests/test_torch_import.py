@@ -73,7 +73,8 @@ def test_port_imports_no_jax_yaml_or_reference_package():
                  "parallel.mesh", "ops.group_sum", "parallel.sharding",
                  "parallel.seq_shard", "parallel.launch",
                  "tools.extract_sp", "tools.dryrun_multichip",
-                 "utils.roofline", "utils.devtime", "tools.replay_probe"):
+                 "utils.roofline", "utils.devtime", "tools.replay_probe",
+                 "utils.spans"):
         assert f"'eventad_tpu_torch.{name}'" in res.stdout, name
 
 
