@@ -24,13 +24,25 @@ exits non-zero without printing a result:
    reach (``check_search_general``, ``check_level0_general``,
    ``check_shift_general``, ``check_bilinear_general``,
    ``check_gather_wide``: an output of 2^31 elements or more).
+   K8 (graph pooling) runs on the forward's four poolings at the 16 384
+   bucket and on those of a forward at the 32 768 one, each call as
+   recorded (bf16, ``pos_src``, max, mean at level 4) and in three
+   variants (through ``nbr`` with the temporal ordering; f32 features with
+   the other aggregation and ``pos_nbr``; f32 through ``nbr``, temporal,
+   ``pos_nbr``): a max pooling's features, ``nbr``, the masks, ``active``
+   and the batch column equal to the plain formulation exactly, a mean's
+   features within one rounding of their type of scale, the pooled ``t``
+   within 1e-5 of scale, the pooled ``x``, ``y`` and ``pos_nbr`` equal but
+   where a cell's f32 mean lies on a pixel boundary (there one pixel step
+   apart, in at most 1 % of the active cells; counted and printed).
    A second forward must reuse K2's and K3's weight packs and K3's static
    tables; a trace of ``prepare_shift`` and the two blocks of every pooled
    level, one K1 call and one level-0 layer must show K3's eight launches,
    K1's one and K2's two, and no other device operation (no copy to the
    card); and a weight changed in place must reach K3's output.
 4. Launch counters are zeroed, the forward runs on several batches (new
-   seeds), and the counters are read: every kernel must have launched.
+   seeds), and the counters are read: every kernel must have launched, K8
+   eight times a forward (two a pooling).
    Logits must be finite and ``[6, 31, 2]``, and agree with the same
    weights and batch run through the port on the CPU (bf16, the non-fused
    formulation) within 0.05 absolute, the band of
@@ -105,8 +117,9 @@ exits non-zero without printing a result:
    0.05.  In f32 on one window: the dense stream (``consistency_check``)
    and the incremental one (refresh, appends, one read) against the batch
    ``model_forward`` at batch 1, within 1e-4.  Launches, counters zeroed
-   before each: one ``append`` K1 once, one ``read_scores`` K3 eight
-   times, one dense bf16 step K1, K4, K2 twice and K3 eight times; K1 at
+   before each: one ``append`` K1 once, one ``read_scores`` K3 and K8
+   eight times each, one dense bf16 step K1, K4, K2 twice, K3 and K8
+   eight times; K8 at a read's batch-1 grids as in phase 3; K1 at
    an append's tail and at the refresh of a ring still filling (invalid
    rows first, t = 0) equal to its plain version, K3 at a read's
    batch-1 grids and K2 and K4 at the dense step's (one item of 16 384
@@ -122,7 +135,7 @@ exits non-zero without printing a result:
    the device's busy share from a ``torch.profiler`` trace of 10 steps in
    a fresh process (``tools.profile_step streaming``: late in this one a
    trace may lose device events), on a line with the card's name and
-   power limit.  K1's and K3's records gain ``streaming_append`` /
+   power limit.  K1's, K3's and K8's records gain ``streaming_append`` /
    ``streaming_read``, K2's and K4's ``streaming_dense_step`` and K1-K4's
    ``streaming_dense_step_launches``.
 10. Detector training (``train_detector.make_detector_train_step``: the
@@ -141,8 +154,9 @@ exits non-zero without printing a result:
    the phase-5 check's as ``check_*``).  Five steps a dtype on one batch
    from a fresh optimizer (warm-up of one step) must give finite, falling
    losses, five EMA updates, f32 master weights, EMA and statistics; the
-   bf16 EMA weights are evaluated (mAP, not gated) with K1-K4's launches
-   counted; step ms, items/s and peak memory per dtype, and the device's
+   bf16 EMA weights are evaluated (mAP, not gated) with K1-K4's and K8's
+   launches counted (K8 none in a training step: its gradient takes the
+   plain formulation); step ms, items/s and peak memory per dtype, and the device's
    busy share from ``tools.profile_step detector_train`` in a fresh
    process per dtype.  Every record gains ``train_step_launches``.
 11. The host data path feeding the card (``data/``): six sequences made in
@@ -154,8 +168,8 @@ exits non-zero without printing a result:
    ``Loader`` serial, on its prefetch thread and in 4 spawned decode
    processes (which hide the card from themselves) must give the same 8
    batches bit for bit and count the same truncated events.  A loader
-   batch's bf16 ``eval_step`` launches K1 once, K2 twice, K3 eight times
-   and K4 once (counters zeroed just before; records gain
+   batch's bf16 ``eval_step`` launches K1 once, K2 twice, K3 and K8 eight
+   times each and K4 once (counters zeroed just before; records gain
    ``loader_batch_launches``), its logits within 0.05 of the port's CPU
    run with equal valid slots; three epochs, one a mode, launch that
    eightfold again.  Then ``collect_predictions``, the metric functions and
@@ -186,16 +200,16 @@ exits non-zero without printing a result:
    ``refresh`` on one stream of the operating point's length (f32 within
    1e-5 of each level's scale, bf16 within 2e-2).  Each kernel's launches
    on the mesh must equal those without a group and include the path's
-   kernels (K1 and K6a; K1-K4; K1, K6a and K6b; K1 and K6a, with K3 in
-   bf16); records gain ``dp_train_step_launches``, ``dp_eval_launches``,
+   kernels (K1 and K6a, the pooling plain under deterministic algorithms;
+   K1-K4 and K8; K1, K6a and K6b; K1, K6a and K8, with K3 in bf16); records gain ``dp_train_step_launches``, ``dp_eval_launches``,
    ``dp_detector_step_launches`` and ``seq_sp_launches``.  Then the f32
    head step's median time with and without the group, and a
    ``{"parallel_times": ...}`` JSON line.
 13. The bf16 scoring forward of phase 4 (batch 0) captured in a CUDA graph
    (``utils/devtime.capture``: 3 warm-up forwards on a side stream, after
    which the cached tables and K2/K3 packs exist, then the capture): the
-   launch counters read during the capture must be K1 1, K2 2, K3 8, K4 1
-   (records gain ``graph_capture_launches``); a replay's logits within
+   launch counters read during the capture must be K1 1, K2 2, K3 8, K4 1,
+   K8 8 (records gain ``graph_capture_launches``); a replay's logits within
    0.05 of the port's CPU run of phase 4, valid slots equal; two replays
    no further apart than the largest spread of 10 eager forwards on the
    card (the ``index_add_`` atomics make f32 sums vary from run to run).
@@ -295,6 +309,10 @@ KERNELS = [
      "upsample_rows_plain", ("models.backbone", "upsample_rows"),
      "eventad_tpu_torch/csrc/upsample_rows.cu",
      "eventad_tpu/ops/upsample_flat.py:54"),
+    ("pool_graph", "pooling", "pool_graph_cuda", "pool_graph_plain",
+     ("models.backbone", "pool_graph"),
+     "eventad_tpu_torch/csrc/pool_graph.cu",
+     "none: XLA lowers eventad_tpu/ops/pooling.py:pool_graph"),
 ]
 
 
@@ -807,9 +825,12 @@ def check_gather_wide(dev):
     return pick.numel(), total
 
 
-def compare(name, got, want):
+def compare(name, got, want, kw=None):
     """Max abs error of the kernel's outputs against the plain version's;
-    raises if outside the stated tolerance."""
+    raises if outside the stated tolerance.  ``kw``: the call's keywords
+    (K8 reads its geometry there)."""
+    if name == "pool_graph":
+        return compare_pool(got, want, kw)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     err = 0.0
@@ -828,6 +849,106 @@ def compare(name, got, want):
                                  f"{KERNEL_TOL} x {scale}")
         err = max(err, d)
     return err
+
+
+# K8 against the plain formulation, summed over the compared calls: cells,
+# cells whose pooled position is one pixel step from the plain one's, and
+# pos_nbr entries likewise
+POOL_STATS = dict(calls=0, cells=0, step_cells=0, step_pos_nbr=0)
+
+
+def compare_pool(got, want, kw):
+    """K8's outputs against the plain formulation's on the same call: the
+    features of a max pooling, ``nbr``, ``nbr_mask``, ``active`` and the
+    batch column exactly; a mean pooling's features within one rounding of
+    their type of scale; the pooled ``t`` within f32 rounding of scale
+    (both sum by f32 atomics, in an order of their own); the pooled ``x``,
+    ``y`` and ``pos_nbr`` equal, except where a cell's f32 mean lies within
+    that rounding of a pixel boundary: there one pixel step (``1/width``,
+    ``1/height``) apart, in at most 1 % of the active cells (counted in
+    ``POOL_STATS``).  Returns the largest error of the features and ``t``
+    against their scale."""
+    if kw.get("return_pos_nbr"):
+        (g, gpn), (w, wpn) = got, want
+    else:
+        g, w, gpn, wpn = got, want, None, None
+    for f in ("x", "pos", "nbr", "nbr_mask", "node_mask", "batch"):
+        a, b = getattr(g, f), getattr(w, f)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"pool_graph {f}: {a.shape}/{a.dtype} vs "
+                                 f"{b.shape}/{b.dtype}")
+    exact = ["nbr", "nbr_mask", "node_mask", "batch"]
+    if kw.get("aggr", "max") == "max":
+        exact.append("x")
+    for f in exact:
+        if not torch.equal(getattr(g, f), getattr(w, f)):
+            raise AssertionError(f"pool_graph: {f} differs from the plain "
+                                 f"formulation")
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max().item()
+                / (b.float().abs().max().item() + 1e-6))
+    err = rel(g.pos[:, 2], w.pos[:, 2])
+    if not err <= 1e-5:
+        raise AssertionError(f"pool_graph: pooled t off by {err} of scale")
+    if "x" not in exact:
+        x_tol = 2.0 ** -8 if w.x.dtype == torch.bfloat16 else 1e-6
+        x_err = rel(g.x, w.x)
+        if not x_err <= x_tol:
+            raise AssertionError(f"pool_graph (mean): features off by "
+                                 f"{x_err} of scale > {x_tol}")
+        err = max(err, x_err)
+    step = torch.tensor([1.0 / kw["width"], 1.0 / kw["height"]],
+                        device=w.pos.device)
+
+    def stepped(a, b):
+        """Entries apart, each exactly one pixel step apart."""
+        d = (a - b).abs()
+        off = d > 0
+        if bool((off & ((d - step).abs() > 1e-6)).any()):
+            raise AssertionError(f"pool_graph: a pooled position off by "
+                                 f"{d.max().item()}, not one pixel step")
+        return off.any(-1)
+    cells = int(stepped(g.pos[:, :2], w.pos[:, :2]).sum())
+    POOL_STATS["calls"] += 1
+    POOL_STATS["cells"] += w.pos.shape[0]
+    POOL_STATS["step_cells"] += cells
+    if gpn is not None:
+        POOL_STATS["step_pos_nbr"] += int(stepped(gpn, wpn).sum())
+    if cells > max(1, int(w.node_mask.sum()) // 100):
+        raise AssertionError(f"pool_graph: {cells} cells one pixel step "
+                             f"from the plain formulation, of "
+                             f"{int(w.node_mask.sum())} active")
+    return err
+
+
+def pool_variants(a, kw):
+    """K8's cases on a recorded call: as recorded; through ``nbr`` with
+    the temporal ordering; f32 features with the other aggregation and
+    ``pos_nbr``; f32 through ``nbr`` with the temporal ordering and
+    ``pos_nbr``."""
+    other = "mean" if kw["aggr"] == "max" else "max"
+    x32 = (a[0].float(),) + tuple(a[1:])
+    return [(a, kw),
+            (a, dict(kw, pos_src=None, keep_temporal_ordering=True)),
+            (x32, dict(kw, aggr=other, return_pos_nbr=True)),
+            (x32, dict(kw, pos_src=None, keep_temporal_ordering=True,
+                       return_pos_nbr=True))]
+
+
+def check_pool_cases(calls):
+    """K8 on every variant (:func:`pool_variants`) of the recorded pooling
+    calls against the plain formulation; ``(cases, worst error)``."""
+    from eventad_tpu_torch.ops import pooling
+    n, err = 0, 0.0
+    for a, kw in calls:
+        for va, vkw in pool_variants(a, kw):
+            got = pooling.pool_graph_cuda(*va, **vkw)
+            torch.cuda.synchronize()
+            err = max(err, compare_pool(
+                got, pooling.pool_graph_plain(*va, **vkw), vkw))
+            n += 1
+    return n, err
 
 
 def tensor_bytes(obj):
@@ -935,8 +1056,19 @@ def bound(nbytes, ops, peak):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
+def pool_ops(a, kw, out):
+    """K8: per node one operation a channel and six per edge slot (its
+    source cell, offset and bit), per cell one a channel and six a slot."""
+    x, nbr = a[0], a[2]
+    g = out[0] if kw.get("return_pos_nbr") else out
+    n, c = x.shape
+    m, s = g.nbr.shape
+    return n * c + 6 * n * nbr.shape[1] + m * (c + 6 * s), PEAK_F32
+
+
 OPS = {"event_graph_search": search_ops, "spline_fused_level0": level0_ops,
-       "spline_shift_pooled": shift_ops, "upsample_rows": upsample_ops}
+       "spline_shift_pooled": shift_ops, "upsample_rows": upsample_ops,
+       "pool_graph": pool_ops}
 
 
 def all_bytes(a, kw, out):
@@ -974,8 +1106,18 @@ def shift_bytes(a, kw, out):
             * weight.element_size())
 
 
+def pool_bytes(a, kw, out):
+    """K8: the features, positions, node mask and batch, the edge mask
+    and, with ``pos_src``, the source positions (else ``nbr``) read once;
+    the outputs written once (the workspace stays in L2)."""
+    x, pos, nbr, nbr_mask, node_mask, batch = a
+    src = kw.get("pos_src")
+    return tensor_bytes((x, pos, nbr_mask, node_mask, batch,
+                         nbr if src is None else src, out))
+
+
 BYTES = {"spline_fused_level0": level0_bytes,
-         "spline_shift_pooled": shift_bytes}
+         "spline_shift_pooled": shift_bytes, "pool_graph": pool_bytes}
 
 
 # phase 9: the root bench_streaming.py's operating point (batch 1, a ring
@@ -1126,7 +1268,8 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
     zero_counters()
     step.read_scores(st1, boxes[-1].to(dev), present[-1].to(dev))
     torch.cuda.synchronize()
-    per_read = read_counters({"spline_shift_pooled": 8}, "one read_scores")
+    per_read = read_counters({"spline_shift_pooled": 8, "pool_graph": 8},
+                             "one read_scores")
     sst = dense_update_image(model, init_streaming_state(
         n_buf, cfg1.max_boxes, cfg1.h_dim, device=dev), image.to(dev))
     for c in fill:
@@ -1142,7 +1285,7 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
     torch.cuda.synchronize()
     per_dense = read_counters(dict(event_graph_search=1, upsample_rows=1,
                                    spline_fused_level0=2,
-                                   spline_shift_pooled=8),
+                                   spline_shift_pooled=8, pool_graph=8),
                               "one dense streaming step")
     log(f"streaming launches: one append {per_append}, one read_scores "
         f"{per_read}, one dense step (bf16) {per_dense}")
@@ -1166,7 +1309,7 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
         for a, kw in calls:
             got = cuda_fn(*a, **kw)
             r["max_abs_err"] = max(r["max_abs_err"], compare(
-                name, got, plain_fn(*a, **kw)))
+                name, got, plain_fn(*a, **kw), kw))
             r["ms"] += median_ms(lambda: cuda_fn(*a, **kw))
             r["launch_ms"] += launch_ms(mod, lambda: cuda_fn(*a, **kw))
             r["plain_ms"] += median_ms(lambda: plain_fn(*a, **kw))
@@ -1249,8 +1392,22 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
         f"(first inputs {k3_rec['shapes']}), a second read reuses the "
         f"static tables and the packs (same objects); max abs err "
         f"{k3_rec['max_abs_err']:.3g}; per read: {timing(k3_rec)}")
+    # K8 at a read's batch-1 grids, each call also in four variants
+    _, read_pools = recorded(bb, "pool_graph", lambda: step.read_scores(
+        st1, boxes[-1].to(dev), present[-1].to(dev)))
+    POOL_STATS.update(calls=0, cells=0, step_cells=0, step_pos_nbr=0)
+    k8_rec = held("pool_graph", read_pools, 8)
+    p_cases, p_err = check_pool_cases(read_pools)
+    log(f"pool_graph, streaming shapes: {len(read_pools)} calls per "
+        f"read_scores (rows in {[a[0].shape[0] for a, _ in read_pools]}); "
+        f"{p_cases} variant cases: exact where exact, mean features and t "
+        f"within {max(p_err, k8_rec['max_abs_err']):.3g} of scale; "
+        f"{POOL_STATS['step_cells']} of {POOL_STATS['cells']} cells and "
+        f"{POOL_STATS['step_pos_nbr']} pos_nbr entries one pixel step "
+        f"apart; per read: {timing(k8_rec)}")
     extra = {"event_graph_search": ("streaming_append", k1_rec),
              "spline_shift_pooled": ("streaming_read", k3_rec),
+             "pool_graph": ("streaming_read", k8_rec),
              "spline_fused_level0": ("streaming_dense_step", k2_rec),
              "upsample_rows": ("streaming_dense_step", k4_rec)}
     for r in records:
@@ -1293,8 +1450,8 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
         zero_counters()
         (dets, decoded), dec_calls = recorded(sdet, "decode_detections",
                                               lambda: read_det(dst))
-        seen = read_counters({"spline_shift_pooled": 8}
-                             if name == "bfloat16" else {},
+        seen = read_counters({"spline_shift_pooled": 8, "pool_graph": 8}
+                             if name == "bfloat16" else {"pool_graph": 8},
                              f"read_detections ({name})")
         batch = det_batch(dev, win, img)
         with torch.no_grad():
@@ -1669,7 +1826,8 @@ def detector_training_phase(dev, smi, records, counters):
                     if fn.launches}
             n = TRAIN_EVAL_BATCHES
             expect = dict(event_graph_search=n, spline_fused_level0=2 * n,
-                          spline_shift_pooled=8 * n, upsample_rows=n)
+                          spline_shift_pooled=8 * n, upsample_rows=n,
+                          pool_graph=8 * n)
             if seen != expect:
                 raise AssertionError(f"the bf16 EMA evaluation launched "
                                      f"{seen}, expected {expect}")
@@ -1856,7 +2014,8 @@ def loader_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, records,
     torch.cuda.synchronize()
     per_batch = read_counters(dict(event_graph_search=1,
                                    spline_fused_level0=2,
-                                   spline_shift_pooled=8, upsample_rows=1),
+                                   spline_shift_pooled=8, upsample_rows=1,
+                                   pool_graph=8),
                               "a loader batch's eval_step")
     for r in records:
         r["loader_batch_launches"] = per_batch.get(r["name"], 0)
@@ -2136,7 +2295,8 @@ def parallel_phase(dev, smi, cfg, model, bc, mc, gsc, records, counters):
             raise AssertionError("DP eval differs from the plain eval")
         same_launches("DP eval", e_p, e_d,
                       ("event_graph_search", "spline_fused_level0",
-                       "spline_shift_pooled", "upsample_rows"))
+                       "spline_shift_pooled", "upsample_rows",
+                       "pool_graph"))
         # ---- 12.4 the DP head step in f32, and the plain step twice ----
         ctl_m = copy.deepcopy(plain_m)
         plain, dp = fns(plain_m, bc32), fns(dp_m, bc32, mesh)
@@ -2179,6 +2339,7 @@ def parallel_phase(dev, smi, cfg, model, bc, mc, gsc, records, counters):
                 and stats_equal and out_d["finite"] and out_p["finite"]):
             raise AssertionError("DP head step differs from the plain one")
         del ctl_m
+        # (under deterministic algorithms the plain formulation pools)
         same_launches("DP head step", n_p, n_d,
                       ("event_graph_search", "gather_window_rows"))
         step_ms = {}
@@ -2274,7 +2435,8 @@ def parallel_phase(dev, smi, cfg, model, bc, mc, gsc, records, counters):
             if not max(errs) <= tol:
                 raise AssertionError(f"seq SP ({dt_name}) differs from "
                                      f"refresh: {errs}")
-            need = {"event_graph_search", "gather_window_rows"}
+            need = {"event_graph_search", "gather_window_rows",
+                    "pool_graph"}
             if dt_name == "bfloat16":
                 need.add("spline_shift_pooled")
             if not need <= set(seq_n):
@@ -2303,7 +2465,7 @@ def parallel_phase(dev, smi, cfg, model, bc, mc, gsc, records, counters):
 # lose device events)
 GRAPH_EAGER_RUNS = 10     # eager forwards whose spread bounds two replays'
 GRAPH_LAUNCHES = dict(event_graph_search=1, spline_fused_level0=2,
-                      spline_shift_pooled=8, upsample_rows=1)
+                      spline_shift_pooled=8, upsample_rows=1, pool_graph=8)
 # trace_device_ms may exceed the replay time by this: the profiler lengthens
 # each of a forward's ~2 400 kernels; on one H100 the traced kernels of a
 # capture summed to 6.19-6.25 ms while untraced replays of captures took
@@ -2526,7 +2688,7 @@ def main():
         alone_ms = 0.0
         for a, kw in op_calls[name]:
             got = cuda_fn(*a, **kw)
-            err = max(err, compare(name, got, plain_fn(*a, **kw)))
+            err = max(err, compare(name, got, plain_fn(*a, **kw), kw))
             ms += median_ms(lambda: cuda_fn(*a, **kw))
             alone_ms += launch_ms(mods[mod], lambda: cuda_fn(*a, **kw))
             plain_ms += median_ms(lambda: plain_fn(*a, **kw))
@@ -2537,7 +2699,7 @@ def main():
         dense_err, dense_alone_ms = 0.0, 0.0
         for a, kw in dense_calls[name]:
             dense_err = max(dense_err, compare(name, cuda_fn(*a, **kw),
-                                               plain_fn(*a, **kw)))
+                                               plain_fn(*a, **kw), kw))
             dense_alone_ms += launch_ms(mods[mod],
                                         lambda: cuda_fn(*a, **kw))
         shapes = [tuple(t.shape) for t in op_calls[name][0][0]
@@ -2626,6 +2788,24 @@ def main():
         f"{w_total} output elements (2^31 = {2 ** 31}); {w_rows} sampled "
         f"rows (random, around flat index 2^31, the last) equal to the "
         f"plain version exactly")
+    # K8 on the forward's four poolings at the 16 384 bucket and at the
+    # 32 768 one, each call in four variants
+    big = make_synthetic_batch(cfg, seed=RUNS, events_per_item=32768,
+                               boxes_per_item=BOXES_PER_ITEM).to(dev)
+    pool_calls = op_calls["pool_graph"] + recorded_forward(big)["pool_graph"]
+    POOL_STATS.update(calls=0, cells=0, step_cells=0, step_pos_nbr=0)
+    p_cases, p_err = check_pool_cases(pool_calls)
+    log(f"pool_graph, the forward's {len(pool_calls)} poolings (rows in "
+        f"{[a[0].shape[0] for a, _ in pool_calls]}): {p_cases} cases (as "
+        f"recorded: bf16, pos_src, max / mean at "
+        f"level 4; through nbr with the temporal ordering; f32 with the "
+        f"other aggregation and pos_nbr; f32 through nbr, temporal, "
+        f"pos_nbr): features of a max, masks, indices, active and batch "
+        f"equal to the plain formulation exactly; mean features and t "
+        f"within {p_err:.3g} of scale; {POOL_STATS['step_cells']} of "
+        f"{POOL_STATS['cells']} cells and {POOL_STATS['step_pos_nbr']} "
+        f"pos_nbr entries one pixel step apart (an f32 mean on a pixel "
+        f"boundary)")
 
     k3_calls = op_calls["spline_shift_pooled"]
     per_row = [round(float(a[1].mq.sum()) / a[1].mq.shape[0], 3)
@@ -2746,6 +2926,10 @@ def main():
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']}: no launch on the main path")
     log(f"launches over {RUNS} forwards: {launches}")
+    if launches["pool_graph"] != 8 * RUNS:
+        raise AssertionError(f"pool_graph: {launches['pool_graph']} "
+                             f"launches over {RUNS} forwards, expected "
+                             f"{8 * RUNS} (two a pooling)")
     ts_sorted = sorted(ts)
     med = ts_sorted[len(ts_sorted) // 2]
     log(f"forward times (s, sync per batch): {ts}")
@@ -2977,6 +3161,7 @@ def main():
     build_graph_cuda = counters["event_graph_search"]
     build_graph_cuda.launches = 0
     gw.gather_window_rows_cuda.launches = 0
+    counters["pool_graph"].launches = 0
     ts32, outs32 = [], []
     for i in range(RUNS):
         t0 = time.perf_counter()
@@ -2986,10 +3171,12 @@ def main():
         outs32.append(o)
     f32_launches = dict(event_graph_search=build_graph_cuda.launches,
                         gather_window_rows=gw.gather_window_rows_cuda
-                        .launches)
+                        .launches,
+                        pool_graph=counters["pool_graph"].launches)
     log(f"launches over {RUNS} f32 forwards: {f32_launches}")
     if f32_launches != dict(event_graph_search=RUNS,
-                            gather_window_rows=2 * RUNS):
+                            gather_window_rows=2 * RUNS,
+                            pool_graph=8 * RUNS):
         raise AssertionError(f"f32 forward launches {f32_launches}")
     med32 = sorted(ts32)[len(ts32) // 2]
     log(f"f32 forward times (s, sync per batch): {ts32}")
@@ -3098,11 +3285,13 @@ def main():
                              f"{losses}")
     for dtype, expect in (
             ("float32", dict(event_graph_search=TRAIN_STEPS,
-                             gather_window_rows=2 * TRAIN_STEPS)),
+                             gather_window_rows=2 * TRAIN_STEPS,
+                             pool_graph=8 * TRAIN_STEPS)),
             ("bfloat16", dict(event_graph_search=TRAIN_STEPS,
                               spline_fused_level0=2 * TRAIN_STEPS,
                               spline_shift_pooled=8 * TRAIN_STEPS,
-                              upsample_rows=TRAIN_STEPS))):
+                              upsample_rows=TRAIN_STEPS,
+                              pool_graph=8 * TRAIN_STEPS))):
         for fn in all_counters.values():
             fn.launches = 0
         losses = run_steps(dtype, batches[:TRAIN_STEPS], drop_gen)
@@ -3436,9 +3625,10 @@ def main():
     n = FLAVOUR_RUNS
     flavour_launches = {}
     default_expect = dict(event_graph_search=n, spline_fused_level0=2 * n,
-                          spline_shift_pooled=8 * n, upsample_rows=n)
+                          spline_shift_pooled=8 * n, upsample_rows=n,
+                          pool_graph=8 * n)
     base_expect = dict(event_graph_search=n, upsample_rows=n,
-                       fused_spline_conv=10 * n)
+                       fused_spline_conv=10 * n, pool_graph=8 * n)
     # default and base run twice, in mirrored order, so that their batch
     # times can be compared within this call
     for name, bcx, expect in (
@@ -3447,7 +3637,8 @@ def main():
             ("bilinear", bc_bil, dict(event_graph_search=n,
                                       spline_fused_level0=2 * n,
                                       spline_shift_pooled=8 * n,
-                                      bilinear_sample=2 * n)),
+                                      bilinear_sample=2 * n,
+                                      pool_graph=8 * n)),
             ("base", bc_base, base_expect),
             ("default", bc, default_expect)):
         zero_counters()
@@ -3538,10 +3729,11 @@ def main():
     n_anchors = sum(nx * ny for nx, ny in bc.grids[2:4])
     for name, bcx, expect in (
             ("default", bc, dict(event_graph_search=1, spline_fused_level0=2,
-                                 spline_shift_pooled=8, upsample_rows=1)),
+                                 spline_shift_pooled=8, upsample_rows=1,
+                                 pool_graph=8)),
             ("base+bilinear", bc._replace(**BASE, **BILINEAR),
              dict(event_graph_search=1, fused_spline_conv=10,
-                  bilinear_sample=2))):
+                  bilinear_sample=2, pool_graph=8))):
         with torch.no_grad():
             maps, strides = detector_maps(detector, batches[0], cfg, bcx)
         worst = maps_err(maps, cpu_maps)

@@ -53,6 +53,7 @@ SIGNATURES = {
         [_P, _P, _P, _I, _I, _I, _I, _U, _I, _P, _P],
     "eventad_scatter_window_rows":
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "eventad_pool_graph": [_P] * 16,
 }
 
 

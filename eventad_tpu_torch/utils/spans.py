@@ -56,6 +56,7 @@ KERNELS = {
     "K6b": ("eventad_tpu_torch.ops.gather_window",
             "scatter_window_rows_cuda"),
     "K7": ("eventad_tpu_torch.ops.bilinear_sample", "sample_bilinear_cuda"),
+    "K8": ("eventad_tpu_torch.ops.pooling", "pool_graph_cuda"),
 }
 # the caching allocator's statistics behind the device counters
 ALLOCATOR = {"device_mallocs": "num_device_alloc",
