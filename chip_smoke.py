@@ -1438,15 +1438,17 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
                                  ("bfloat16", bc1, MAP_TOL, 1),
                                  ("float32", bc1_32, F32_MAP_TOL, 0)):
         win, img = windows[seed]
-        d_refresh, d_append, read_det = sdet.make_incremental_detector(
+        d_refresh, d_step = sdet.make_incremental_detector(
             detector, bcx, gsc, n_chunk=k, n_buf=n_buf)
+        read_det = d_step.read_detections
         dst = sdet.update_image_detector(detector, inc.init_incremental_state(
             n_buf, bcx, EventADConfig(), device=dev), img.to(dev), bcx)
         for c in win[:-3]:
             dst = inc.insert_raw(dst, c.to(dev), ones.to(dev), k)
         dst = d_refresh(dst)
         for c in win[-3:]:
-            dst = d_append(dst, c.to(dev), ones.to(dev), k)
+            prev = dst
+            dst = d_step.append(dst, c.to(dev), ones.to(dev), k)
         zero_counters()
         (dets, decoded), dec_calls = recorded(sdet, "decode_detections",
                                               lambda: read_det(dst))
@@ -1463,6 +1465,24 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
         dec_err = ((decoded - bdecoded).abs().amax(dim=(0, 1)) / scale) \
             .max().item()
         shapes = {n: tuple(x.shape) for n, x in dets.items()}
+        # the step (append + read under one span) against the two calls:
+        # the same bits in bf16; in f32 K8's atomic sums (the mean pooling
+        # and the cell positions) have no fixed order, so two reads of one
+        # state may differ in their last bits
+        _, (sdets, sdecoded) = d_step(prev, win[-1].to(dev), ones.to(dev), k)
+        if name == "bfloat16":
+            step_same = torch.equal(sdecoded, decoded) and all(
+                torch.equal(sdets[n], dets[n]) for n in dets)
+            step_note = f"the step bit-identical to append + read: {step_same}"
+        else:
+            step_err = ((sdecoded - decoded).abs().amax(dim=(0, 1))
+                        / scale).max().item()
+            step_same = step_err <= tol
+            step_note = (f"the step vs append + read: decoded max "
+                         f"{step_err:.3g} of scale (K8's f32 atomics)")
+        if not step_same:
+            raise AssertionError(f"detection step ({name}) differs from "
+                                 f"append + read_detections")
         if tuple(decoded.shape) != (1, n_anchors, 7) \
                 or not bool(torch.isfinite(decoded).all()) \
                 or shapes != dict(boxes=(1, 64, 4), scores=(1, 64),
@@ -1483,7 +1503,7 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
             f"batch 1 on the same window: maps max {worst:.3g} of scale, "
             f"decoded max {dec_err:.3g} of each column's scale (tolerance "
             f"{tol} for both); {int(dets['mask'].sum())} boxes kept of 64; "
-            f"launches {seen}")
+            f"launches {seen}; {step_note}")
         if not (worst <= tol and dec_err <= tol):
             raise AssertionError(f"streaming detection ({name}, seed {seed})"
                                  f" differs from the batch detector")

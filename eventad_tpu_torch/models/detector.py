@@ -12,6 +12,7 @@ from torch import nn
 
 from ..config import Config
 from ..ops.spline_conv import cartesian_attr
+from ..utils.spans import span
 from .backbone import BackboneConfig, backbone_forward, make_backbone_config
 from .dagr import (DAGR, build_level0_graph, graph_static_config,
                    resolve_device)
@@ -106,11 +107,13 @@ def decode_maps(maps, strides) -> torch.Tensor:
 
 def decode_detections(maps, strides, bc: BackboneConfig):
     """``(detections, decoded)`` of the head's maps: :func:`decode_maps`,
-    then class-offset NMS."""
-    decoded = decode_maps(maps, strides)
-    detections = postprocess(decoded, num_classes=NUM_CLASSES,
-                             conf_threshold=0.001, nms_threshold=0.65,
-                             width=bc.width, height=bc.height)
+    then class-offset NMS (spans ``detect/decode``, ``detect/nms``)."""
+    with span("detect/decode"):
+        decoded = decode_maps(maps, strides)
+    with span("detect/nms"):
+        detections = postprocess(decoded, num_classes=NUM_CLASSES,
+                                 conf_threshold=0.001, nms_threshold=0.65,
+                                 width=bc.width, height=bc.height)
     return detections, decoded
 
 

@@ -24,6 +24,7 @@ from torch import nn
 from ..ops.norm import MOMENTUM, BatchNorm, batch_norm, channel_statistics
 from ..ops.spline_basis import ACTS
 from ..ops.spline_conv import SplineConv, spline_conv
+from ..utils.spans import count
 from .backbone import BackboneConfig, ConvBlock
 from .graph import Graph, neighbor_rows
 
@@ -217,7 +218,10 @@ def cnn_head_forward(head: CNNHead, feats: Sequence[torch.Tensor],
 def decode_outputs(maps: List[torch.Tensor], strides) -> torch.Tensor:
     """``maps``: per scale ``[B, 5+C, ny, nx]`` (reg 4, obj, cls...), obj and
     cls already sigmoided.  Returns ``[B, A, 5+C]`` f32 with xy in pixels
-    and wh decoded through exp (dagr.py:314-320)."""
+    and wh decoded through exp (dagr.py:314-320).  Counts the anchors of
+    every image (``detect/anchors``)."""
+    count("detect/anchors", sum(m.shape[0] * m.shape[2] * m.shape[3]
+                                for m in maps))
     outs = []
     for m, stride in zip(maps, strides):
         m = m.to(torch.float32)          # decode and NMS geometry stay f32
@@ -255,8 +259,10 @@ def nms_fixed(boxes, scores, class_ids, *, iou_threshold: float = 0.65,
     dimensions are independent images.  Returns ``(keep_idx, keep_mask)``,
     both ``[..., min(N, max_out)]``.  Both sorts are stable, so tied scores
     keep their anchor order.  The greedy suppression is N sequential steps
-    on all images at once, on the tensors' own device."""
+    on all images at once, on the tensors' own device (counted as
+    ``detect/nms_steps``)."""
     n = boxes.shape[-2]
+    count("detect/nms_steps", n)
     offset = class_ids.to(boxes.dtype) * (max(width, height) + 1)
     shifted = boxes + offset[..., None]
     neg_inf = torch.full((), -torch.inf, dtype=scores.dtype,

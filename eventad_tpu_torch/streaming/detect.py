@@ -6,9 +6,15 @@ included, asynchronous/__init__.py:41-110).
 The event-rate ``append`` is the anomaly model's (the same frozen backbone,
 level-0 outputs cached per event); ``read_detections`` re-pools the buffer,
 runs the pooled levels, the GNN head, the hybrid CNN fusion, the decode and
-the NMS.  The per-frame CNN work (ResNet pyramid and the CNN head's logit
-maps, which depend on the image only) runs once per frame in
-``update_image_detector`` and is cached in the state.
+the NMS; the detection step is one ``append`` and one ``read_detections``.
+The per-frame CNN work (ResNet pyramid and the CNN head's logit maps, which
+depend on the image only) runs once per frame in ``update_image_detector``
+and is cached in the state.
+
+Spans (``utils/spans``): ``stream/step`` around ``stream/append`` and
+``stream/read_detections`` (``stream/levels``, ``detect/gnn_head``, then
+``detect/decode`` and ``detect/nms`` from ``models/detector``);
+``stream/update_image_detector`` on its own.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from ..models.detector import Detector, decode_detections
 from ..models.resnet import cnn_branch_forward
 from ..models.yolox_head import cnn_head_forward, gnn_head_scale_forward
 from ..ops.spline_conv import cartesian_attr
+from ..utils.spans import span
 from .incremental import (IncrementalState, _norm_pos, make_incremental_step,
                           pooled_backbone_outs, upsampled_pyramid)
 
@@ -37,41 +44,58 @@ def update_image_detector(detector: Detector, state: IncrementalState,
     """New frame ``image [H, W, 3]``: the cached CNN pyramid (f32, for the
     backbone's lookups at node positions) and the CNN head's logit maps
     (hybrid fusion); call ``refresh`` after it."""
-    feats, image_outs = cnn_branch_forward(detector.dagr.cnn, image[None],
-                                           outputs=True)
-    _, out_sizes, _ = _head_geometry(bc)
-    cnn_maps = cnn_head_forward(detector.head.cnn, image_outs, out_sizes)
-    return state._replace(
-        image_feats=upsampled_pyramid(feats, bc.width, bc.height),
-        cnn_maps=cnn_maps)
+    with span("stream/update_image_detector"):
+        feats, image_outs = cnn_branch_forward(detector.dagr.cnn,
+                                               image[None], outputs=True)
+        _, out_sizes, _ = _head_geometry(bc)
+        cnn_maps = cnn_head_forward(detector.head.cnn, image_outs,
+                                    out_sizes)
+        return state._replace(
+            image_feats=upsampled_pyramid(feats, bc.width, bc.height),
+            cnn_maps=cnn_maps)
 
 
 def make_incremental_detector(detector: Detector, bc: BackboneConfig,
                               gsc: tuple, *, n_chunk: int, n_buf: int):
-    """Returns ``(refresh, append, read_detections)``.  ``refresh`` and
-    ``append`` are the incremental level-0 machinery without an anomaly
-    head; ``read_detections(state)`` gives ``(detections, decoded)`` as the
-    batch ``detector_forward`` does on the same event window."""
-    refresh, step = make_incremental_step(detector, bc, None, gsc,
-                                          n_chunk=n_chunk, n_buf=n_buf)
+    """Returns ``(refresh, step)`` for one stream (``bc.batch_size`` 1).
+    ``refresh`` is the incremental level-0 machinery's, without an anomaly
+    head.  ``step(state, new_pos [n_chunk, 3], new_pol [n_chunk], n_new)``
+    appends a chunk and reads the detections: ``(state, (detections,
+    decoded))``.  Besides, ``step.append(state, new_pos, new_pol, n_new)``
+    ingests a chunk only, and ``step.read_detections(state)`` gives
+    ``(detections, decoded)`` as the batch ``detector_forward`` does on the
+    same event window."""
+    refresh, inc_step = make_incremental_step(detector, bc, None, gsc,
+                                              n_chunk=n_chunk, n_buf=n_buf)
+    append = inc_step.append
     grids, _, strides = _head_geometry(bc)
     scales = detector.head.scales
 
     @torch.no_grad()
     def read_detections(state: IncrementalState):
-        posn = _norm_pos(state.pos, state.t_now, gsc)
-        outs = pooled_backbone_outs(detector, bc, state, posn, gsc)
-        maps = []
-        for i, (g, head) in enumerate(zip(outs, scales)):
-            attr = cartesian_attr(g.pos, g.nbr, g.nbr_mask,
-                                  bc.cart_max[3 + i], clamp=True)
-            cls_o, reg_o, obj_o = gnn_head_scale_forward(head, g, attr,
-                                                         grids[i], bc)
-            if bc.use_image and state.cnn_maps is not None:
-                cls_o = cls_o + state.cnn_maps["cls_output"][i]
-                reg_o = reg_o + state.cnn_maps["reg_output"][i]
-                obj_o = obj_o + state.cnn_maps["obj_output"][i]
-            maps.append((reg_o, obj_o, cls_o))
-        return decode_detections(maps, strides, bc)
+        with span("stream/read_detections"):
+            posn = _norm_pos(state.pos, state.t_now, gsc)
+            with span("stream/levels"):
+                outs = pooled_backbone_outs(detector, bc, state, posn, gsc)
+            maps = []
+            with span("detect/gnn_head"):
+                for i, (g, head) in enumerate(zip(outs, scales)):
+                    attr = cartesian_attr(g.pos, g.nbr, g.nbr_mask,
+                                          bc.cart_max[3 + i], clamp=True)
+                    cls_o, reg_o, obj_o = gnn_head_scale_forward(
+                        head, g, attr, grids[i], bc)
+                    if bc.use_image and state.cnn_maps is not None:
+                        cls_o = cls_o + state.cnn_maps["cls_output"][i]
+                        reg_o = reg_o + state.cnn_maps["reg_output"][i]
+                        obj_o = obj_o + state.cnn_maps["obj_output"][i]
+                    maps.append((reg_o, obj_o, cls_o))
+            return decode_detections(maps, strides, bc)
 
-    return refresh, step.append, read_detections
+    def step(state: IncrementalState, new_pos, new_pol, n_new):
+        with span("stream/step"):
+            state = append(state, new_pos, new_pol, n_new)
+            return state, read_detections(state)
+
+    step.append = append
+    step.read_detections = read_detections
+    return refresh, step

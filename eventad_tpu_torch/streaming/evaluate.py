@@ -359,9 +359,10 @@ def latency_bench_detect(cfg: Config, *, n_buf: int = 16384,
     st = inc.init_incremental_state(n_buf, bc, EventADConfig(),
                                     max_neighbors=cfg.max_neighbors,
                                     device=dev)
-    refresh, _, read_det = make_incremental_detector(
+    refresh, step = make_incremental_detector(
         detector, bc, graph_static_config(cfg1), n_chunk=n_chunk,
         n_buf=n_buf)
+    read_det = step.read_detections
     if bc.use_image:
         st = update_image_detector(detector, st, ev.image(), bc)
     ones = torch.ones((n_chunk,), device=dev)

@@ -85,7 +85,7 @@ def runs():
                      jnp.asarray(pol[lo:lo + N_CHUNK]), jnp.int32(N_CHUNK))
     jdets, jdecoded = read_det(jst)
 
-    t_refresh, t_append, t_read = make_incremental_detector(
+    t_refresh, t_step = make_incremental_detector(
         detector, bc, graph_static_config(cfg), n_chunk=N_CHUNK, n_buf=N)
     tst = inc.init_incremental_state(N, bc, EventADConfig(), device="cpu")
     tst = update_image_detector(detector, tst, _t(image), bc)
@@ -93,9 +93,8 @@ def runs():
     tst = t_refresh(inc.insert_raw(tst, _t(pos[:N_CHUNK]),
                                    _t(pol[:N_CHUNK]), N_CHUNK))
     for lo in range(N_CHUNK, N, N_CHUNK):
-        tst = t_append(tst, _t(pos[lo:lo + N_CHUNK]),
-                       _t(pol[lo:lo + N_CHUNK]), N_CHUNK)
-    tdets, tdecoded = t_read(tst)
+        tst, (tdets, tdecoded) = t_step(tst, _t(pos[lo:lo + N_CHUNK]),
+                                        _t(pol[lo:lo + N_CHUNK]), N_CHUNK)
     batch = SimpleNamespace(pos=_t(pos)[None], polarity=_t(pol)[None],
                             valid=torch.ones((1, N), dtype=torch.bool),
                             rank=None, image=_t(image)[None])
