@@ -106,8 +106,9 @@ exits non-zero without printing a result:
    ``obj``, ``cls`` per scale) within 0.1 of the CPU run's, relative to
    each map's scale (at least 1; in f32, run once, within 1e-3),
    ``decoded [6, 175, 7]`` finite,
-   detections of the fixed shape, the expected launches per forward, and
-   images/s with batch ms by ``bench_detector``'s protocol.
+   detections of the fixed shape, the expected launches per forward (the
+   default flavour K3 18 times: the pooled levels' 8 and the GNN head's
+   10), and images/s with batch ms by ``bench_detector``'s protocol.
 9. Streaming (``streaming/``) at the root ``bench_streaming.py``'s
    operating point: batch 1, the same width, a ring of 16 384 events,
    chunks of 512, the phase-3 weights, events of
@@ -130,7 +131,12 @@ exits non-zero without printing a result:
    batch 1 on the same window, in bf16 on two windows (stream seeds 0 and
    1) and in f32 on the first: the maps and ``decoded`` within 0.1 (bf16)
    and 1e-3 (f32) of each map's or column's scale, as in phase 8,
-   detections of the fixed shape.  Then the times
+   detections of the fixed shape; a bf16 read launches K3 18 times (the
+   pooled levels' 8, the GNN head's 10) and K8 8 times, the head's K3
+   route lies within 0.03 of each map's scale of its plain spline convs on
+   the same graphs, and no host-blocking call falls inside
+   ``detect/gnn_head`` (``torch.cuda.set_sync_debug_mode``, under which
+   the plain head raises).  Then the times
    (``latency_bench_incremental``, ``latency_bench``, the read-out) and
    the device's busy share from a ``torch.profiler`` trace of 10 steps in
    a fresh process (``tools.profile_step streaming``: late in this one a
@@ -276,6 +282,10 @@ BILINEAR_TOL = {torch.float32: 1e-5,    # f32 sums in another order
 # sigmoided outputs).  f32: sums in another order.
 MAP_TOL = 0.1
 F32_MAP_TOL = 1e-3
+# the GNN head's K3 route against its plain spline convs on one read's
+# graphs, of each map's scale: bf16 roundings at other points through three
+# convs (tests/test_torch_detect_head_shift.py holds 0.02 on the CPU)
+HEAD_TOL = 0.03
 CALIBRATION_PASSES = 10
 BASE = dict(fused_two_block=False, fused_shift=False)
 BILINEAR = dict(bilinear_kernel=True)
@@ -1148,6 +1158,7 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
     from eventad_tpu_torch.data.batching import EventBatch
     from eventad_tpu_torch.models.detector import (detector_forward,
                                                    detector_maps)
+    from eventad_tpu_torch.models import yolox_head as yh
     from eventad_tpu_torch.models.eventad import EventADConfig
     from eventad_tpu_torch.ops import event_graph as egm
     from eventad_tpu_torch.ops import spline_shift as ssm
@@ -1433,6 +1444,71 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
     windows = {0: (fill, image),
                1: ([ev2.chunk() for _ in range(n_buf // k)], image2)}
     n_anchors = sum(nx * ny for nx, ny in bc1.grids[2:4])
+
+    def no_sync_in_head(fn):
+        """``fn()`` with every host-blocking CUDA call (a synchronise, a copy
+        from pageable memory) inside the span ``detect/gnn_head`` raising
+        (``torch.cuda.set_sync_debug_mode``)."""
+        orig = sdet.span
+
+        class Guarded:
+            def __init__(self, name):
+                self.span = orig(name)
+                self.strict = name == "detect/gnn_head"
+
+            def __enter__(self):
+                self.span.__enter__()
+                if self.strict:
+                    torch.cuda.set_sync_debug_mode("error")
+
+            def __exit__(self, *exc):
+                if self.strict:
+                    torch.cuda.set_sync_debug_mode("default")
+                return self.span.__exit__(*exc)
+        sdet.span = Guarded
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+            return out
+        finally:
+            sdet.span = orig
+
+    def check_head(read_det, dst):
+        """The GNN head of one bf16 read: its K3 route (five launches a
+        scale) against its plain spline convs on the same graphs and
+        operands, and no host-blocking call inside ``detect/gnn_head``,
+        where the plain head (its tap index copied from pageable memory)
+        has some."""
+        _, calls = recorded(sdet, "gnn_head_scale_forward",
+                            lambda: no_sync_in_head(lambda: read_det(dst)))
+        zero_counters()
+        routed = [yh.gnn_head_scale_forward(*a, **kw) for a, kw in calls]
+        torch.cuda.synchronize()
+        per_head = read_counters({"spline_shift_pooled": 10},
+                                 "the GNN head of one read")
+        gate = yh.head_takes_shift
+        yh.head_takes_shift = lambda *a: False
+        try:
+            plain = [tuple(m.cpu() for m in yh.gnn_head_scale_forward(
+                *a, **kw)) for a, kw in calls]
+            try:
+                no_sync_in_head(lambda: read_det(dst))
+                plain_blocks = False
+            except RuntimeError:
+                plain_blocks = True
+        finally:
+            yh.head_takes_shift = gate
+        err = maps_err(routed, plain)
+        if not (err <= HEAD_TOL and plain_blocks):
+            raise AssertionError(f"GNN head: K3 route vs plain {err} of "
+                                 f"scale (tolerance {HEAD_TOL}), the plain "
+                                 f"head blocks in detect/gnn_head: "
+                                 f"{plain_blocks}")
+        return (f"the GNN head's K3 route ({per_head} for both scales) vs "
+                f"its plain spline convs max {err:.3g} of scale (tolerance "
+                f"{HEAD_TOL}), no host-blocking call in detect/gnn_head (the "
+                f"plain head's raise)")
+
     det_ms = None
     for name, bcx, tol, seed in (("bfloat16", bc1, MAP_TOL, 0),
                                  ("bfloat16", bc1, MAP_TOL, 1),
@@ -1452,9 +1528,12 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
         zero_counters()
         (dets, decoded), dec_calls = recorded(sdet, "decode_detections",
                                               lambda: read_det(dst))
-        seen = read_counters({"spline_shift_pooled": 8, "pool_graph": 8}
+        # launches/K3: the pooled levels' 8 and the GNN head's 10 in bf16
+        seen = read_counters({"spline_shift_pooled": 18, "pool_graph": 8}
                              if name == "bfloat16" else {"pool_graph": 8},
                              f"read_detections ({name})")
+        head_note = (check_head(read_det, dst) if name == "bfloat16"
+                     else "the head's plain spline convs")
         batch = det_batch(dev, win, img)
         with torch.no_grad():
             bmaps, _ = detector_maps(detector, batch, cfg1, bcx)
@@ -1503,7 +1582,7 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
             f"batch 1 on the same window: maps max {worst:.3g} of scale, "
             f"decoded max {dec_err:.3g} of each column's scale (tolerance "
             f"{tol} for both); {int(dets['mask'].sum())} boxes kept of 64; "
-            f"launches {seen}; {step_note}")
+            f"launches {seen}; {head_note}; {step_note}")
         if not (worst <= tol and dec_err <= tol):
             raise AssertionError(f"streaming detection ({name}, seed {seed})"
                                  f" differs from the batch detector")
@@ -1846,7 +1925,7 @@ def detector_training_phase(dev, smi, records, counters):
                     if fn.launches}
             n = TRAIN_EVAL_BATCHES
             expect = dict(event_graph_search=n, spline_fused_level0=2 * n,
-                          spline_shift_pooled=8 * n, upsample_rows=n,
+                          spline_shift_pooled=18 * n, upsample_rows=n,
                           pool_graph=8 * n)
             if seen != expect:
                 raise AssertionError(f"the bf16 EMA evaluation launched "
@@ -3749,7 +3828,7 @@ def main():
     n_anchors = sum(nx * ny for nx, ny in bc.grids[2:4])
     for name, bcx, expect in (
             ("default", bc, dict(event_graph_search=1, spline_fused_level0=2,
-                                 spline_shift_pooled=8, upsample_rows=1,
+                                 spline_shift_pooled=18, upsample_rows=1,
                                  pool_graph=8)),
             ("base+bilinear", bc._replace(**BASE, **BILINEAR),
              dict(event_graph_search=1, fused_spline_conv=10,

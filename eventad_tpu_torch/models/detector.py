@@ -63,8 +63,9 @@ def head_maps(detector: Detector, outs, image_outs, bc: BackboneConfig, *,
     for i, (g, head) in enumerate(zip(outs, detector.head.scales)):
         attr = cartesian_attr(g.pos, g.nbr, g.nbr_mask, bc.cart_max[3 + i],
                               clamp=True)
-        cls_o, reg_o, obj_o = gnn_head_scale_forward(head, g, attr, grids[i],
-                                                     bc, training)
+        cls_o, reg_o, obj_o = gnn_head_scale_forward(
+            head, g, attr, grids[i], bc, training,
+            cart_max=bc.cart_max[3 + i])
         if bc.use_image:
             # hybrid fusion (dagr.py:247-262): the CNN logits are added,
             # detached; without events they stand alone

@@ -9,6 +9,13 @@ reference's scatter into a dense map is a reshape.  Per scale
     stem (ConvBlock) -> cls_conv -> cls_pred (to dense, C = num_classes)
                      `-> reg_conv -> reg_pred (4) + obj_pred (1)
 
+With bf16 features on the card in eval mode (the pooled layers' gate,
+``models/backbone``) each scale runs as five launches of the pooled levels'
+kernel K3 (``ops/spline_shift``), each conv's tail in the kernel's
+epilogue and ``reg_pred`` with ``obj_pred`` as one launch; otherwise as six
+plain spline convs (``ops/spline_conv``) with BN, activation and mask
+around them.
+
 The CNN head (YOLOX ``BaseConv`` stacks) runs on the ResNet output maps and
 its logits are added to the GNN maps (hybrid fusion, dagr.py:247-262).
 Decode and NMS keep the JAX package's fixed output shapes.
@@ -22,10 +29,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.norm import MOMENTUM, BatchNorm, batch_norm, channel_statistics
-from ..ops.spline_basis import ACTS
+from ..ops.spline_basis import ACT_CODES, ACTS
 from ..ops.spline_conv import SplineConv, spline_conv
+from ..ops.spline_shift import (pack_shift_weights, prepare_shift,
+                                shift_spline_conv)
 from ..utils.spans import count
-from .backbone import BackboneConfig, ConvBlock
+from .backbone import BackboneConfig, ConvBlock, _fold_bn_affine
 from .graph import Graph, neighbor_rows
 
 
@@ -122,20 +131,110 @@ def _apply_block(blk: ConvBlock, g: Graph, attr, bc: BackboneConfig,
 
 
 def _to_dense(x: torch.Tensor, grid: Tuple[int, int], batch_size: int,
-              node_mask: torch.Tensor) -> torch.Tensor:
+              node_mask: torch.Tensor = None) -> torch.Tensor:
     """``[B*ny*nx, C]`` cell table -> ``[B, C, ny, nx]`` dense map; the cell
     order (b, iy, ix) is the pooling's cluster order, the reference's voxel
-    scatter (spline_conv.py:99-105)."""
+    scatter (spline_conv.py:99-105).  Rows outside ``node_mask`` are zeroed
+    (None: ``x`` is masked already)."""
     nx, ny = grid
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    xm = torch.where(node_mask[:, None], x, zero)
-    return xm.reshape(batch_size, ny, nx, x.shape[1]).permute(0, 3, 1, 2)
+    if node_mask is not None:
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        x = torch.where(node_mask[:, None], x, zero)
+    return x.reshape(batch_size, ny, nx, x.shape[1]).permute(0, 3, 1, 2)
+
+
+def head_takes_shift(x: torch.Tensor, bc: BackboneConfig,
+                     training: bool) -> bool:
+    """Whether the head's convs run as K3 launches: bf16 features on the
+    card, sum aggregation, eval mode, ``bc.fused_shift`` on and an
+    activation K3 applies (``models/backbone.apply_layer``'s gate for the
+    pooled layers)."""
+    return (x.dtype == torch.bfloat16 and x.is_cuda and bc.aggr == "sum"
+            and not training and bc.fused_shift
+            and bc.activation in ACT_CODES)
+
+
+def head_shift_operands(head: ScaleHead, dt, tap_idx) -> tuple:
+    """K3's operands of the head's five launches, ``(weight, root, a, b,
+    pack)`` each: the stem, ``cls_conv`` and ``reg_conv`` with their eval BN
+    folded into ``(a, b)`` as the backbone folds a layer's, ``cls_pred``
+    with ``a = 1`` and ``b`` its bias, and ``reg_pred`` and ``obj_pred`` as
+    one conv of 5 outputs (their weights, roots and biases concatenated).
+    The weights are cast to ``dt`` and packed for the used taps
+    ``tap_idx``.  Kept on the head while its parameters and buffers (and
+    ``tap_idx``) are the same objects with the same storage and
+    ``_version``, as ``models/backbone.whole_layer_operands`` keeps a
+    layer's, so a read with unchanged weights casts, folds and packs
+    nothing."""
+    blocks = (head.stem, head.cls_conv, head.reg_conv)
+    preds = ((head.cls_pred,), (head.reg_pred, head.obj_pred))
+    sources = [tap_idx]
+    for blk in blocks:
+        sources += [blk.conv.weight, blk.conv.root, blk.bn.scale,
+                    blk.bn.offset, blk.bn.mean, blk.bn.var]
+    for convs in preds:
+        for conv in convs:
+            sources += [conv.weight, conv.root, conv.bias]
+    key = (dt,) + tuple((id(t), t._version, t.data_ptr()) for t in sources)
+    kept = head.__dict__.get("_shift_operands")
+    if kept is None or kept[0] != key:
+        with torch.no_grad():
+            ops = [(blk.conv.weight.to(dt), blk.conv.root.to(dt),
+                    *_fold_bn_affine(blk.bn, None, dt)) for blk in blocks]
+            for convs in preds:
+                b = torch.cat([c.bias for c in convs]).to(dt).float()
+                ops.append((torch.cat([c.weight for c in convs], -1).to(dt),
+                            torch.cat([c.root for c in convs], -1).to(dt),
+                            torch.ones_like(b), b))
+            ops = tuple(tuple(t.detach() for t in o)
+                        + (pack_shift_weights(tap_idx, *o),) for o in ops)
+        # tap_idx is held with the key so that no other tensor takes its id
+        kept = (key, ops, tap_idx)
+        head.__dict__["_shift_operands"] = kept
+    return kept[1]
+
+
+def gnn_head_scale_shift(head: ScaleHead, g: Graph, attr, grid,
+                         bc: BackboneConfig, *, cart_max: float):
+    """One scale of the GNN head as five K3 launches
+    (``ops/spline_shift.shift_spline_conv``; its plain version on the CPU):
+    stem, ``cls_conv`` and ``reg_conv`` each with its eval BN, activation
+    and node mask in the kernel's epilogue, ``cls_pred``, and ``reg_pred``
+    with ``obj_pred`` as one launch of 5 outputs.  The static tap tables
+    are the pooled layer's of the same grid (``static_tables``' cache)."""
+    ks = bc.kernel_size
+    u = torch.clamp(attr, 0.0, 1.0) * (ks - 1)
+    prep = prepare_shift(u, g.nbr_mask, g.node_mask, grid=grid, span=2,
+                         cart_max=cart_max, width=bc.width,
+                         height=bc.height, kernel_size=ks)
+    stem, cls_conv, reg_conv, cls_pred, box_pred = head_shift_operands(
+        head, g.x.dtype, prep.tap_idx)
+
+    def conv(x, operands, act):
+        *args, pack = operands
+        return shift_spline_conv(x, prep, *args, act=act, pack=pack)
+    h = conv(g.x, stem, bc.activation)
+    hc = conv(h, cls_conv, bc.activation)
+    hr = conv(h, reg_conv, bc.activation)
+    cls_o = _to_dense(conv(hc, cls_pred, None), grid, bc.batch_size)
+    box = _to_dense(conv(hr, box_pred, None), grid, bc.batch_size)
+    return cls_o, box[:, :4], box[:, 4:]
 
 
 def gnn_head_scale_forward(head: ScaleHead, g: Graph, attr, grid,
-                           bc: BackboneConfig, training: bool = False):
-    """One scale of the GNN head on graph ``g``: ``(cls, reg, obj)`` dense
-    maps ``[B, C, ny, nx]`` in ``g.x.dtype``."""
+                           bc: BackboneConfig, training: bool = False, *,
+                           cart_max: float):
+    """One scale of the GNN head on graph ``g`` (a pooled level's output,
+    ``attr`` its clamped Cartesian edge attributes at ``cart_max``):
+    ``(cls, reg, obj)`` dense maps ``[B, C, ny, nx]`` in ``g.x.dtype``.
+    Where :func:`head_takes_shift` (bf16 eval on the card) the five K3
+    launches of :func:`gnn_head_scale_shift`, ten a detection read over both
+    scales; otherwise (f32, training, the CPU, ``fused_shift`` off) six
+    plain spline convs, each block's BN, activation and mask in PyTorch
+    ops."""
+    if head_takes_shift(g.x, bc, training):
+        return gnn_head_scale_shift(head, g, attr, grid, bc,
+                                    cart_max=cart_max)
     g1 = _apply_block(head.stem, g, attr, bc, training, grid)
     gc = _apply_block(head.cls_conv, g1, attr, bc, training, grid)
     gr = _apply_block(head.reg_conv, g1, attr, bc, training, grid)

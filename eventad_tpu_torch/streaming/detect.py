@@ -7,6 +7,9 @@ The event-rate ``append`` is the anomaly model's (the same frozen backbone,
 level-0 outputs cached per event); ``read_detections`` re-pools the buffer,
 runs the pooled levels, the GNN head, the hybrid CNN fusion, the decode and
 the NMS; the detection step is one ``append`` and one ``read_detections``.
+With bf16 features on the card (eval, ``fused_shift`` on: the gate of
+``models/yolox_head.head_takes_shift``) the GNN head runs as ten K3
+launches a read, five a scale, beside the pooled levels' eight.
 The per-frame CNN work (ResNet pyramid and the CNN head's logit maps, which
 depend on the image only) runs once per frame in ``update_image_detector``
 and is cached in the state.
@@ -83,7 +86,8 @@ def make_incremental_detector(detector: Detector, bc: BackboneConfig,
                     attr = cartesian_attr(g.pos, g.nbr, g.nbr_mask,
                                           bc.cart_max[3 + i], clamp=True)
                     cls_o, reg_o, obj_o = gnn_head_scale_forward(
-                        head, g, attr, grids[i], bc)
+                        head, g, attr, grids[i], bc,
+                        cart_max=bc.cart_max[3 + i])
                     if bc.use_image and state.cnn_maps is not None:
                         cls_o = cls_o + state.cnn_maps["cls_output"][i]
                         reg_o = reg_o + state.cnn_maps["reg_output"][i]
