@@ -1156,6 +1156,7 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
     import importlib
 
     from eventad_tpu_torch.data.batching import EventBatch
+    from eventad_tpu_torch.models import detector as mdet
     from eventad_tpu_torch.models.detector import (detector_forward,
                                                    detector_maps)
     from eventad_tpu_torch.models import yolox_head as yh
@@ -1475,29 +1476,29 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
 
     def check_head(read_det, dst):
         """The GNN head of one bf16 read: its K3 route (five launches a
-        scale) against its plain spline convs on the same graphs and
-        operands, and no host-blocking call inside ``detect/gnn_head``,
-        where the plain head (its tap index copied from pageable memory)
-        has some."""
-        _, calls = recorded(sdet, "gnn_head_scale_forward",
+        scale) against its plain spline convs (``gnn_head_scale_plain``)
+        on the same graphs and operands, and no host-blocking call inside
+        ``detect/gnn_head``, where the plain head (its tap index copied
+        from pageable memory) has some."""
+        _, calls = recorded(mdet, "gnn_head_scale_forward",
                             lambda: no_sync_in_head(lambda: read_det(dst)))
         zero_counters()
         routed = [yh.gnn_head_scale_forward(*a, **kw) for a, kw in calls]
         torch.cuda.synchronize()
         per_head = read_counters({"spline_shift_pooled": 10},
                                  "the GNN head of one read")
-        gate = yh.head_takes_shift
-        yh.head_takes_shift = lambda *a: False
+        plain = [tuple(m.cpu() for m in yh.gnn_head_scale_plain(*a))
+                 for a, _ in calls]
+        route = mdet.gnn_head_scale_forward
+        mdet.gnn_head_scale_forward = (
+            lambda *a, **kw: yh.gnn_head_scale_plain(*a))
         try:
-            plain = [tuple(m.cpu() for m in yh.gnn_head_scale_forward(
-                *a, **kw)) for a, kw in calls]
-            try:
-                no_sync_in_head(lambda: read_det(dst))
-                plain_blocks = False
-            except RuntimeError:
-                plain_blocks = True
+            no_sync_in_head(lambda: read_det(dst))
+            plain_blocks = False
+        except RuntimeError:
+            plain_blocks = True
         finally:
-            yh.head_takes_shift = gate
+            mdet.gnn_head_scale_forward = route
         err = maps_err(routed, plain)
         if not (err <= HEAD_TOL and plain_blocks):
             raise AssertionError(f"GNN head: K3 route vs plain {err} of "
@@ -2515,7 +2516,7 @@ def parallel_phase(dev, smi, cfg, model, bc, mc, gsc, records, counters):
             with torch.no_grad():
                 ref = inc.pooled_backbone_outs(
                     model, bcx, ref_st,
-                    inc._norm_pos(ref_st.pos, ref_st.t_now, gsc), gsc)
+                    inc.norm_pos(ref_st.pos, ref_st.t_now, gsc), gsc)
             outs, seq_n = counted(lambda: seq_sharded_features(
                 model, bcx, gsc, pos, pol, valid, st.image_feats,
                 make_mesh("1")))
@@ -3073,7 +3074,8 @@ def main():
 
     def recorded_f32_forward(batch):
         """The f32 model_forward with the arguments of gather_rows_auto and
-        of the level-0 apply_layer recorded at their call sites."""
+        of the level-0 apply_layer (its route among them) recorded at their
+        call sites."""
         gathers, layers = [], []
         orig_gather, orig_layer = bb.gather_rows_auto, bb.apply_layer
 

@@ -6,10 +6,11 @@ Pool_i, where ``Layer`` = ConvBlock (spline conv + BN + act) followed by
 ConvBlockWithSkip (spline conv + BN, plus linear + BN skip, summed, then
 act) (reference conv.py:10-72).
 
-Routing follows the reference's branches: with bf16 compute, sum
-aggregation, eval mode and tensors on CUDA, the level-0 layer runs the fused
-kernel K2 (``ops/spline_fused``), pooled layers the shift kernel K3
-(``ops/spline_shift``) and the level-0/1 image rows K4
+Routing (:func:`frozen_route`, once a forward) follows the reference's
+branches: with bf16 compute, sum aggregation, eval mode and tensors on CUDA,
+the level-0 layer runs the fused kernel K2 (``ops/spline_fused``), pooled
+layers and the GNN head the shift kernel K3 (``ops/spline_shift``) and the
+level-0/1 image rows K4
 (``ops/upsample_flat``); otherwise the non-fused formulation
 (``ops/spline_conv`` + ``ops/norm``), as the reference runs f32, training
 and CPU, whose level-0 layer fetches its neighbour rows through the windowed
@@ -24,7 +25,7 @@ root, BN, activation, mask and skip in PyTorch ops around them.  With
 sampler K7 (``ops/bilinear_sample``), one call per map, instead of K4.  A
 flavour asked for by its flag runs on either device (the kernel on the card,
 its plain version on the CPU), so it can be held against the reference on
-the CPU; the default flags route exactly as before.
+the CPU.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ from ..ops.bilinear_sample import sample_bilinear
 from ..ops.gather_window import gather_rows_auto
 from ..ops.norm import BatchNorm, batch_norm
 from ..ops.pooling import pool_graph
-from ..ops.spline_basis import ACTS
+from ..ops.spline_basis import ACT_CODES, ACTS
 from ..ops.spline_conv import (SplineConv, offset_attr, spline_conv,
                                tap_ranges)
 from ..ops import spline_fused
@@ -46,7 +47,7 @@ from ..ops.spline_shift import (pack_shift_weights, prepare_shift,
                                 shift_spline_conv)
 from ..ops.upsample_flat import upsample_rows
 from ..utils.spans import span
-from ..utils.tensors import constant
+from ..utils.tensors import constant, kept_on
 from .graph import Graph, neighbor_rows, sample_image_features, \
     upsample_lookup
 
@@ -136,7 +137,34 @@ class Backbone(nn.Module):
              for cin, cout in layer_in_out_channels(bc)])
 
 
-def _fold_bn_affine(bn: BatchNorm, bias, dt):
+class Route(NamedTuple):
+    """The kernels each frozen stage of a forward takes."""
+    level0: str       # "K2" whole layer, "K5" generic conv twice, "plain"
+    pooled: str       # "K3" whole layer, "K5" generic conv twice, "plain"
+    image_rows: str   # "K7", "K4" or "plain" (``upsample_lookup``)
+
+
+def frozen_route(bc: BackboneConfig, dt: torch.dtype, device: torch.device,
+                 training: bool) -> Route:
+    """The kernels a forward in ``dt`` on ``device`` takes (the module
+    docstring's routing; the GNN head's convs take the pooled layers').  A
+    whole-layer kernel needs its flavour flag, an activation the kernels
+    apply (``ACT_CODES``) and the card; with its flag off, K5."""
+    kernels = dt == torch.bfloat16 and bc.aggr == "sum" and not training
+
+    def layer(whole: str, flag: bool) -> str:
+        if not kernels:
+            return "plain"
+        if flag and bc.activation in ACT_CODES:
+            return whole if device.type == "cuda" else "plain"
+        return "K5"
+    rows = ("K7" if bc.bilinear_kernel
+            else "K4" if dt == torch.bfloat16 and not training else "plain")
+    return Route(layer("K2", bc.fused_two_block), layer("K3", bc.fused_shift),
+                 rows)
+
+
+def fold_bn_affine(bn: BatchNorm, bias, dt):
     """Eval BN as an affine ``a*x + b`` in f32 from the parameters in the
     compute dtype ``dt``; a leading bias folds into the offset."""
     f32 = torch.float32
@@ -158,12 +186,9 @@ def whole_layer_operands(layer: Layer, dt, tap_idx=None,
     for K3; with ``level0 = (kernel_size, ranges, fold_center)`` followed by
     the two conv blocks' ``Level0Weights`` for K2; with ``generic`` (the
     same three) followed by the two conv blocks' ``FusedWeights`` for K5,
-    each with its root (and centre tap) in ``dt``.  Kept on the layer while
-    its parameters and buffers (and ``tap_idx``, ``level0``) are the same
-    objects with the same storage and ``_version`` (an in-place update makes
-    them anew; a write through ``tensor.data`` does not move ``_version``
-    and is not seen), so a forward with unchanged weights casts, folds and
-    packs nothing."""
+    each with its root (and centre tap) in ``dt``.  Kept on the layer
+    (``utils/tensors.kept_on``), so a forward with unchanged weights casts,
+    folds and packs nothing."""
     b1, b2 = layer.block1, layer.block2
     # what the operands are made from, named one by one: walking the module
     # tree (parameters(), buffers()) costs more than the casts it saves
@@ -173,38 +198,32 @@ def whole_layer_operands(layer: Layer, dt, tap_idx=None,
         sources += [bn.scale, bn.offset, bn.mean, bn.var]
     if tap_idx is not None:
         sources.append(tap_idx)
-    key = (dt, level0, generic) + tuple((id(t), t._version, t.data_ptr())
-                               for t in sources)
-    kept = layer.__dict__.get("_whole_layer_operands")
-    if kept is None or kept[0] != key:
-        with torch.no_grad():
-            a1, c1 = _fold_bn_affine(b1.bn, None, dt)
-            a2, c2 = _fold_bn_affine(b2.bn, None, dt)
-            a_s, c_s = _fold_bn_affine(layer.skip_bn, layer.skip_lin_bias,
-                                       dt)
-            ops = tuple(t.detach() for t in (
-                b1.conv.weight.to(dt), b1.conv.root.to(dt), a1, c1,
-                b2.conv.weight.to(dt), b2.conv.root.to(dt), a2, c2,
-                layer.skip_lin.to(dt), a_s, c_s))
-            if tap_idx is not None:
-                ops += (pack_shift_weights(tap_idx, *ops[:4]),
-                        pack_shift_weights(tap_idx, *ops[4:8],
-                                           (None,) + ops[8:]))
-            if level0 is not None:
-                ks, ranges, fold = level0
-                kw = dict(kernel_size=ks, ranges=ranges, fold_center=fold)
-                ops += (spline_fused.pack_level0_block(*ops[:4], **kw),
-                        spline_fused.pack_level0_block(*ops[4:8], **kw,
-                                                       skip=ops[8:]))
-            if generic is not None:
-                ks, ranges, fold = generic
-                kw = dict(kernel_size=ks, ranges=ranges, fold_center=fold)
-                ops += tuple(spline_fused.pack_fused_weights(
-                    w, root=r, **kw) for w, r in (ops[:2], ops[4:6]))
-        # tap_idx is held with the key so that no other tensor takes its id
-        kept = (key, ops, tap_idx)
-        layer.__dict__["_whole_layer_operands"] = kept
-    return kept[1]
+
+    def make():
+        a1, c1 = fold_bn_affine(b1.bn, None, dt)
+        a2, c2 = fold_bn_affine(b2.bn, None, dt)
+        a_s, c_s = fold_bn_affine(layer.skip_bn, layer.skip_lin_bias, dt)
+        ops = tuple(t.detach() for t in (
+            b1.conv.weight.to(dt), b1.conv.root.to(dt), a1, c1,
+            b2.conv.weight.to(dt), b2.conv.root.to(dt), a2, c2,
+            layer.skip_lin.to(dt), a_s, c_s))
+        if tap_idx is not None:
+            ops += (pack_shift_weights(tap_idx, *ops[:4]),
+                    pack_shift_weights(tap_idx, *ops[4:8],
+                                       (None,) + ops[8:]))
+        if level0 is not None or generic is not None:
+            ks, ranges, fold = level0 or generic
+            kw = dict(kernel_size=ks, ranges=ranges, fold_center=fold)
+        if level0 is not None:
+            ops += (spline_fused.pack_level0_block(*ops[:4], **kw),
+                    spline_fused.pack_level0_block(*ops[4:8], **kw,
+                                                   skip=ops[8:]))
+        if generic is not None:
+            ops += tuple(spline_fused.pack_fused_weights(
+                w, root=r, **kw) for w, r in (ops[:2], ops[4:6]))
+        return ops
+    return kept_on(layer, "whole_layer_operands", sources, make,
+                   key=(dt, level0, generic))
 
 
 def level0_attr_range(bc: BackboneConfig):
@@ -224,16 +243,98 @@ def _edge_attr(pos, pos_nbr, nbr_mask, cart_max):
     return torch.where(nbr_mask[..., None], torch.clamp(a, 0.0, 1.0), 0.5)
 
 
-def apply_layer(layer: Layer, g: Graph, *, kernel_size: int, aggr: str,
-                activation_name: str, cart_max: float, grid=None,
+def _two_blocks(layer: Layer, g: Graph, act_name: str, conv_block, x_j1,
+                training: bool):
+    """Block 1 (conv, BN, act, mask), block 2 (conv, BN) + skip (linear,
+    BN), act, mask around ``conv_block``: the K5 and plain routes."""
+    x_in, node_mask = g.x, g.node_mask
+    dt = x_in.dtype
+    act = ACTS[act_name]
+    zero = torch.zeros((), dtype=dt, device=x_in.device)
+    b1, b2 = layer.block1, layer.block2
+
+    def norm(x, bn):
+        return batch_norm(x, node_mask, bn, training=training)
+    h = act(norm(conv_block(x_in, b1.conv, x_j1), b1.bn))
+    h = torch.where(node_mask[:, None], h, zero)
+    h2 = norm(conv_block(h, b2.conv), b2.bn)
+    skip = x_in @ layer.skip_lin.to(dt) + layer.skip_lin_bias.to(dt)
+    skip = norm(skip, layer.skip_bn)
+    return torch.where(node_mask[:, None], act(h2 + skip), zero)
+
+
+def _layer_whole(layer: Layer, g: Graph, prep, act: str, level0=None):
+    """Routes "K2" (``prep`` a ``FusedPrep``, ``level0`` the packs' key)
+    and "K3" (a ``ShiftPrep``): the whole layer in one kernel pair."""
+    if level0 is not None:
+        *_, pack1, pack2 = whole_layer_operands(layer, g.x.dtype,
+                                                level0=level0)
+        return spline_fused.fused_two_block(g.x, prep, pack1, pack2,
+                                            g.node_mask, act=act)[0]
+    (w1, root1, a1, c1, w2, root2, a2, c2, skip_lin, a_s, c_s,
+     pack1, pack2) = whole_layer_operands(layer, g.x.dtype, prep.tap_idx)
+    h = shift_spline_conv(g.x, prep, w1, root1, a1, c1, act=act, pack=pack1)
+    return shift_spline_conv(h, prep, w2, root2, a2, c2, act=act,
+                             skip=(g.x, skip_lin, a_s, c_s), pack=pack2)
+
+
+def _layer_generic(layer: Layer, g: Graph, prep, act: str, generic):
+    """Route "K5": the generic conv once per conv block, everything around
+    it in PyTorch ops; the taps packed and the root folded once (``generic``
+    the packs' key)."""
+    dt = g.x.dtype
+    ks, ranges, _ = generic
+    *_, pack1, pack2 = whole_layer_operands(layer, dt, generic=generic)
+    packs = {layer.block1.conv: pack1, layer.block2.conv: pack2}
+
+    def conv_block(src, conv, xj=None):
+        pack = packs[conv]
+        out = spline_fused.fused_spline_conv(
+            src, prep, conv.weight, kernel_size=ks, ranges=ranges,
+            pack=pack) + (src @ pack.root).to(torch.float32)
+        return torch.where(g.node_mask[:, None], out, 0.0).to(dt)
+    return _two_blocks(layer, g, act, conv_block, None, training=False)
+
+
+def _layer_plain(layer: Layer, g: Graph, nbr, nbr_mask, attr, pos_nbr, *,
+                 kernel_size, aggr, act, cart_max, grid, batch_size, span,
+                 attr_range, fold_self, gather_lookback, training):
+    """Route "plain": ``ops/spline_conv``, neighbour rows from
+    ``gather_rows_auto`` (level 0, ``attr`` and ``pos_nbr`` given) or the
+    cell table's shifts; returns ``(out, pos_nbr)``."""
+    dt = g.x.dtype
+
+    def rows_of(src):
+        if grid is not None:
+            return neighbor_rows(src, grid, batch_size, span)
+        return gather_rows_auto(src, nbr, nbr_mask, lookback=gather_lookback)
+    if grid is None:
+        x_j1 = rows_of(g.x)
+    else:
+        rows = rows_of(torch.cat([g.pos[:, :2], g.x.to(torch.float32)], 1))
+        pos_nbr, x_j1 = rows[..., :2], rows[..., 2:].to(dt)
+        attr = _edge_attr(g.pos, pos_nbr, nbr_mask, cart_max)
+    attr = attr.to(dt)
+
+    def conv_block(src, conv, xj=None):
+        return spline_conv(src, nbr, nbr_mask, attr, conv,
+                           kernel_size=kernel_size, aggr=aggr,
+                           node_mask=g.node_mask,
+                           x_j=rows_of(src) if xj is None else xj,
+                           attr_range=attr_range,
+                           add_center_to_root=fold_self)
+    return _two_blocks(layer, g, act, conv_block, x_j1, training), pos_nbr
+
+
+def apply_layer(layer: Layer, g: Graph, *, route: str, kernel_size: int,
+                aggr: str, activation_name: str, cart_max: float, grid=None,
                 batch_size: int = None, span: int = 2, attr_range=None,
                 self_slot0: bool = False, width: int = None,
                 height: int = None, pos_nbr_pre=None,
-                gather_lookback: int = 0, training: bool = False,
-                fused_two_block: bool = True, fused_shift: bool = True):
-    """One ``Layer`` on graph ``g``; returns ``(g', pos_nbr)`` where
-    ``pos_nbr [N, K', 2]`` are the neighbour positions the next pooling
-    reads.
+                gather_lookback: int = 0, training: bool = False):
+    """One ``Layer`` on graph ``g`` by ``route``, its level's entry of
+    :func:`frozen_route`; returns ``(g', pos_nbr)`` where ``pos_nbr [N, K',
+    2]`` are the neighbour positions the next pooling reads.
 
     Level 0 (``grid`` None, ``g.off`` set): attrs and source positions are
     arithmetic from the integer edge offsets; with ``self_slot0`` and sum
@@ -242,119 +343,46 @@ def apply_layer(layer: Layer, g: Graph, *, kernel_size: int, aggr: str,
     Neighbour rows come from ``gather_rows_auto`` with the window
     ``gather_lookback`` (every ``g.nbr[i, k]`` in ``[i - gather_lookback,
     i]``).  Pooled levels (``grid`` set): neighbour rows are 2-D shifts of
-    the cell table (``neighbor_rows``).
+    the cell table (``neighbor_rows``); a kernel route reads ``pos_nbr``
+    from the pooling (``pos_nbr_pre``) where given.
 
     ``training``: BN by batch statistics (running statistics updated in
-    place), always through the non-fused formulation.  ``fused_two_block``
-    / ``fused_shift``: off selects the generic fused conv K5 for the bf16
-    eval layer at level 0 / a pooled level."""
-    x_in = g.x
-    dt = x_in.dtype
+    place), on the plain route."""
     ks = kernel_size
-    act = ACTS[activation_name]
     fold_self = self_slot0 and aggr == "sum"
     s0 = 1 if fold_self else 0
     nbr = g.nbr[:, s0:].contiguous()
     nbr_mask = g.nbr_mask[:, s0:].contiguous()
-    fused_act = activation_name in ("relu", "elu", "hardtanh", "silu")
-    # K3 (pooled) or K2 (level 0); otherwise the generic conv K5
-    use_whole_layer = fused_act and (fused_shift if grid is not None
-                                     else fused_two_block)
-    use_fused = (dt == torch.bfloat16 and aggr == "sum" and not training
-                 and (grid is not None or g.off is not None)
-                 and (x_in.is_cuda or not use_whole_layer))
-    zero = torch.zeros((), dtype=dt, device=x_in.device)
-
-    def rows_of(src):
-        if grid is not None:
-            return neighbor_rows(src, grid, batch_size, span)
-        return gather_rows_auto(src, nbr, nbr_mask, lookback=gather_lookback)
-
-    x_j1 = None
-    if g.off is not None and grid is None:
+    attr = pos_nbr = None
+    if grid is None:
         offk = g.off[:, s0:]
         attr = offset_attr(offk, nbr_mask, cart_max, width, height)
-        if not use_fused:
-            x_j1 = rows_of(x_in)
-        wh = constant((width, height), torch.float32, x_in.device)
+        wh = constant((width, height), torch.float32, g.pos.device)
         ipos = torch.round(g.pos[:, :2] * wh).to(torch.int32)
         pos_nbr = (ipos[:, None, :] - offk).to(torch.float32) / wh
-    elif use_fused:
+    elif route != "plain":
         pos_nbr = (pos_nbr_pre if pos_nbr_pre is not None
                    else neighbor_rows(g.pos[:, :2], grid, batch_size, span))
         attr = _edge_attr(g.pos, pos_nbr, nbr_mask, cart_max)
-    else:
-        src = torch.cat([g.pos[:, :2], x_in.to(torch.float32)], dim=1)
-        rows = rows_of(src)
-        pos_nbr = rows[..., :2]
-        x_j1 = rows[..., 2:].to(dt)
-        attr = _edge_attr(g.pos, pos_nbr, nbr_mask, cart_max)
-    attr_f32 = attr
-
-    b1, b2 = layer.block1, layer.block2
-    node_mask = g.node_mask
-    if use_fused:
-        u = torch.clamp(attr_f32, 0.0, 1.0) * (ks - 1)
-    if use_fused and use_whole_layer:
-        if grid is not None:
-            prep = prepare_shift(u, nbr_mask, g.node_mask, grid=grid,
-                                 span=span, cart_max=cart_max, width=width,
-                                 height=height, kernel_size=ks)
-            (w1, root1, a1, c1, w2, root2, a2, c2, skip_lin, a_s, c_s,
-             pack1, pack2) = whole_layer_operands(layer, dt, prep.tap_idx)
-            h = shift_spline_conv(x_in, prep, w1, root1, a1, c1,
-                                  act=activation_name, pack=pack1)
-            out = shift_spline_conv(h, prep, w2, root2, a2, c2,
-                                    act=activation_name,
-                                    skip=(x_in, skip_lin, a_s, c_s),
-                                    pack=pack2)
-        else:
-            ranges = (tap_ranges(ks, attr_range) if attr_range
-                      else ((0, ks - 1), (0, ks - 1)))
-            *_, pack1, pack2 = whole_layer_operands(
-                layer, dt, level0=(ks, ranges, fold_self))
-            out, _ = spline_fused.fused_two_block(
-                x_in, spline_fused.prepare_fused(nbr, nbr_mask, u), pack1,
-                pack2, g.node_mask, act=activation_name)
+    if route == "plain":
+        out, pos_nbr = _layer_plain(
+            layer, g, nbr, nbr_mask, attr, pos_nbr, kernel_size=ks,
+            aggr=aggr, act=activation_name, cart_max=cart_max, grid=grid,
+            batch_size=batch_size, span=span, attr_range=attr_range,
+            fold_self=fold_self, gather_lookback=gather_lookback,
+            training=training)
         return g._replace(x=out), pos_nbr
-
-    if use_fused:
-        # K5 once per conv block: the neighbour aggregation in the kernel,
-        # everything around it in PyTorch ops; the taps packed and the root
-        # folded once per layer
-        prep = spline_fused.prepare_fused(nbr, nbr_mask, u)
-        ranges = (tap_ranges(ks, attr_range) if attr_range
-                  else ((0, ks - 1), (0, ks - 1)))
-        *_, pack1, pack2 = whole_layer_operands(
-            layer, dt, generic=(ks, ranges, fold_self))
-        packs = {b1.conv: pack1, b2.conv: pack2}
-
-        def conv_block(src, conv, xj=None):
-            pack = packs[conv]
-            out = spline_fused.fused_spline_conv(
-                src, prep, conv.weight, kernel_size=ks, ranges=ranges,
-                pack=pack) + (src @ pack.root).to(torch.float32)
-            return torch.where(node_mask[:, None], out, 0.0).to(dt)
+    u = torch.clamp(attr, 0.0, 1.0) * (ks - 1)
+    if route == "K3":
+        out = _layer_whole(layer, g, prepare_shift(
+            u, nbr_mask, g.node_mask, grid=grid, span=span, cart_max=cart_max,
+            width=width, height=height, kernel_size=ks), activation_name)
     else:
-        attr = attr.to(dt)
-
-        def conv_block(src, conv, xj=None):
-            return spline_conv(src, nbr, nbr_mask, attr, conv,
-                               kernel_size=ks, aggr=aggr,
-                               node_mask=node_mask,
-                               x_j=rows_of(src) if xj is None else xj,
-                               attr_range=attr_range,
-                               add_center_to_root=fold_self)
-
-    def norm(x, bn):
-        return batch_norm(x, node_mask, bn, training=training)
-
-    h = act(norm(conv_block(x_in, b1.conv, x_j1), b1.bn))
-    h = torch.where(node_mask[:, None], h, zero)
-    h2 = norm(conv_block(h, b2.conv), b2.bn)
-    skip = x_in @ layer.skip_lin.to(dt) + layer.skip_lin_bias.to(dt)
-    skip = norm(skip, layer.skip_bn)
-    out = torch.where(node_mask[:, None], act(h2 + skip), zero)
+        prep = spline_fused.prepare_fused(nbr, nbr_mask, u)
+        key = (ks, tap_ranges(ks, attr_range or ((0, 1), (0, 1))), fold_self)
+        out = (_layer_whole(layer, g, prep, activation_name, level0=key)
+               if route == "K2"
+               else _layer_generic(layer, g, prep, activation_name, key))
     return g._replace(x=out), pos_nbr
 
 
@@ -378,11 +406,9 @@ def backbone_forward(backbone: Backbone, g0: Graph,
     reached, the last graph is returned alone."""
     dt = torch.bfloat16 if bc.compute_dtype == "bfloat16" else torch.float32
     g = g0._replace(x=g0.x.to(dt))
-    # mirrors apply_layer's gate for pooled levels: a fused layer takes the
-    # neighbour positions from the pooling's own shift pass
-    fused_pooled = (dt == torch.bfloat16 and bc.aggr == "sum"
-                    and not training
-                    and (g0.x.is_cuda or not bc.fused_shift))
+    route = frozen_route(bc, dt, g0.x.device, training)
+    # a kernel route reads the neighbour positions from the pooling's pass
+    pos_from_pool = route.pooled != "plain"
 
     # levels 0 and 1 both sample at the event positions: one row fetch of
     # the two upsampled maps serves both
@@ -391,7 +417,7 @@ def backbone_forward(backbone: Backbone, g0: Graph,
     if bc.use_image and start_level == 0:
         c0 = image_feats[0].shape[-1]
         maps01 = [image_feats[0].to(dt), image_feats[1].to(dt)]
-        if bc.bilinear_kernel:
+        if route.image_rows == "K7":
             # one table, each map's sampler writes its column range
             rows01 = torch.empty(
                 (g0.pos.shape[0], c0 + maps01[1].shape[-1]), dtype=dt,
@@ -400,7 +426,7 @@ def backbone_forward(backbone: Backbone, g0: Graph,
                 sample_bilinear(f, g0.pos, g0.node_mask, full_width=bc.width,
                                 full_height=bc.height, batch=g0.batch,
                                 out=cols)
-        elif dt == torch.bfloat16 and not training:
+        elif route.image_rows == "K4":
             rows01 = upsample_rows(maps01, g0.pos, g0.batch, bc.width,
                                    bc.height)
         else:
@@ -446,14 +472,16 @@ def backbone_forward(backbone: Backbone, g0: Graph,
                         batch_size=bc.batch_size, width=bc.width,
                         height=bc.height, aggr=aggr, span=2,
                         keep_temporal_ordering=bc.keep_temporal_ordering,
-                        pos_src=pos_nbr, return_pos_nbr=fused_pooled)
-                if fused_pooled:
+                        pos_src=pos_nbr, return_pos_nbr=pos_from_pool)
+                if pos_from_pool:
                     g, pos_nbr_pre = g
             else:
                 g = cat_image(g, 0)
             g = cat_rel(g)
             g, pos_nbr = apply_layer(
-                backbone.layers[level], g, kernel_size=bc.kernel_size,
+                backbone.layers[level], g,
+                route=route.pooled if level > 0 else route.level0,
+                kernel_size=bc.kernel_size,
                 aggr=bc.aggr, activation_name=bc.activation,
                 cart_max=bc.cart_max[level],
                 grid=bc.grids[level - 1] if level > 0 else None,
@@ -461,8 +489,7 @@ def backbone_forward(backbone: Backbone, g0: Graph,
                 attr_range=level0_attr_range(bc) if level == 0 else None,
                 self_slot0=level == 0, width=bc.width, height=bc.height,
                 pos_nbr_pre=pos_nbr_pre, gather_lookback=bc.gather_lookback,
-                training=training, fused_two_block=bc.fused_two_block,
-                fused_shift=bc.fused_shift)
+                training=training)
         if level >= 3:
             outs.append(g)
     if end_level < 5 and not outs:

@@ -47,29 +47,30 @@ def init_detector(cfg: Config, generator: torch.Generator = None,
     return Detector(cfg, bc, generator).to(device).eval(), bc
 
 
-def head_maps(detector: Detector, outs, image_outs, bc: BackboneConfig, *,
-              training: bool = False, no_events: bool = False):
-    """The head on the backbone's output graphs ``outs`` and the CNN
-    branch's output maps: per scale ``(reg [B, 4, ny, nx], obj [B, 1, ny,
-    nx], cls [B, C, ny, nx])`` logits, CNN maps added, and the strides."""
-    grids = [bc.grids[2], bc.grids[3]]
-    out_sizes = [(g[1], g[0]) for g in grids]     # (ny, nx)
+def head_geometry(bc: BackboneConfig):
+    """The head's two scales: grids ``(nx, ny)``, sizes ``(ny, nx)`` and
+    strides in pixels."""
+    grids = (bc.grids[2], bc.grids[3])
+    out_sizes = [(g[1], g[0]) for g in grids]
     strides = [int(round(bc.height / g[1])) for g in grids]
-    cnn_maps = None
-    if bc.use_image:
-        cnn_maps = cnn_head_forward(detector.head.cnn, image_outs, out_sizes,
-                                    training=training)
+    return grids, out_sizes, strides
+
+
+def gnn_head_maps(detector: Detector, outs, cnn_maps, bc: BackboneConfig, *,
+                  training: bool = False, no_events: bool = False):
+    """The GNN head on the backbone's output graphs ``outs``, per scale
+    ``(reg [B, 4, ny, nx], obj [B, 1, ny, nx], cls [B, C, ny, nx])``
+    logits, plus the CNN head's maps ``cnn_maps`` (unless None), the hybrid
+    fusion of dagr.py:247-262; with ``no_events`` those stand alone."""
+    grids, _, _ = head_geometry(bc)
     maps = []
     for i, (g, head) in enumerate(zip(outs, detector.head.scales)):
-        attr = cartesian_attr(g.pos, g.nbr, g.nbr_mask, bc.cart_max[3 + i],
-                              clamp=True)
+        cart_max = bc.cart_max[3 + i]
+        attr = cartesian_attr(g.pos, g.nbr, g.nbr_mask, cart_max, clamp=True)
         cls_o, reg_o, obj_o = gnn_head_scale_forward(
-            head, g, attr, grids[i], bc, training,
-            cart_max=bc.cart_max[3 + i])
-        if bc.use_image:
-            # hybrid fusion (dagr.py:247-262): the CNN logits are added,
-            # detached; without events they stand alone
-            cnn = [cnn_maps[k][i].detach()
+            head, g, attr, grids[i], bc, training, cart_max=cart_max)
+        if cnn_maps is not None:
+            cnn = [cnn_maps[k][i]
                    for k in ("cls_output", "reg_output", "obj_output")]
             if no_events:
                 cls_o, reg_o, obj_o = cnn
@@ -77,25 +78,31 @@ def head_maps(detector: Detector, outs, image_outs, bc: BackboneConfig, *,
                 cls_o, reg_o, obj_o = (cls_o + cnn[0], reg_o + cnn[1],
                                        obj_o + cnn[2])
         maps.append((reg_o, obj_o, cls_o))
-    return maps, strides
+    return maps
 
 
 def detector_maps(detector: Detector, batch, cfg: Config,
                   bc: BackboneConfig, *, training: bool = False,
                   no_events: bool = False):
-    """The head's maps before decoding (see :func:`head_maps`) for one
-    batch: level-0 graph, CNN branch, backbone, head."""
+    """The head's maps before decoding (see :func:`gnn_head_maps`) and the
+    strides for one batch: level-0 graph, CNN branch, backbone, CNN head,
+    GNN head."""
     g0 = build_level0_graph(batch.pos, batch.polarity, batch.valid,
                             graph_static_config(cfg), batch.rank)
-    image_feats = image_outs = None
+    _, out_sizes, strides = head_geometry(bc)
+    image_feats = cnn_maps = None
     if bc.use_image:
-        # the ResNet always runs on its running statistics
+        # the ResNet always runs on its running statistics; the CNN head's
+        # logits enter the sum detached
         image_feats, image_outs = cnn_branch_forward(
             detector.dagr.cnn, batch.image, bc.compute_dtype, outputs=True)
+        cnn_maps = {k: [m.detach() for m in v] for k, v in cnn_head_forward(
+            detector.head.cnn, image_outs, out_sizes,
+            training=training).items()}
     outs = backbone_forward(detector.dagr.backbone, g0, image_feats, bc,
                             training=training)
-    return head_maps(detector, outs, image_outs, bc, training=training,
-                     no_events=no_events)
+    return gnn_head_maps(detector, outs, cnn_maps, bc, training=training,
+                         no_events=no_events), strides
 
 
 def decode_maps(maps, strides) -> torch.Tensor:

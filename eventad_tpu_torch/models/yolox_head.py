@@ -9,12 +9,11 @@ reference's scatter into a dense map is a reshape.  Per scale
     stem (ConvBlock) -> cls_conv -> cls_pred (to dense, C = num_classes)
                      `-> reg_conv -> reg_pred (4) + obj_pred (1)
 
-With bf16 features on the card in eval mode (the pooled layers' gate,
-``models/backbone``) each scale runs as five launches of the pooled levels'
-kernel K3 (``ops/spline_shift``), each conv's tail in the kernel's
-epilogue and ``reg_pred`` with ``obj_pred`` as one launch; otherwise as six
-plain spline convs (``ops/spline_conv``) with BN, activation and mask
-around them.
+Where the pooled layers take K3 (``models/backbone.frozen_route``: bf16
+features on the card in eval mode) each scale runs as five launches of it
+(``ops/spline_shift``), each conv's tail in the kernel's epilogue and
+``reg_pred`` with ``obj_pred`` as one launch; otherwise as six plain spline
+convs (``ops/spline_conv``) with BN, activation and mask around them.
 
 The CNN head (YOLOX ``BaseConv`` stacks) runs on the ResNet output maps and
 its logits are added to the GNN maps (hybrid fusion, dagr.py:247-262).
@@ -29,12 +28,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.norm import MOMENTUM, BatchNorm, batch_norm, channel_statistics
-from ..ops.spline_basis import ACT_CODES, ACTS
+from ..ops.spline_basis import ACTS
 from ..ops.spline_conv import SplineConv, spline_conv
 from ..ops.spline_shift import (pack_shift_weights, prepare_shift,
                                 shift_spline_conv)
 from ..utils.spans import count
-from .backbone import BackboneConfig, ConvBlock, _fold_bn_affine
+from ..utils.tensors import kept_on
+from .backbone import (BackboneConfig, ConvBlock, fold_bn_affine,
+                       frozen_route)
 from .graph import Graph, neighbor_rows
 
 
@@ -118,18 +119,6 @@ class GNNHead(nn.Module):
                             generator) if use_image else None)
 
 
-def _apply_block(blk: ConvBlock, g: Graph, attr, bc: BackboneConfig,
-                 training: bool, grid) -> Graph:
-    h = spline_conv(g.x, g.nbr, g.nbr_mask, attr.to(g.x.dtype), blk.conv,
-                    kernel_size=bc.kernel_size, aggr=bc.aggr,
-                    node_mask=g.node_mask,
-                    x_j=neighbor_rows(g.x, grid, bc.batch_size, span=2))
-    h = ACTS[bc.activation](batch_norm(h, g.node_mask, blk.bn,
-                                       training=training))
-    zero = torch.zeros((), dtype=h.dtype, device=h.device)
-    return g._replace(x=torch.where(g.node_mask[:, None], h, zero))
-
-
 def _to_dense(x: torch.Tensor, grid: Tuple[int, int], batch_size: int,
               node_mask: torch.Tensor = None) -> torch.Tensor:
     """``[B*ny*nx, C]`` cell table -> ``[B, C, ny, nx]`` dense map; the cell
@@ -143,17 +132,6 @@ def _to_dense(x: torch.Tensor, grid: Tuple[int, int], batch_size: int,
     return x.reshape(batch_size, ny, nx, x.shape[1]).permute(0, 3, 1, 2)
 
 
-def head_takes_shift(x: torch.Tensor, bc: BackboneConfig,
-                     training: bool) -> bool:
-    """Whether the head's convs run as K3 launches: bf16 features on the
-    card, sum aggregation, eval mode, ``bc.fused_shift`` on and an
-    activation K3 applies (``models/backbone.apply_layer``'s gate for the
-    pooled layers)."""
-    return (x.dtype == torch.bfloat16 and x.is_cuda and bc.aggr == "sum"
-            and not training and bc.fused_shift
-            and bc.activation in ACT_CODES)
-
-
 def head_shift_operands(head: ScaleHead, dt, tap_idx) -> tuple:
     """K3's operands of the head's five launches, ``(weight, root, a, b,
     pack)`` each: the stem, ``cls_conv`` and ``reg_conv`` with their eval BN
@@ -161,11 +139,8 @@ def head_shift_operands(head: ScaleHead, dt, tap_idx) -> tuple:
     with ``a = 1`` and ``b`` its bias, and ``reg_pred`` and ``obj_pred`` as
     one conv of 5 outputs (their weights, roots and biases concatenated).
     The weights are cast to ``dt`` and packed for the used taps
-    ``tap_idx``.  Kept on the head while its parameters and buffers (and
-    ``tap_idx``) are the same objects with the same storage and
-    ``_version``, as ``models/backbone.whole_layer_operands`` keeps a
-    layer's, so a read with unchanged weights casts, folds and packs
-    nothing."""
+    ``tap_idx``.  Kept on the head (``utils/tensors.kept_on``), so a read
+    with unchanged weights casts, folds and packs nothing."""
     blocks = (head.stem, head.cls_conv, head.reg_conv)
     preds = ((head.cls_pred,), (head.reg_pred, head.obj_pred))
     sources = [tap_idx]
@@ -175,23 +150,18 @@ def head_shift_operands(head: ScaleHead, dt, tap_idx) -> tuple:
     for convs in preds:
         for conv in convs:
             sources += [conv.weight, conv.root, conv.bias]
-    key = (dt,) + tuple((id(t), t._version, t.data_ptr()) for t in sources)
-    kept = head.__dict__.get("_shift_operands")
-    if kept is None or kept[0] != key:
-        with torch.no_grad():
-            ops = [(blk.conv.weight.to(dt), blk.conv.root.to(dt),
-                    *_fold_bn_affine(blk.bn, None, dt)) for blk in blocks]
-            for convs in preds:
-                b = torch.cat([c.bias for c in convs]).to(dt).float()
-                ops.append((torch.cat([c.weight for c in convs], -1).to(dt),
-                            torch.cat([c.root for c in convs], -1).to(dt),
-                            torch.ones_like(b), b))
-            ops = tuple(tuple(t.detach() for t in o)
-                        + (pack_shift_weights(tap_idx, *o),) for o in ops)
-        # tap_idx is held with the key so that no other tensor takes its id
-        kept = (key, ops, tap_idx)
-        head.__dict__["_shift_operands"] = kept
-    return kept[1]
+
+    def make():
+        ops = [(blk.conv.weight.to(dt), blk.conv.root.to(dt),
+                *fold_bn_affine(blk.bn, None, dt)) for blk in blocks]
+        for convs in preds:
+            b = torch.cat([c.bias for c in convs]).to(dt).float()
+            ops.append((torch.cat([c.weight for c in convs], -1).to(dt),
+                        torch.cat([c.root for c in convs], -1).to(dt),
+                        torch.ones_like(b), b))
+        return tuple(tuple(t.detach() for t in o)
+                     + (pack_shift_weights(tap_idx, *o),) for o in ops)
+    return kept_on(head, "head_shift_operands", sources, make, key=(dt,))
 
 
 def gnn_head_scale_shift(head: ScaleHead, g: Graph, attr, grid,
@@ -221,33 +191,43 @@ def gnn_head_scale_shift(head: ScaleHead, g: Graph, attr, grid,
     return cls_o, box[:, :4], box[:, 4:]
 
 
+def gnn_head_scale_plain(head: ScaleHead, g: Graph, attr, grid,
+                         bc: BackboneConfig, training: bool = False):
+    """One scale of the GNN head as six plain spline convs
+    (``ops/spline_conv``), each block's BN, activation and mask in PyTorch
+    ops; ``training`` normalises by batch statistics."""
+    def conv(c: SplineConv, x):
+        return spline_conv(x, g.nbr, g.nbr_mask, attr.to(x.dtype), c,
+                           kernel_size=bc.kernel_size, aggr=bc.aggr,
+                           node_mask=g.node_mask,
+                           x_j=neighbor_rows(x, grid, bc.batch_size, span=2))
+
+    def block(blk: ConvBlock, x):
+        h = ACTS[bc.activation](batch_norm(conv(blk.conv, x), g.node_mask,
+                                           blk.bn, training=training))
+        zero = torch.zeros((), dtype=h.dtype, device=h.device)
+        return torch.where(g.node_mask[:, None], h, zero)
+
+    def pred(c: SplineConv, x):
+        return _to_dense(conv(c, x), grid, bc.batch_size, g.node_mask)
+    h = block(head.stem, g.x)
+    hc, hr = block(head.cls_conv, h), block(head.reg_conv, h)
+    return pred(head.cls_pred, hc), pred(head.reg_pred, hr), \
+        pred(head.obj_pred, hr)
+
+
 def gnn_head_scale_forward(head: ScaleHead, g: Graph, attr, grid,
                            bc: BackboneConfig, training: bool = False, *,
                            cart_max: float):
     """One scale of the GNN head on graph ``g`` (a pooled level's output,
     ``attr`` its clamped Cartesian edge attributes at ``cart_max``):
     ``(cls, reg, obj)`` dense maps ``[B, C, ny, nx]`` in ``g.x.dtype``.
-    Where :func:`head_takes_shift` (bf16 eval on the card) the five K3
-    launches of :func:`gnn_head_scale_shift`, ten a detection read over both
-    scales; otherwise (f32, training, the CPU, ``fused_shift`` off) six
-    plain spline convs, each block's BN, activation and mask in PyTorch
-    ops."""
-    if head_takes_shift(g.x, bc, training):
+    :func:`gnn_head_scale_shift` where the pooled layers take K3
+    (``models/backbone.frozen_route``), else :func:`gnn_head_scale_plain`."""
+    if frozen_route(bc, g.x.dtype, g.x.device, training).pooled == "K3":
         return gnn_head_scale_shift(head, g, attr, grid, bc,
                                     cart_max=cart_max)
-    g1 = _apply_block(head.stem, g, attr, bc, training, grid)
-    gc = _apply_block(head.cls_conv, g1, attr, bc, training, grid)
-    gr = _apply_block(head.reg_conv, g1, attr, bc, training, grid)
-
-    def pred(conv, gg):
-        out = spline_conv(gg.x, gg.nbr, gg.nbr_mask, attr.to(gg.x.dtype),
-                          conv, kernel_size=bc.kernel_size, aggr=bc.aggr,
-                          node_mask=gg.node_mask,
-                          x_j=neighbor_rows(gg.x, grid, bc.batch_size,
-                                            span=2))
-        return _to_dense(out, grid, bc.batch_size, g.node_mask)
-    return pred(head.cls_pred, gc), pred(head.reg_pred, gr), \
-        pred(head.obj_pred, gr)
+    return gnn_head_scale_plain(head, g, attr, grid, bc, training)
 
 
 def _base_conv(x: torch.Tensor, m: BaseConv, training: bool,

@@ -35,7 +35,7 @@ from ..ops.gather_window import gather_window_rows
 from ..ops.norm import batch_norm
 from ..ops.spline_basis import ACTS
 from ..ops.spline_conv import offset_attr, spline_conv
-from ..streaming.incremental import _norm_pos, input_rows
+from ..streaming.incremental import input_rows, norm_pos
 from ..utils.tensors import constant
 
 HALO_RANK = 10 ** 6   # rank 0's empty halo: invalid events at pixel 0
@@ -113,7 +113,7 @@ def seq_sharded_level0(model, bc, gsc, pos, polarity, valid, image_feats,
         radius=radius_px, delta_t_us=delta_t_us, max_neighbors=max_nb,
         max_queue_size=max_q, lookback=lb, grid_wh=(width, height)))
 
-    posn = _norm_pos(win_pos, t_now, gsc)
+    posn = norm_pos(win_pos, t_now, gsc)
     x_in, img1 = input_rows(image_feats, posn, win_pol, win_val, bc)
     layer = model.dagr.backbone.layers[0]
     act = ACTS[bc.activation]
@@ -167,7 +167,7 @@ def seq_sharded_features(model, bc, gsc, pos, polarity, valid, image_feats,
         model, bc, gsc, pos, polarity, valid, image_feats, mesh, axis)
     x1 = torch.cat([h1, img1], 1) if bc.use_image else h1
     t_now = torch.where(valid, pos[:, 2], 0).max()
-    posn = _norm_pos(pos, t_now, gsc)
+    posn = norm_pos(pos, t_now, gsc)
     g = Graph(x1, posn, nbr, nbrm, valid,
               torch.zeros((pos.shape[0],), dtype=torch.int32,
                           device=pos.device))

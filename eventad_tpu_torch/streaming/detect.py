@@ -7,9 +7,9 @@ The event-rate ``append`` is the anomaly model's (the same frozen backbone,
 level-0 outputs cached per event); ``read_detections`` re-pools the buffer,
 runs the pooled levels, the GNN head, the hybrid CNN fusion, the decode and
 the NMS; the detection step is one ``append`` and one ``read_detections``.
-With bf16 features on the card (eval, ``fused_shift`` on: the gate of
-``models/yolox_head.head_takes_shift``) the GNN head runs as ten K3
-launches a read, five a scale, beside the pooled levels' eight.
+With bf16 features on the card (eval, ``fused_shift`` on:
+``models/backbone.frozen_route``) the GNN head runs as ten K3 launches a
+read, five a scale, beside the pooled levels' eight.
 The per-frame CNN work (ResNet pyramid and the CNN head's logit maps, which
 depend on the image only) runs once per frame in ``update_image_detector``
 and is cached in the state.
@@ -24,20 +24,13 @@ from __future__ import annotations
 import torch
 
 from ..models.backbone import BackboneConfig
-from ..models.detector import Detector, decode_detections
+from ..models.detector import (Detector, decode_detections, gnn_head_maps,
+                               head_geometry)
 from ..models.resnet import cnn_branch_forward
-from ..models.yolox_head import cnn_head_forward, gnn_head_scale_forward
-from ..ops.spline_conv import cartesian_attr
+from ..models.yolox_head import cnn_head_forward
 from ..utils.spans import span
-from .incremental import (IncrementalState, _norm_pos, make_incremental_step,
+from .incremental import (IncrementalState, make_incremental_step, norm_pos,
                           pooled_backbone_outs, upsampled_pyramid)
-
-
-def _head_geometry(bc: BackboneConfig):
-    grids = [bc.grids[2], bc.grids[3]]
-    out_sizes = [(g[1], g[0]) for g in grids]
-    strides = [int(round(bc.height / g[1])) for g in grids]
-    return grids, out_sizes, strides
 
 
 @torch.no_grad()
@@ -50,7 +43,7 @@ def update_image_detector(detector: Detector, state: IncrementalState,
     with span("stream/update_image_detector"):
         feats, image_outs = cnn_branch_forward(detector.dagr.cnn,
                                                image[None], outputs=True)
-        _, out_sizes, _ = _head_geometry(bc)
+        _, out_sizes, _ = head_geometry(bc)
         cnn_maps = cnn_head_forward(detector.head.cnn, image_outs,
                                     out_sizes)
         return state._replace(
@@ -71,28 +64,16 @@ def make_incremental_detector(detector: Detector, bc: BackboneConfig,
     refresh, inc_step = make_incremental_step(detector, bc, None, gsc,
                                               n_chunk=n_chunk, n_buf=n_buf)
     append = inc_step.append
-    grids, _, strides = _head_geometry(bc)
-    scales = detector.head.scales
+    _, _, strides = head_geometry(bc)
 
     @torch.no_grad()
     def read_detections(state: IncrementalState):
         with span("stream/read_detections"):
-            posn = _norm_pos(state.pos, state.t_now, gsc)
+            posn = norm_pos(state.pos, state.t_now, gsc)
             with span("stream/levels"):
                 outs = pooled_backbone_outs(detector, bc, state, posn, gsc)
-            maps = []
             with span("detect/gnn_head"):
-                for i, (g, head) in enumerate(zip(outs, scales)):
-                    attr = cartesian_attr(g.pos, g.nbr, g.nbr_mask,
-                                          bc.cart_max[3 + i], clamp=True)
-                    cls_o, reg_o, obj_o = gnn_head_scale_forward(
-                        head, g, attr, grids[i], bc,
-                        cart_max=bc.cart_max[3 + i])
-                    if bc.use_image and state.cnn_maps is not None:
-                        cls_o = cls_o + state.cnn_maps["cls_output"][i]
-                        reg_o = reg_o + state.cnn_maps["reg_output"][i]
-                        obj_o = obj_o + state.cnn_maps["obj_output"][i]
-                    maps.append((reg_o, obj_o, cls_o))
+                maps = gnn_head_maps(detector, outs, state.cnn_maps, bc)
             return decode_detections(maps, strides, bc)
 
     def step(state: IncrementalState, new_pos, new_pol, n_new):

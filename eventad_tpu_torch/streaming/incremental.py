@@ -40,7 +40,7 @@ from ..ops.spline_basis import ACTS
 from ..ops.spline_conv import offset_attr, spline_conv
 from ..utils.spans import span
 from ..utils.tensors import constant
-from .runner import head_step, push_rows
+from .runner import head_step, insert_events, push_rows
 
 
 class IncrementalState(NamedTuple):
@@ -93,7 +93,7 @@ def init_incremental_state(n_buf: int, bc: BackboneConfig,
         t_now=zeros(dtype=torch.int32))
 
 
-def _norm_pos(pos, t_now, gsc):
+def norm_pos(pos, t_now, gsc):
     """Normalized positions of the ring, the window ending at ``t_now``."""
     (_r, _d, _k, _q, _l, width, height, time_window) = gsc
     t_rel = pos[:, 2] - t_now + time_window
@@ -224,7 +224,7 @@ def make_incremental_step(model, bc: BackboneConfig,
     @torch.no_grad()
     def refresh(state: IncrementalState) -> IncrementalState:
         with span("stream/refresh"):
-            posn = _norm_pos(state.pos, state.t_now, gsc)
+            posn = norm_pos(state.pos, state.t_now, gsc)
             x_in, img1 = input_rows(state.image_feats, posn, state.polarity,
                                     state.valid, bc)
             nbr, nbrm, doff = (t[0] for t in build_graph_auto(
@@ -246,21 +246,15 @@ def make_incremental_step(model, bc: BackboneConfig,
         with span("stream/append"):
             # 1. advance the ring caches; neighbour indices shift with the
             # ring, evicted sources mask out
-            slot_ok = torch.arange(k, device=new_pos.device) < n_new
-            pos = push_rows(state.pos,
-                            torch.where(slot_ok[:, None], new_pos, 0))
-            pol = push_rows(state.polarity,
-                            torch.where(slot_ok, new_pol, 0.0))
-            valid = push_rows(state.valid, slot_ok)
-            t_now = torch.maximum(
-                state.t_now, torch.where(slot_ok, new_pos[:, 2], 0).max())
+            ring = insert_events(state, new_pos, new_pol, n_new)
+            pos, pol, valid = ring.pos, ring.polarity, ring.valid
             nbr_keep = state.nbr0[k:] - k
             nbrm_keep = state.nbrm0[k:] & (nbr_keep >= 0)
             nbr_keep = torch.where(nbrm_keep, nbr_keep, 0)
             off_keep = torch.where(nbrm_keep[..., None], state.off0[k:], 0)
 
             # 2. the new rows' input features
-            posn = _norm_pos(pos, t_now, gsc)
+            posn = norm_pos(pos, ring.t_now, gsc)
             x_rows, img1_rows = input_rows(state.image_feats, posn[-k:],
                                            pol[-k:], valid[-k:], bc)
             x_in = push_rows(state.x_in, x_rows)
@@ -282,9 +276,8 @@ def make_incremental_step(model, bc: BackboneConfig,
                 _, h1_rows, h_b1 = _layer1_rows(
                     layer0, bc, x_in, state.h_b1[k:], nbr_c, nbrm_t, attr,
                     x_rows, valid[-k:])
-            return state._replace(
-                pos=pos, polarity=pol, valid=valid, t_now=t_now, x_in=x_in,
-                img1=push_rows(state.img1, img1_rows),
+            return ring._replace(
+                x_in=x_in, img1=push_rows(state.img1, img1_rows),
                 nbr0=torch.cat([nbr_keep, nbr_c]),
                 nbrm0=torch.cat([nbrm_keep, nbrm_t]),
                 off0=torch.cat([off_keep, doff_t]), h_b1=h_b1,
@@ -302,7 +295,7 @@ def make_incremental_step(model, bc: BackboneConfig,
     def read_scores(state: IncrementalState, boxes, box_present):
         _require_head()
         with span("stream/read_scores"):
-            posn = _norm_pos(state.pos, state.t_now, gsc)
+            posn = norm_pos(state.pos, state.t_now, gsc)
             return _upper_levels_and_head(model, bc, mc, state, posn, boxes,
                                           box_present, gsc)
 
@@ -340,18 +333,8 @@ def make_incremental_step(model, bc: BackboneConfig,
     return refresh, step
 
 
-def insert_raw(state: IncrementalState, pos_rows, pol_rows,
-               n_new) -> IncrementalState:
-    """Fills the raw ring without computing caches (before the first
-    ``refresh``)."""
-    k = pos_rows.shape[0]
-    ok = torch.arange(k, device=pos_rows.device) < n_new
-    return state._replace(
-        pos=push_rows(state.pos, torch.where(ok[:, None], pos_rows, 0)),
-        polarity=push_rows(state.polarity, torch.where(ok, pol_rows, 0.0)),
-        valid=push_rows(state.valid, ok),
-        t_now=torch.maximum(state.t_now,
-                            torch.where(ok, pos_rows[:, 2], 0).max()))
+# fills the raw ring without computing caches (before the first ``refresh``)
+insert_raw = insert_events
 
 
 def upsampled_pyramid(feats, width: int, height: int) -> tuple:

@@ -32,10 +32,12 @@ def push_rows(a: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return torch.cat([a[rows.shape[0]:], rows.to(a.dtype)])
 
 
-def insert_events(state: StreamingState, new_pos: torch.Tensor,
-                  new_pol: torch.Tensor, n_new) -> StreamingState:
-    """Appends ``len(new_pos)`` event slots (the first ``n_new`` valid),
-    evicting the oldest.  The buffer stays chronologically sorted."""
+def insert_events(state, new_pos: torch.Tensor, new_pol: torch.Tensor,
+                  n_new):
+    """Appends ``len(new_pos)`` event slots (the first ``n_new`` valid) to
+    the ring of ``state`` (any state with ``pos``, ``polarity``, ``valid``
+    and ``t_now``: a ``StreamingState`` or an incremental one), evicting
+    the oldest.  The buffer stays chronologically sorted."""
     k = new_pos.shape[0]
     slot_ok = torch.arange(k, device=new_pos.device) < n_new
     t_new = torch.where(slot_ok, new_pos[:, 2], 0).max()

@@ -140,7 +140,7 @@ def extract(argv, devices: int) -> dict:
                                                n_chunk=min(256, n), n_buf=n)
         st = refresh(st)
         ref = inc.pooled_backbone_outs(model, bc, st,
-                                       inc._norm_pos(st.pos, st.t_now, gsc),
+                                       inc.norm_pos(st.pos, st.t_now, gsc),
                                        gsc)
         worst = 0.0
         for lvl, (gr, gs) in enumerate(zip(ref, outs)):

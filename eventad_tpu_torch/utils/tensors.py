@@ -1,4 +1,4 @@
-"""Small constant tensors made once per device."""
+"""Small constant tensors made once per device; tensors kept on a module."""
 from __future__ import annotations
 
 import functools
@@ -19,3 +19,19 @@ def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
     quotient exact (PyTorch divides by a Python number as a product with
     its reciprocal)."""
     return _constant(tuple(values), dtype, str(device))
+
+
+def kept_on(module: torch.nn.Module, name: str, sources, make, key=()):
+    """``make()`` (run without autograd), kept on ``module`` under ``name``
+    while ``key`` is equal and every tensor ``make`` reads (``sources``,
+    held with the result so that no other tensor takes one's id) has the
+    same id, storage and ``_version``: an in-place update makes it anew; a
+    write through ``tensor.data`` is not seen."""
+    k = tuple(key) + tuple((id(t), t._version, t.data_ptr())
+                           for t in sources)
+    kept = module.__dict__.get(name)
+    if kept is None or kept[0] != k:
+        with torch.no_grad():
+            kept = (k, make(), tuple(sources))
+        module.__dict__[name] = kept
+    return kept[1]

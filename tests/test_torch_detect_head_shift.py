@@ -2,18 +2,18 @@
 the CPU, where ``shift_spline_conv`` runs its plain version, at the
 ``dagr_s50`` head geometry (360x240, grids 14x10 and 7x5) at batch 1 (the
 stream) and 6 (the batch detector): against the plain spline-conv head in
-bf16 and in f32, the one reg + obj launch against the two convs, the gate,
-the plain cases bit for bit against the formulation before the route, and
-the kept packs.  The CUDA launches are held against the plain head on the
-card by ``chip_smoke.py``."""
-from types import SimpleNamespace
-
+bf16 and in f32, the one reg + obj launch against the two convs, the
+route's choice (``models/backbone.frozen_route``), the plain cases bit for
+bit against the formulation before the route, and the kept packs.  The
+CUDA launches are held against the plain head on the card by
+``chip_smoke.py``."""
 import pytest
 import torch
 
 from eventad_tpu_torch.config import Config
 from eventad_tpu_torch.models import yolox_head as yh
-from eventad_tpu_torch.models.backbone import make_backbone_config
+from eventad_tpu_torch.models.backbone import (frozen_route,
+                                                make_backbone_config)
 from eventad_tpu_torch.models.graph import Graph, neighbor_rows
 from eventad_tpu_torch.ops.norm import batch_norm
 from eventad_tpu_torch.ops.spline_basis import ACTS
@@ -177,10 +177,10 @@ def test_one_reg_obj_launch_equals_two_convs(batch):
 @pytest.mark.parametrize("case", ["bf16_cpu", "f32", "training",
                                   "fused_shift_off"])
 def test_plain_cases_unchanged(case, monkeypatch):
-    """The gate is shut for f32, training and ``fused_shift`` off even on
-    the card, and on the CPU always; each such case gives the formulation
-    before the route bit for bit (training: the running statistics too)
-    and launches nothing through ``shift_spline_conv``."""
+    """The route does not take K3 for f32, training and ``fused_shift``
+    off even on the card, and on the CPU never; each such case gives the
+    formulation before the route bit for bit (training: the running
+    statistics too) and launches nothing through ``shift_spline_conv``."""
     batch = 6 if case == "training" else 1
     dtype = "float32" if case == "f32" else "bfloat16"
     bc = _geometry(batch, dtype, fused_shift=case != "fused_shift_off")
@@ -188,9 +188,9 @@ def test_plain_cases_unchanged(case, monkeypatch):
     dt = torch.float32 if case == "f32" else torch.bfloat16
     g, attr, grid, cart_max = _pooled_graph(
         torch.Generator().manual_seed(11), bc, 0, dt)
-    on_card = SimpleNamespace(dtype=dt, is_cuda=True)
-    assert yh.head_takes_shift(on_card, bc, training) == (case == "bf16_cpu")
-    assert not yh.head_takes_shift(g.x, bc, training)
+    on_card = frozen_route(bc, dt, torch.device("cuda"), training).pooled
+    assert (on_card == "K3") == (case == "bf16_cpu")
+    assert frozen_route(bc, dt, g.x.device, training).pooled != "K3"
 
     def refuse(*a, **kw):
         raise AssertionError("the K3 route was taken")
@@ -206,8 +206,9 @@ def test_plain_cases_unchanged(case, monkeypatch):
 
 
 def test_forward_takes_the_route_where_the_gate_opens(monkeypatch):
-    """With the gate open (the card's case, forced here on the CPU) the
-    forward is the route: five launches a scale, the route's maps."""
+    """Where the route takes K3 (the card's case, the route asked for a
+    CUDA device here on the CPU) the forward is the K3 route: five
+    launches a scale, the route's maps."""
     bc = _geometry(1)
     g, attr, grid, cart_max = _pooled_graph(
         torch.Generator().manual_seed(5), bc, 1, torch.bfloat16)
@@ -220,7 +221,8 @@ def test_forward_takes_the_route_where_the_gate_opens(monkeypatch):
     def counted(*a, **kw):
         calls.append(kw["act"])
         return shift_spline_conv_plain(*a, **kw)
-    monkeypatch.setattr(yh, "head_takes_shift", lambda x, b, t: True)
+    monkeypatch.setattr(yh, "frozen_route", lambda b, dt, dev, t: (
+        frozen_route(b, dt, torch.device("cuda"), t)))
     monkeypatch.setattr(yh, "shift_spline_conv", counted)
     with torch.no_grad():
         got = yh.gnn_head_scale_forward(head, g, attr, grid, bc,
@@ -251,9 +253,10 @@ def test_packs_are_kept_until_an_in_place_update(monkeypatch):
                                            cart_max=cart_max)
     first = read()
     assert packed == [WIDTH, WIDTH, WIDTH, 2, 5]
-    kept = head.__dict__["_shift_operands"][1]
+    kept = head.__dict__["head_shift_operands"][1]
     again = read()
-    assert len(packed) == 5 and head.__dict__["_shift_operands"][1] is kept
+    assert len(packed) == 5
+    assert head.__dict__["head_shift_operands"][1] is kept
     assert all(torch.equal(a, b) for a, b in zip(first, again))
     for change in (lambda: head.obj_pred.weight.mul_(2),
                    lambda: head.reg_conv.bn.var.add_(1.0),

@@ -195,9 +195,9 @@ def _bf16_layers(rng, cin, cout):
 
 
 def test_base_layer_level0_matches_jax_bf16(rng):
-    """apply_layer with ``fused_two_block`` off on the CPU (K5's plain
-    version, twice) against the JAX package's bf16 layer, which on the CPU
-    takes its non-fused branch."""
+    """apply_layer on the route of ``fused_two_block`` off on the CPU (K5's
+    plain version, twice) against the JAX package's bf16 layer, which on
+    the CPU takes its non-fused branch."""
     cfg, b, g, x, bc, _ = _fixture(rng, batch_size=2, events=1024,
                                    lookback=256)
     (params, state), layer = _bf16_layers(rng, 19, 16)
@@ -212,12 +212,16 @@ def test_base_layer_level0_matches_jax_bf16(rng):
         height=72, activation_name="relu"))(
             params, state,
             jg._replace(x=jnp.asarray(x).astype(jnp.bfloat16)))
+    route = tbb.frozen_route(bc._replace(fused_two_block=False),
+                             torch.bfloat16, torch.device("cpu"), False)
+    assert route.level0 == "K5"
     before = fused_spline_conv_cuda.launches
     got, pos_nbr = tbb.apply_layer(
-        layer, g._replace(x=torch.from_numpy(x).bfloat16()), kernel_size=KS,
-        aggr="sum", activation_name="relu", cart_max=bc.cart_max[0],
-        batch_size=2, attr_range=tbb.level0_attr_range(bc), self_slot0=True,
-        width=96, height=72, gather_lookback=256, fused_two_block=False)
+        layer, g._replace(x=torch.from_numpy(x).bfloat16()),
+        route=route.level0, kernel_size=KS, aggr="sum",
+        activation_name="relu", cart_max=bc.cart_max[0], batch_size=2,
+        attr_range=tbb.level0_attr_range(bc), self_slot0=True, width=96,
+        height=72, gather_lookback=256)
     assert got.x.dtype == torch.bfloat16 and pos_nbr.shape[1] == 15
     assert fused_spline_conv_cuda.launches == before
     want = np.asarray(want.x.astype(jnp.float32))
@@ -226,8 +230,9 @@ def test_base_layer_level0_matches_jax_bf16(rng):
 
 
 def test_base_layer_pooled_matches_jax_bf16(rng):
-    """The same at a pooled level (``fused_shift`` off): a 14 x 10 cell
-    table with the shift neighbourhood, all 25 taps, lookahead."""
+    """The same at a pooled level (the K5 route, ``fused_shift`` off): a
+    14 x 10 cell table with the shift neighbourhood, all 25 taps,
+    lookahead."""
     grid, bsz, cin, cout = (14, 10), 2, 82, 64
     m = bsz * grid[0] * grid[1]
     active = rng.rand(m) > 0.2
@@ -257,10 +262,9 @@ def test_base_layer_pooled_matches_jax_bf16(rng):
     tg = Graph(torch.from_numpy(x).bfloat16(), torch.from_numpy(pos),
                torch.from_numpy(nbr), torch.from_numpy(mask),
                torch.from_numpy(active), torch.from_numpy(batch))
-    got, _ = tbb.apply_layer(layer, tg, kernel_size=KS, aggr="sum",
-                             activation_name="relu", cart_max=0.3, grid=grid,
-                             batch_size=bsz, width=96, height=72,
-                             fused_shift=False)
+    got, _ = tbb.apply_layer(layer, tg, route="K5", kernel_size=KS,
+                             aggr="sum", activation_name="relu", cart_max=0.3,
+                             grid=grid, batch_size=bsz, width=96, height=72)
     want = np.asarray(want.x.astype(jnp.float32))
     assert _rel(got.x.float(), want) < LAYER_TOL, _rel(got.x.float(), want)
     assert (want != 0).mean() > 0.2

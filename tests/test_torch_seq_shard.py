@@ -39,7 +39,7 @@ def _refresh_outs():
                                            n_buf=N)
     st = refresh(st)
     return inc.pooled_backbone_outs(model, bc, st,
-                                    inc._norm_pos(st.pos, st.t_now, gsc),
+                                    inc.norm_pos(st.pos, st.t_now, gsc),
                                     gsc)
 
 

@@ -111,9 +111,9 @@ def _prep_and_params(g, layer, bc, dt=torch.float32):
     ci = center_index(KS)
     b1, b2 = layer.block1, layer.block2
     w1, w2 = b1.conv.weight.to(dt), b2.conv.weight.to(dt)
-    a1, c1 = tbb._fold_bn_affine(b1.bn, None, dt)
-    a2, c2 = tbb._fold_bn_affine(b2.bn, None, dt)
-    a_s, c_s = tbb._fold_bn_affine(layer.skip_bn, layer.skip_lin_bias, dt)
+    a1, c1 = tbb.fold_bn_affine(b1.bn, None, dt)
+    a2, c2 = tbb.fold_bn_affine(b2.bn, None, dt)
+    a_s, c_s = tbb.fold_bn_affine(layer.skip_bn, layer.skip_lin_bias, dt)
     args = (w1, b1.conv.root.to(dt) + w1[ci], a1, c1, w2,
             b2.conv.root.to(dt) + w2[ci])
     epi = (layer.skip_lin.to(dt), a2, c2, a_s, c_s)
@@ -160,7 +160,7 @@ def test_plain_layer_matches_jax_apply_layer_f32(rng):
 
     # and the port's own apply_layer (its non-fused branch on the CPU)
     g2, _ = tbb.apply_layer(layer, g._replace(x=torch.from_numpy(x)),
-                            kernel_size=KS, aggr="sum",
+                            route="plain", kernel_size=KS, aggr="sum",
                             activation_name="relu", cart_max=bc.cart_max[0],
                             batch_size=2, attr_range=tbb.level0_attr_range(
                                 bc), self_slot0=True, width=96, height=72)

@@ -12,7 +12,7 @@ from eventad_tpu.ops.spline_conv import SplineConvParams, spline_conv
 from eventad_tpu.ops.spline_shift import (prepare_shift as jprep,
                                           shift_spline_conv as jshift,
                                           tap_windows as jwins)
-from eventad_tpu_torch.models.backbone import (Layer, _fold_bn_affine,
+from eventad_tpu_torch.models.backbone import (Layer, fold_bn_affine,
                                                 whole_layer_operands)
 from eventad_tpu_torch.ops.spline_shift import (
     MAX_OUT, pack_shift_weights, pad_rows, prepare_shift, shift_spline_conv,
@@ -344,8 +344,8 @@ def test_whole_layer_operands_follow_in_place_updates():
     w1, root1, a1, c1, w2, root2, a2, c2, skip_lin, a_s, c_s = ops
     assert torch.equal(w1, layer.block1.conv.weight.to(bf))
     assert torch.equal(skip_lin, layer.skip_lin.to(bf))
-    for got, want in zip((a1, c1, a_s, c_s), _fold_bn_affine(
-            layer.block1.bn, None, bf) + _fold_bn_affine(
+    for got, want in zip((a1, c1, a_s, c_s), fold_bn_affine(
+            layer.block1.bn, None, bf) + fold_bn_affine(
             layer.skip_bn, layer.skip_lin_bias, bf)):
         assert got.dtype == torch.float32 and torch.equal(got, want)
     assert not any(t.requires_grad for t in ops)

@@ -267,7 +267,7 @@ def test_backbone_resumed_at_level1_matches_jax(pair):
     jst = pair["runs"]["float32"][0][0]
     tst = _state_to_torch(jst)
     gsc = graph_static_config(cfg)
-    posn = inc._norm_pos(tst.pos, tst.t_now, gsc)
+    posn = inc.norm_pos(tst.pos, tst.t_now, gsc)
     jposn = jinc._norm_pos(jst.pos, jst.t_now, jdagr.graph_static_config(
         jcfg))
     np.testing.assert_array_equal(posn.numpy(), np.asarray(jposn))
