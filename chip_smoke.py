@@ -108,7 +108,8 @@ exits non-zero without printing a result:
    ``decoded [6, 175, 7]`` finite,
    detections of the fixed shape, the expected launches per forward (the
    default flavour K3 18 times: the pooled levels' 8 and the GNN head's
-   10), and images/s with batch ms by ``bench_detector``'s protocol.
+   10; K9 once in both), and images/s with batch ms by
+   ``bench_detector``'s protocol.
 9. Streaming (``streaming/``) at the root ``bench_streaming.py``'s
    operating point: batch 1, the same width, a ring of 16 384 events,
    chunks of 512, the phase-3 weights, events of
@@ -132,7 +133,8 @@ exits non-zero without printing a result:
    1) and in f32 on the first: the maps and ``decoded`` within 0.1 (bf16)
    and 1e-3 (f32) of each map's or column's scale, as in phase 8,
    detections of the fixed shape; a bf16 read launches K3 18 times (the
-   pooled levels' 8, the GNN head's 10) and K8 8 times, the head's K3
+   pooled levels' 8, the GNN head's 10), K8 8 times and K9 once (an f32
+   read K8 8 times and K9 once), the head's K3
    route lies within 0.03 of each map's scale of its plain spline convs on
    the same graphs, and no host-blocking call falls inside
    ``detect/gnn_head`` (``torch.cuda.set_sync_debug_mode``, under which
@@ -144,6 +146,18 @@ exits non-zero without printing a result:
    power limit.  K1's, K3's and K8's records gain ``streaming_append`` /
    ``streaming_read``, K2's and K4's ``streaming_dense_step`` and K1-K4's
    ``streaming_dense_step_launches``.
+   Then K9 (the detection post-process, ``ops.nms.postprocess_cuda``)
+   against the plain ``yolox_head.postprocess_plain`` on the card, bit for
+   bit on all four outputs and all 64 slots (``same_detections``), on the
+   main path's recorded calls (the batch detector's B 6 of phase 8, the
+   three reads' B 1) and on ``nms_cases``: tied scores, box pairs of IoU
+   one f32 ulp below, at and above 0.65 (their masks also equal to the
+   CPU's), inf w or h and NaN or inf scores, every score below the
+   threshold, fewer than 64 survivors, 128 and 129 anchors, A 40 and 1,
+   and A 1 024 with 32 classes.  Its record: the wrapper, its launch alone
+   and the plain version at the stream's shape (and ``batch_*`` at B 6),
+   its bound by bytes (inputs and outputs once; at these sizes the launch
+   bounds it).
 10. Detector training (``train_detector.make_detector_train_step``: the
    forward to the decoded outputs in training mode, no NMS, the simOTA
    loss, the backward through the backbone and the ResNet, the clipped
@@ -160,9 +174,9 @@ exits non-zero without printing a result:
    the phase-5 check's as ``check_*``).  Five steps a dtype on one batch
    from a fresh optimizer (warm-up of one step) must give finite, falling
    losses, five EMA updates, f32 master weights, EMA and statistics; the
-   bf16 EMA weights are evaluated (mAP, not gated) with K1-K4's and K8's
-   launches counted (K8 none in a training step: its gradient takes the
-   plain formulation); step ms, items/s and peak memory per dtype, and the device's
+   bf16 EMA weights are evaluated (mAP, not gated) with K1-K4's, K8's and
+   K9's launches counted (K8 none in a training step: its gradient takes
+   the plain formulation; K9 none: a step runs no NMS); step ms, items/s and peak memory per dtype, and the device's
    busy share from ``tools.profile_step detector_train`` in a fresh
    process per dtype.  Every record gains ``train_step_launches``.
 11. The host data path feeding the card (``data/``): six sequences made in
@@ -961,6 +975,180 @@ def check_pool_cases(calls):
     return n, err
 
 
+def recorded(mod, attr, fn):
+    """``fn()`` with the arguments of ``mod.<attr>`` recorded: ``(out,
+    [(args, kwargs), ...])``."""
+    calls, orig = [], getattr(mod, attr)
+
+    def rec(*a, **kw):
+        calls.append((a, kw))
+        return orig(*a, **kw)
+    setattr(mod, attr, rec)
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        setattr(mod, attr, orig)
+    return out, calls
+
+
+# K9: the detection read-out's keywords (``models.detector.
+# decode_detections``) at the operating point, for the planted cases
+NMS_KW = dict(conf_threshold=0.001, nms_threshold=0.65, width=360,
+              height=240)
+
+
+def iou_pair(target, x0, y0, gen, tries=20000):
+    """Two decoded anchors ``[2, 4]`` (cx, cy, w, h) at ``(x0, y0)``, the
+    second inside the first, whose IoU as the plain version computes it
+    (``yolox_head._iou_matrix`` of the boxes ``postprocess_plain`` forms) is
+    exactly the f32 ``target``: a seeded random search on the CPU, whose f32
+    operations round as the card's."""
+    from eventad_tpu_torch.models import yolox_head as yh
+    wa = 8 + 4 * torch.rand(tries, generator=gen)
+    ha = 8 + 4 * torch.rand(tries, generator=gen)
+    wb = wa * (NMS_KW["nms_threshold"]
+               + (torch.rand(tries, generator=gen) - 0.5) * 2e-6)
+    d = torch.stack([torch.stack([x0 + wa / 2, y0 + ha / 2, wa, ha], -1),
+                     torch.stack([x0 + wb / 2, y0 + ha / 2, wb, ha], -1)],
+                    1)
+    xy = d[..., :2] - d[..., 2:4] / 2
+    iou = yh._iou_matrix(torch.cat([xy, xy + d[..., 2:4]], -1))[:, 0, 1]
+    hit = torch.nonzero(iou == target).flatten()
+    if not len(hit):
+        raise AssertionError(f"no box pair of IoU {target.item()!r} found")
+    return d[hit[0]]
+
+
+def nms_cases(dev):
+    """K9's planted cases, ``(name, (decoded [B, A, 5 + C] on dev, C),
+    keywords)``, from a seeded generator: tied scores (multiples of 1/8),
+    at the read-out's IoU threshold and at 0.1; three box pairs whose IoU
+    is one f32 ulp below 0.65, 0.65 and one ulp above (the second box of
+    each kept, kept, suppressed); inf w or h (NaN corners), NaN and inf
+    scores, NaN class probabilities, a NaN x; every score below the
+    threshold; fewer than 64 survivors; 128 and 129 anchors with tied
+    scores (PyTorch sorts up to 128 by merging, above by radix); 40 anchors
+    and one (A < 64); and ``MAX_ANCHORS`` anchors of ``MAX_CLASSES``
+    classes, K9's largest shared memory."""
+    from eventad_tpu_torch.ops import nms
+    gen = torch.Generator().manual_seed(9)
+    inf, nan = float("inf"), float("nan")
+
+    def rand(b, a, c=2, tied=False):
+        d = torch.rand(b, a, 5 + c, generator=gen)
+        d[..., :2] = d[..., :2] * 90 + 30    # boxes within x, y 14 to 136
+        d[..., 2:4] = d[..., 2:4] * 30 + 2
+        if tied:
+            d[..., 4:] = torch.round(d[..., 4:] * 8) / 8
+        return d
+    tied = rand(3, 175, tied=True)
+    cases = [("tied", tied, 2, NMS_KW),
+             ("tied_iou_0.1", tied, 2, dict(NMS_KW, nms_threshold=0.1))]
+    d = rand(2, 175)
+    thr = torch.tensor(NMS_KW["nms_threshold"])
+    for j, t in enumerate((torch.nextafter(thr, torch.tensor(0.0)), thr,
+                           torch.nextafter(thr, torch.tensor(1.0)))):
+        d[:, 2 * j:2 * j + 2, :4] = iou_pair(t, 200.0 + 20 * j, 200.0, gen)
+        d[:, 2 * j, 4:] = torch.tensor([1.0, 0.99, 0.01])
+        d[:, 2 * j + 1, 4:] = torch.tensor([1.0, 0.98, 0.01])
+    cases.append(("iou_ulp", d, 2, NMS_KW))
+    d = rand(2, 175)
+    d[:, :12, 4] = 1.0                 # scored first
+    d[:, 0, 2] = inf
+    d[:, 1, 3] = inf
+    d[:, 2, 2:4] = inf
+    d[:, 3, 4] = nan
+    d[:, 4, 5] = nan
+    d[:, 5, 6] = nan
+    d[:, 6, 4] = inf
+    d[:, 7, 0] = nan
+    cases.append(("inf_nan", d, 2, NMS_KW))
+    d = rand(2, 175)
+    d[..., 4] *= 0.0009
+    cases.append(("all_below", d, 2, NMS_KW))
+    d = rand(2, 175)
+    d[..., 4] *= 0.002
+    cases.append(("few", d, 2, NMS_KW))
+    cases += [("tied_128", rand(2, 128, tied=True), 2, NMS_KW),
+              ("tied_129", rand(2, 129, tied=True), 2, NMS_KW),
+              ("small", rand(2, 40), 2, NMS_KW),
+              ("one", rand(1, 1), 2, NMS_KW),
+              ("widest", rand(2, nms.MAX_ANCHORS, nms.MAX_CLASSES),
+               nms.MAX_CLASSES, dict(NMS_KW, nms_threshold=0.3))]
+    return [(n, (x.to(dev), c), kw) for n, x, c, kw in cases]
+
+
+def same_detections(got, want):
+    """Whether two detection dicts hold the same keys, shapes, dtypes and
+    bits (a NaN's too)."""
+    if set(got) != set(want):
+        return False
+    for k, b in want.items():
+        a = got[k]
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            return False
+    return True
+
+
+def check_postprocess(dev, smi, inputs, records):
+    """K9 (``ops.nms.postprocess_cuda``) against the plain
+    ``postprocess_plain`` on the card, bit for bit on all four outputs and
+    all slots: on the main path's recorded calls ``inputs`` (name ->
+    ``(args, kwargs)``) and on :func:`nms_cases`, whose ``iou_ulp`` masks
+    must also equal the plain version's on the CPU (the planted IoUs land
+    on the card where they land there).  Times at the stream's and the
+    batch detector's shapes; appends K9's record."""
+    from eventad_tpu_torch.models import yolox_head as yh
+    from eventad_tpu_torch.ops import nms
+    cases = [(n, a, kw) for n, (a, kw) in inputs.items()] + nms_cases(dev)
+    kept = {}
+    for name, a, kw in cases:
+        got = nms.postprocess_cuda(*a, **kw)
+        want = yh.postprocess_plain(*a, **kw)
+        torch.cuda.synchronize()
+        if not same_detections(got, want):
+            raise AssertionError(f"postprocess ({name}): K9 differs from "
+                                 f"the plain version")
+        kept[name] = [int(m) for m in got["mask"].sum(-1)]
+        if name == "iou_ulp":
+            cpu = yh.postprocess_plain(a[0].cpu(), *a[1:], **kw)
+            if not torch.equal(cpu["mask"], got["mask"].cpu()):
+                raise AssertionError("postprocess (iou_ulp): the card's "
+                                     "masks differ from the CPU's")
+    rec = dict(name="postprocess", route="cuda",
+               source="eventad_tpu_torch/csrc/nms.cu",
+               replaces="none: XLA lowers eventad_tpu/models/yolox_head.py:"
+                        "postprocess", launches=1, max_abs_err=0.0,
+               cases=len(cases), bound_by="bytes (the launch at these "
+                                           "sizes)", library_ms=None)
+    for key, name in (("", "stream_bfloat16_0"), ("batch_", "batch")):
+        a, kw = inputs[name]
+        out = nms.postprocess_cuda(*a, **kw)
+        rec.update({
+            key + "ms": median_ms(lambda: nms.postprocess_cuda(*a, **kw)),
+            key + "launch_ms": launch_ms(
+                nms, lambda: nms.postprocess_cuda(*a, **kw)),
+            key + "plain_ms": median_ms(
+                lambda: yh.postprocess_plain(*a, **kw)),
+            key + "bound_ms": tensor_bytes((a, out)) / HBM_BYTES_PER_S
+            * 1e3})
+    records.append(rec)
+    log(f"postprocess (K9): bit-identical to the plain version on "
+        f"{len(cases)} cases (kept per image {kept}); the stream's read "
+        f"(1, 175, 7): kernel {rec['ms']:.4f} ms, alone "
+        f"{rec['launch_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.6f} ms (bytes; launch-bound at this size); the "
+        f"batch detector's (6, 175, 7): kernel {rec['batch_ms']:.4f} ms, "
+        f"alone {rec['batch_launch_ms']:.4f} ms, plain "
+        f"{rec['batch_plain_ms']:.4f} ms, bound {rec['batch_bound_ms']:.6f}"
+        f" ms; on {smi}")
+
+
 def tensor_bytes(obj):
     """Bytes of every tensor in a (nested) argument or result."""
     if isinstance(obj, torch.Tensor):
@@ -1151,8 +1339,11 @@ def stream_frames(cfg, m, seed=1):
 
 
 def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
-                    records, zero_counters, read_counters, maps_err):
-    """Phase 9: streaming at full width (see the module docstring)."""
+                    records, zero_counters, read_counters, maps_err,
+                    nms_inputs):
+    """Phase 9: streaming at full width (see the module docstring).  Each
+    detection read's ``postprocess`` call goes into ``nms_inputs`` (name
+    -> ``(args, kwargs)``) for K9's check."""
     import importlib
 
     from eventad_tpu_torch.data.batching import EventBatch
@@ -1206,21 +1397,6 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
             st, lg = step(st, c.to(d), ones.to(d), k, bx.to(d), bp.to(d))
             logits.append(lg)
         return st, torch.stack(logits).cpu()
-
-    def recorded(mod, attr, fn):
-        """``fn()`` with the arguments of ``mod.<attr>`` recorded."""
-        calls, orig = [], getattr(mod, attr)
-
-        def rec(*a, **kw):
-            calls.append((a, kw))
-            return orig(*a, **kw)
-        setattr(mod, attr, rec)
-        try:
-            out = fn()
-            torch.cuda.synchronize()
-        finally:
-            setattr(mod, attr, orig)
-        return out, calls
 
     # ---- 9.1 incremental scoring, bf16, against the port on the CPU ----
     t0 = time.perf_counter()
@@ -1527,12 +1703,15 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
             prev = dst
             dst = d_step.append(dst, c.to(dev), ones.to(dev), k)
         zero_counters()
-        (dets, decoded), dec_calls = recorded(sdet, "decode_detections",
-                                              lambda: read_det(dst))
+        ((dets, decoded), dec_calls), pp_calls = recorded(
+            mdet, "postprocess", lambda: recorded(
+                sdet, "decode_detections", lambda: read_det(dst)))
+        nms_inputs[f"stream_{name}_{seed}"] = pp_calls[0]
         # launches/K3: the pooled levels' 8 and the GNN head's 10 in bf16
-        seen = read_counters({"spline_shift_pooled": 18, "pool_graph": 8}
-                             if name == "bfloat16" else {"pool_graph": 8},
-                             f"read_detections ({name})")
+        seen = read_counters(
+            {"spline_shift_pooled": 18, "pool_graph": 8, "postprocess": 1}
+            if name == "bfloat16" else {"pool_graph": 8, "postprocess": 1},
+            f"read_detections ({name})")
         head_note = (check_head(read_det, dst) if name == "bfloat16"
                      else "the head's plain spline convs")
         batch = det_batch(dev, win, img)
@@ -1927,7 +2106,7 @@ def detector_training_phase(dev, smi, records, counters):
             n = TRAIN_EVAL_BATCHES
             expect = dict(event_graph_search=n, spline_fused_level0=2 * n,
                           spline_shift_pooled=18 * n, upsample_rows=n,
-                          pool_graph=8 * n)
+                          pool_graph=8 * n, postprocess=n)
             if seen != expect:
                 raise AssertionError(f"the bf16 EMA evaluation launched "
                                      f"{seen}, expected {expect}")
@@ -3465,12 +3644,14 @@ def main():
     import torch.nn.functional as F
 
     from eventad_tpu_torch.ops import bilinear_sample as bsm
+    from eventad_tpu_torch.ops import nms
     from eventad_tpu_torch.ops import spline_fused as sfm
 
     bc_base, bc_bil = bc._replace(**BASE), bc._replace(**BILINEAR)
     all_counters = dict(all_counters,
                         fused_spline_conv=sfm.fused_spline_conv_cuda,
-                        bilinear_sample=bsm.sample_bilinear_cuda)
+                        bilinear_sample=bsm.sample_bilinear_cuda,
+                        postprocess=nms.postprocess_cuda)
 
     def recorded_calls(batch, bcx, mod, attr, expect):
         """The scoring forward in flavour ``bcx`` with the arguments of
@@ -3789,6 +3970,7 @@ def main():
 
     # ---- 8. detection serving ----
     from eventad_tpu_torch.bench_detector import ITERS, WARMUP, bench
+    from eventad_tpu_torch.models import detector as mdet
     from eventad_tpu_torch.models.detector import (detector_forward,
                                                    detector_maps,
                                                    init_detector)
@@ -3831,17 +4013,20 @@ def main():
     for name, bcx, expect in (
             ("default", bc, dict(event_graph_search=1, spline_fused_level0=2,
                                  spline_shift_pooled=18, upsample_rows=1,
-                                 pool_graph=8)),
+                                 pool_graph=8, postprocess=1)),
             ("base+bilinear", bc._replace(**BASE, **BILINEAR),
              dict(event_graph_search=1, fused_spline_conv=10,
-                  bilinear_sample=2, pool_graph=8))):
+                  bilinear_sample=2, pool_graph=8, postprocess=1))):
         with torch.no_grad():
             maps, strides = detector_maps(detector, batches[0], cfg, bcx)
         worst = maps_err(maps, cpu_maps)
         zero_counters()
-        dets, decoded = detector_forward(detector, batches[0], cfg, bcx)
-        torch.cuda.synchronize()
+        (dets, decoded), pp_calls = recorded(
+            mdet, "postprocess",
+            lambda: detector_forward(detector, batches[0], cfg, bcx))
         seen = read_counters(expect, f"detector forward ({name})")
+        if name == "default":
+            nms_inputs = {"batch": pp_calls[0]}
         if tuple(decoded.shape) != (cfg.batch_size, n_anchors, 7) \
                 or decoded.dtype != torch.float32 \
                 or not bool(torch.isfinite(decoded).all()):
@@ -3869,8 +4054,10 @@ def main():
 
     # ---- 9. streaming at full width ----
     streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
-                    records, zero_counters, read_counters, maps_err)
+                    records, zero_counters, read_counters, maps_err,
+                    nms_inputs)
     del detector, cpu_detector
+    check_postprocess(dev, smi, nms_inputs, records)
 
     # ---- 10. detector training at full width ----
     detector_training_phase(dev, smi, records, all_counters)

@@ -17,7 +17,8 @@ convs (``ops/spline_conv``) with BN, activation and mask around them.
 
 The CNN head (YOLOX ``BaseConv`` stacks) runs on the ResNet output maps and
 its logits are added to the GNN maps (hybrid fusion, dagr.py:247-262).
-Decode and NMS keep the JAX package's fixed output shapes.
+Decode and NMS keep the JAX package's fixed output shapes; on the card the
+post-process and NMS run as one launch of K9 (``ops/nms``).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.nms import postprocess_cuda
 from ..ops.norm import MOMENTUM, BatchNorm, batch_norm, channel_statistics
 from ..ops.spline_basis import ACTS
 from ..ops.spline_conv import SplineConv, spline_conv
@@ -364,9 +366,22 @@ def nms_fixed(boxes, scores, class_ids, *, iou_threshold: float = 0.65,
     return torch.gather(order, -1, kidx), kmask
 
 
-def postprocess(outputs: torch.Tensor, num_classes: int, *,
-                conf_threshold: float = 0.001, nms_threshold: float = 0.65,
-                width: int = 640, height: int = 640, max_out: int = 64):
+def postprocess(outputs: torch.Tensor, num_classes: int, **kw):
+    """:func:`postprocess_plain`'s detections, by K9 (``ops/nms.
+    postprocess_cuda``, one launch) for a CUDA ``outputs``, else by the
+    plain version.  Counts ``detect/nms_steps`` (the anchors of an image)
+    on both paths."""
+    if outputs.is_cuda:
+        out = postprocess_cuda(outputs, num_classes, **kw)
+        count("detect/nms_steps", outputs.shape[-2])
+        return out
+    return postprocess_plain(outputs, num_classes, **kw)
+
+
+def postprocess_plain(outputs: torch.Tensor, num_classes: int, *,
+                      conf_threshold: float = 0.001,
+                      nms_threshold: float = 0.65, width: int = 640,
+                      height: int = 640, max_out: int = 64):
     """reference ``postprocess_network_output`` (model/utils.py:63-110) with
     fixed shapes: ``outputs [B, A, 5+C]`` -> a dict of per-image tensors of
     size ``max_out`` (boxes xyxy, scores, labels) with a mask."""

@@ -54,6 +54,7 @@ SIGNATURES = {
     "eventad_scatter_window_rows":
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "eventad_pool_graph": [_P] * 16,
+    "eventad_postprocess": [_P] * 8,
 }
 
 

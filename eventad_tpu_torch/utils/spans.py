@@ -57,6 +57,7 @@ KERNELS = {
             "scatter_window_rows_cuda"),
     "K7": ("eventad_tpu_torch.ops.bilinear_sample", "sample_bilinear_cuda"),
     "K8": ("eventad_tpu_torch.ops.pooling", "pool_graph_cuda"),
+    "K9": ("eventad_tpu_torch.ops.nms", "postprocess_cuda"),
 }
 # the caching allocator's statistics behind the device counters
 ALLOCATOR = {"device_mallocs": "num_device_alloc",
