@@ -38,7 +38,7 @@ from ..ops.event_graph import build_graph_auto
 from ..ops.norm import batch_norm
 from ..ops.spline_basis import ACTS
 from ..ops.spline_conv import offset_attr, spline_conv
-from ..utils.spans import span
+from ..utils.spans import count, span
 from ..utils.tensors import constant
 from .runner import head_step, insert_events, push_rows
 
@@ -163,6 +163,7 @@ def pooled_backbone_outs(model, bc, state: IncrementalState, posn, gsc):
     if bc.use_image:
         x1 = torch.cat([x1, state.img1], 1)
     n_buf = x1.shape[0]
+    count("stream/ring_rows", n_buf)
     g = Graph(x1, posn, state.nbr0, state.nbrm0, state.valid,
               torch.zeros((n_buf,), dtype=torch.int32, device=x1.device))
     # the first pooling's source cells from the cached integer offsets
@@ -207,7 +208,10 @@ def make_incremental_step(model, bc: BackboneConfig,
     Spans (``utils/spans``): ``stream/step`` around ``stream/append``
     (``stream/search``, the tail search; ``stream/layer0``) and
     ``stream/read_scores`` (``stream/levels``, ``stream/head``);
-    ``stream/refresh`` and ``stream/update_image`` on their own."""
+    ``stream/refresh`` and ``stream/update_image`` on their own.  Counters,
+    from shapes alone (no device value is read): ``stream/search_rows``,
+    the tail rows an append searches (``lookback + n_chunk``), and
+    ``stream/ring_rows``, the ring rows a read pools (``n_buf``)."""
     if bc.batch_size != 1:
         raise ValueError("streaming runs one stream (batch_size=1)")
     (radius_px, delta_t_us, max_nb, max_q, lookback, width, height,
@@ -264,6 +268,7 @@ def make_incremental_step(model, bc: BackboneConfig,
             # `lookback` events
             w0 = n_buf - (lookback + k)
             with span("stream/search"):
+                count("stream/search_rows", lookback + k)
                 nbr_t, nbrm_t, doff_t = (t[0, -k:] for t in build_graph_auto(
                     pos[None, w0:], valid[None, w0:], lookback=lookback,
                     **search))

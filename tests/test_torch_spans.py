@@ -2,11 +2,13 @@
 free with no profiler session; under one, every span of the scoring
 forward, the data path (serial and prefetch-thread ``Loader``) and the
 incremental stream step with its parents and calls, in the summary and in
-the trace; ``collate``'s counters; a garbage collection as ``runtime/gc``;
-``reset()`` taking the collection callback out."""
+the trace; ``collate``'s counters and the stream's (host integers); a
+garbage collection as ``runtime/gc``; ``reset()`` taking the collection
+callback out."""
 import gc
 import itertools
 import tracemalloc
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -173,7 +175,9 @@ def test_loader_spans_and_counters(mode):
     _check_trace(prof, rows)
 
 
-def test_incremental_step_spans():
+def _stream():
+    """A small stream: its model, ``refresh`` and ``step``, an empty state,
+    its first ``n_buf + k`` events and a frame's boxes."""
     cfg = Config(**dict(KW, batch_size=1))
     model, bc, mc = init_model(cfg, torch.Generator().manual_seed(0),
                                device="cpu")
@@ -192,18 +196,58 @@ def test_incremental_step_spans():
     present[1:4] = True
     st = inc.init_incremental_state(n_buf, bc, mc, cfg.max_neighbors,
                                     device="cpu")
+    return SimpleNamespace(model=model, refresh=refresh, step=step, st=st,
+                           pos=pos, pol=pol, boxes=boxes, present=present,
+                           n_buf=n_buf, k=k)
+
+
+def _filled(s):
+    """``s``'s state after the frame's image and a refresh of the first
+    ``n_buf`` events."""
+    st = inc.update_image(s.model, s.st, torch.rand(36, 48, 3))
+    return s.refresh(inc.insert_raw(st, s.pos[:s.n_buf], s.pol[:s.n_buf],
+                                    s.n_buf))
+
+
+def test_incremental_step_spans():
+    s = _stream()
     with _cpu_profile() as prof:
-        st = inc.update_image(model, st, torch.rand(36, 48, 3))
-        st = refresh(inc.insert_raw(st, pos[:n_buf], pol[:n_buf], n_buf))
-        st, logits = step(st, pos[n_buf:], pol[n_buf:], k, boxes, present)
+        st = _filled(s)
+        st, logits = s.step(st, s.pos[s.n_buf:], s.pol[s.n_buf:], s.k,
+                            s.boxes, s.present)
     assert torch.isfinite(logits).all()
-    s = spans.summary()
-    rows = _rows(s)
+    summary = spans.summary()
+    rows = _rows(summary)
     for name, parent in STREAM.items():
         assert rows[(name, parent)]["calls"] == 1, (name, parent)
-    assert s["units"] == 1
+    assert summary["units"] == 1
     assert rows[("stream/step", None)]["in_units"] == 1
     _check_trace(prof, rows)
+
+
+def test_stream_counters_are_host_integers(monkeypatch):
+    """One traced ``append`` and ``read_scores``: ``stream/search_rows``
+    counts the tail the search ran over (``lookback + k``, the lookback
+    256 of ``KW``) and ``stream/ring_rows`` the ring a read pools, each
+    given as a Python int taken from shapes, so that recording them reads
+    no device value (on the card, a tensor turned into a number is a copy
+    to the host that waits for the card)."""
+    s = _stream()
+    st = _filled(s)
+    given = []
+
+    def count(name, n):
+        given.append((name, type(n)))
+        spans.count(name, n)
+    monkeypatch.setattr(inc, "count", count)
+    with _cpu_profile():
+        st = s.step.append(st, s.pos[s.n_buf:], s.pol[s.n_buf:], s.k)
+        s.step.read_scores(st, s.boxes, s.present)
+    assert given == [("stream/search_rows", int),
+                     ("stream/ring_rows", int)]
+    counters = spans.summary()["counters"]
+    assert counters["stream/search_rows"] == 256 + s.k
+    assert counters["stream/ring_rows"] == s.n_buf
 
 
 def test_gc_inside_a_span_and_reset():
@@ -223,7 +267,6 @@ def test_gc_inside_a_span_and_reset():
 
 
 def _ev(name, start, end, device=False, id=0, annotation=False):
-    from types import SimpleNamespace
     return SimpleNamespace(
         name=name, id=id, thread=1, is_user_annotation=annotation,
         device_type="DeviceType.CUDA" if device else "DeviceType.CPU",

@@ -7,7 +7,9 @@ the ring mechanics, the stream against the port's own batch path, the
 multi-chunk calls against single calls, the FLOP count and the bench's
 entry point.  The JAX side runs its XLA formulation, jitted, once per
 configuration and file, at its own tests' size
-(``tests/test_streaming.py``: 48x36, 512 events, chunks of 128)."""
+(``tests/test_streaming.py``: 48x36, 512 events, chunks of 128), and once
+more at DoTA's shape (a 16:9 field at scale 4, chunks as long as the
+lookback, ``configs/dota.yaml``'s relation)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,17 +54,23 @@ from test_torch_event_graph import _kernel_mirror
 KW = dict(batch_size=1, width=48, height=36, scale=1, event_buckets=(512,),
           graph_lookback=512)
 N, N_CHUNK = 512, 128
+# DoTA's shape: 64x36 at scale 4, chunks of 128 = the lookback, so that each
+# destination's window reaches back across the whole previous chunk
+KW_DOTA = dict(batch_size=1, width=256, height=144, scale=4,
+               event_buckets=(512,), graph_lookback=128)
+N_CHUNK_DOTA = 128
 F32_TOL = 1e-5     # of scale (pieces) / absolute (logits), f32 both sides
 BF16_TOL = 0.05    # logits, bf16 features (tests/test_bf16_path.py band)
 
 
-def _events(seed, n=N):
-    """Events as the JAX package's streaming tests draw them."""
+def _events(seed, n=N, w=48, h=36, t_us=50_000):
+    """Events as the JAX package's streaming tests draw them, on a ``w`` x
+    ``h`` field over ``t_us`` microseconds."""
     rng = np.random.RandomState(seed)
     pos = np.zeros((n, 3), np.int32)
-    pos[:, 0] = rng.randint(0, 48, n)
-    pos[:, 1] = rng.randint(0, 36, n)
-    pos[:, 2] = 1_000_000 + np.sort(rng.randint(0, 50_000, n))
+    pos[:, 0] = rng.randint(0, w, n)
+    pos[:, 1] = rng.randint(0, h, n)
+    pos[:, 2] = 1_000_000 + np.sort(rng.randint(0, t_us, n))
     pol = rng.choice([-1.0, 1.0], n).astype(np.float32)
     return pos, pol
 
@@ -131,10 +139,10 @@ def seeded_tree(init, jcfg, seed=0):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-def _models(use_image):
+def _models(use_image, kw=KW):
     """The JAX model's parameters from a numpy seed and the port's model
     with the same weights."""
-    jcfg = JaxConfig(**KW, use_image=use_image)
+    jcfg = JaxConfig(**kw, use_image=use_image)
     params, state = seeded_tree(jdagr.init_model, jcfg)
     jbc = jax_backbone_config(jcfg)
     jmc = JaxEventADConfig(x_dim=jcfg.x_dim, h_dim=jcfg.h_dim,
@@ -142,58 +150,60 @@ def _models(use_image):
     sd = export_backbone(params.dagr.backbone, state.dagr.backbone)
     if use_image:
         sd.update(export_cnn_branch(params.dagr.cnn, state.dagr.cnn))
-    cfg = Config(**KW, use_image=use_image)
+    cfg = Config(**kw, use_image=use_image)
     model, bc, mc = init_model(cfg, torch.Generator().manual_seed(1),
                                device="cpu")
     load_reference_state(model, sd, export_eventad_head(params.head))
     return (jcfg, params, state, jbc, jmc), (cfg, model, bc, mc)
 
 
-def _jax_stream(jx, dtype, pos, pol, boxes, present, image):
+def _jax_stream(jx, dtype, pos, pol, boxes, present, image,
+                n_chunk=N_CHUNK):
     """The JAX package's incremental stream: the first chunk inserted raw
     and refreshed, then one step per further chunk with that step's frame
-    of boxes; returns the state after the refresh and the logits of every
-    step."""
+    of boxes; returns the state after the refresh, the logits of every
+    step and the last state."""
     jcfg, params, state, bc, mc = jx
     bc = bc._replace(compute_dtype=dtype)
     gsc = jdagr.graph_static_config(jcfg)
     refresh, step = jinc.make_incremental_step(params, state, bc, mc, gsc,
-                                               n_chunk=N_CHUNK, n_buf=N)
+                                               n_chunk=n_chunk, n_buf=N)
     st = jinc.init_incremental_state(N, bc, mc,
                                      max_neighbors=jcfg.max_neighbors)
     if bc.use_image:
         st = jax.jit(lambda p, s, st, im: jinc.update_image(
             p, s, st, im, jcfg.img_net))(params, state, st,
                                          jnp.asarray(image))
-    st = jinc.insert_raw(st, jnp.asarray(pos[:N_CHUNK]),
-                         jnp.asarray(pol[:N_CHUNK]), jnp.int32(N_CHUNK))
+    st = jinc.insert_raw(st, jnp.asarray(pos[:n_chunk]),
+                         jnp.asarray(pol[:n_chunk]), jnp.int32(n_chunk))
     st = refresh(st)
     refreshed = st
     logits = []
-    for ci in range(1, N // N_CHUNK):
-        lo, hi = ci * N_CHUNK, (ci + 1) * N_CHUNK
+    for ci in range(1, N // n_chunk):
+        lo, hi = ci * n_chunk, (ci + 1) * n_chunk
         st, lg = step(st, jnp.asarray(pos[lo:hi]), jnp.asarray(pol[lo:hi]),
-                      jnp.int32(N_CHUNK), jnp.asarray(boxes[ci]),
+                      jnp.int32(n_chunk), jnp.asarray(boxes[ci]),
                       jnp.asarray(present[ci]))
         logits.append(np.asarray(lg))
-    return refreshed, logits
+    return refreshed, logits, st
 
 
-def _port_stream(tx, dtype, pos, pol, boxes, present, image):
+def _port_stream(tx, dtype, pos, pol, boxes, present, image,
+                 n_chunk=N_CHUNK):
     cfg, model, bc, mc = tx
     bc = bc._replace(compute_dtype=dtype)
     refresh, step = inc.make_incremental_step(
-        model, bc, mc, graph_static_config(cfg), n_chunk=N_CHUNK, n_buf=N)
+        model, bc, mc, graph_static_config(cfg), n_chunk=n_chunk, n_buf=N)
     st = inc.init_incremental_state(N, bc, mc, device="cpu")
     if bc.use_image:
         st = inc.update_image(model, st, _t(image))
-    st = inc.insert_raw(st, _t(pos[:N_CHUNK]), _t(pol[:N_CHUNK]), N_CHUNK)
+    st = inc.insert_raw(st, _t(pos[:n_chunk]), _t(pol[:n_chunk]), n_chunk)
     st = refresh(st)
     refreshed = st
     logits = []
-    for ci in range(1, N // N_CHUNK):
-        lo, hi = ci * N_CHUNK, (ci + 1) * N_CHUNK
-        st, lg = step(st, _t(pos[lo:hi]), _t(pol[lo:hi]), N_CHUNK,
+    for ci in range(1, N // n_chunk):
+        lo, hi = ci * n_chunk, (ci + 1) * n_chunk
+        st, lg = step(st, _t(pos[lo:hi]), _t(pol[lo:hi]), n_chunk,
                       _t(boxes[ci]), _t(present[ci]))
         logits.append(lg.numpy())
     return refreshed, logits, (refresh, step, st)
@@ -218,11 +228,26 @@ def pair(request):
     return dict(jax=jx, torch=tx, args=args, runs=runs)
 
 
-def test_incremental_step_matches_jax(pair):
-    """The logits of every step (different boxes each frame, so the
-    recurrent state carries) and the caches after the refresh of a ring
-    whose invalid rows come first."""
-    for dtype, ((jst, jlogits), (tst, tlogits, _)) in pair["runs"].items():
+@pytest.fixture(scope="module")
+def pair_dota():
+    """Both models at DoTA's shape with the image branch, and one JAX and
+    one port run of the same f32 stream."""
+    jx, tx = _models(True, KW_DOTA)
+    # dense, as DoTA's stream is: a chunk spans 1.25 ms of the graph's 10 ms
+    # and falls on 16x12 pixels, so the lookback, not the time radius,
+    # bounds each destination's window
+    pos, pol = _events(7, w=16, h=12, t_us=5_000)
+    boxes, present = _frames(8, N // N_CHUNK_DOTA)
+    image = np.random.RandomState(9).rand(36, 64, 3).astype(np.float32)
+    args = (pos, pol, boxes, present, image)
+    runs = {"float32": (_jax_stream(jx, "float32", *args, N_CHUNK_DOTA),
+                        _port_stream(tx, "float32", *args, N_CHUNK_DOTA))}
+    return dict(jax=jx, torch=tx, args=args, runs=runs)
+
+
+def _assert_stream_matches(pair, n_chunk):
+    for dtype, ((jst, jlogits, jend), (tst, tlogits, (_, _, tend))) in \
+            pair["runs"].items():
         tol = F32_TOL if dtype == "float32" else BF16_TOL
         present = pair["args"][3]
         for ci, (j, t) in enumerate(zip(jlogits, tlogits), start=1):
@@ -235,10 +260,30 @@ def test_incremental_step_matches_jax(pair):
             np.testing.assert_array_equal(getattr(tst, name).numpy(),
                                           np.asarray(getattr(jst, name)),
                                           err_msg=name)
-        assert int(tst.valid.sum()) == N_CHUNK
+        assert int(tst.valid.sum()) == n_chunk
         for name in ("x_in", "h_b1", "h1", "img1"):
             assert _scale_err(getattr(tst, name).numpy(),
                               getattr(jst, name)) < F32_TOL, name
+        # the appends' tail searches: the last state's graph
+        for name in ("nbr0", "nbrm0", "off0", "valid", "pos"):
+            np.testing.assert_array_equal(getattr(tend, name).numpy(),
+                                          np.asarray(getattr(jend, name)),
+                                          err_msg=name)
+        assert int(tend.nbrm0.sum()) > 0
+
+
+def test_incremental_step_matches_jax(pair):
+    """The logits of every step (different boxes each frame, so the
+    recurrent state carries), the caches after the refresh of a ring whose
+    invalid rows come first and the graph after the last append."""
+    _assert_stream_matches(pair, N_CHUNK)
+
+
+def test_incremental_step_matches_jax_chunk_as_long_as_lookback(pair_dota):
+    """As above at DoTA's shape: the append's search over ``lookback +
+    chunk`` tail rows with every destination's window reaching back across
+    the whole previous chunk, and the image maps of a 16:9 frame."""
+    _assert_stream_matches(pair_dota, N_CHUNK_DOTA)
 
 
 def test_incremental_generic_flavour_in_bf16(pair):
