@@ -81,7 +81,8 @@ exits non-zero without printing a result:
    ``fused_spline_conv`` (K5) are recorded from the ``base`` flavour
    (``fused_two_block`` and ``fused_shift`` off: 10 calls per forward, two
    for each of the five levels) and those of ``sample_bilinear`` (K7) from
-   the ``bilinear`` flavour (2 calls), on both check batches.  K5 must agree
+   the ``bilinear`` flavour (its 2 level-0/1 calls) and from the default
+   flavour (the pooled levels 2-4, 3 calls), on both check batches.  K5 must agree
    with its plain version within 2e-3 of the output's scale (f32 output; a
    ``z`` value that rounds to the other bf16 neighbour moves one product by
    2^-8), its rows without an edge exactly zero, both forwards must pass
@@ -90,9 +91,13 @@ exits non-zero without printing a result:
    calls is timed alone.  K7 runs on the recorded maps in bf16 and in f32,
    with positions pushed outside the map among the inputs, within 1e-2 (one
    bf16 rounding of the output) and 1e-5 (f32 sums in another order) of the
-   output's scale.  Then, counters zeroed before each, the ``base`` forward
+   output's scale; at levels 2-4 also against ``sample_image_features``,
+   the lookup K7 replaced there: within one bf16 step (2^-7) of scale of
+   its f32 evaluation and no farther from it than its bf16 evaluation.
+   Then, counters zeroed before each, the ``base`` forward
    must launch K5 ten times a forward and neither K2 nor K3, the ``bilinear``
-   forward K7 twice and never K4; both flavours' logits must lie within
+   forward K7 five times (levels 0-1 and 2-4) and never K4, the default
+   and ``base`` forwards K7 three times; both flavours' logits must lie within
    0.05 of the port's CPU run of phase 4.  The default and ``base``
    flavours run twice in mirrored order (default, base, bilinear, base,
    default), so that their batch times compare within one call.
@@ -108,7 +113,8 @@ exits non-zero without printing a result:
    ``decoded [6, 175, 7]`` finite,
    detections of the fixed shape, the expected launches per forward (the
    default flavour K3 18 times: the pooled levels' 8 and the GNN head's
-   10; K9 once in both), and images/s with batch ms by
+   10; K7 3 times, 5 in ``base`` + ``bilinear``; K9 once in both), and
+   images/s with batch ms by
    ``bench_detector``'s protocol.
 9. Streaming (``streaming/``) at the root ``bench_streaming.py``'s
    operating point: batch 1, the same width, a ring of 16 384 events,
@@ -120,8 +126,8 @@ exits non-zero without printing a result:
    and the incremental one (refresh, appends, one read) against the batch
    ``model_forward`` at batch 1, within 1e-4.  Launches, counters zeroed
    before each: one ``append`` K1 once, one ``read_scores`` K3 and K8
-   eight times each, one dense bf16 step K1, K4, K2 twice, K3 and K8
-   eight times; K8 at a read's batch-1 grids as in phase 3; K1 at
+   eight times each and K7 three times, one dense bf16 step K1, K4, K2
+   twice, K7 three times, K3 and K8 eight times; K8 at a read's batch-1 grids as in phase 3; K1 at
    an append's tail and at the refresh of a ring still filling (invalid
    rows first, t = 0) equal to its plain version, K3 at a read's
    batch-1 grids and K2 and K4 at the dense step's (one item of 16 384
@@ -133,7 +139,8 @@ exits non-zero without printing a result:
    1) and in f32 on the first: the maps and ``decoded`` within 0.1 (bf16)
    and 1e-3 (f32) of each map's or column's scale, as in phase 8,
    detections of the fixed shape; a bf16 read launches K3 18 times (the
-   pooled levels' 8, the GNN head's 10), K8 8 times and K9 once (an f32
+   pooled levels' 8, the GNN head's 10), K7 3 times, K8 8 times and K9
+   once (an f32
    read K8 8 times and K9 once), the head's K3
    route lies within 0.03 of each map's scale of its plain spline convs on
    the same graphs, and no host-blocking call falls inside
@@ -174,8 +181,8 @@ exits non-zero without printing a result:
    the phase-5 check's as ``check_*``).  Five steps a dtype on one batch
    from a fresh optimizer (warm-up of one step) must give finite, falling
    losses, five EMA updates, f32 master weights, EMA and statistics; the
-   bf16 EMA weights are evaluated (mAP, not gated) with K1-K4's, K8's and
-   K9's launches counted (K8 none in a training step: its gradient takes
+   bf16 EMA weights are evaluated (mAP, not gated) with K1-K4's, K7's, K8's
+   and K9's launches counted (K8 none in a training step: its gradient takes
    the plain formulation; K9 none: a step runs no NMS); step ms, items/s and peak memory per dtype, and the device's
    busy share from ``tools.profile_step detector_train`` in a fresh
    process per dtype.  Every record gains ``train_step_launches``.
@@ -189,7 +196,7 @@ exits non-zero without printing a result:
    processes (which hide the card from themselves) must give the same 8
    batches bit for bit and count the same truncated events.  A loader
    batch's bf16 ``eval_step`` launches K1 once, K2 twice, K3 and K8 eight
-   times each and K4 once (counters zeroed just before; records gain
+   times each, K7 three times and K4 once (counters zeroed just before; records gain
    ``loader_batch_launches``), its logits within 0.05 of the port's CPU
    run with equal valid slots; three epochs, one a mode, launch that
    eightfold again.  Then ``collect_predictions``, the metric functions and
@@ -221,7 +228,8 @@ exits non-zero without printing a result:
    1e-5 of each level's scale, bf16 within 2e-2).  Each kernel's launches
    on the mesh must equal those without a group and include the path's
    kernels (K1 and K6a, the pooling plain under deterministic algorithms;
-   K1-K4 and K8; K1, K6a and K6b; K1, K6a and K8, with K3 in bf16); records gain ``dp_train_step_launches``, ``dp_eval_launches``,
+   K1-K4, K7 and K8; K1, K6a and K6b; K1, K6a and K8, with K3 and K7 in
+   bf16); records gain ``dp_train_step_launches``, ``dp_eval_launches``,
    ``dp_detector_step_launches`` and ``seq_sp_launches``.  Then the f32
    head step's median time with and without the group, and a
    ``{"parallel_times": ...}`` JSON line.
@@ -229,7 +237,7 @@ exits non-zero without printing a result:
    (``utils/devtime.capture``: 3 warm-up forwards on a side stream, after
    which the cached tables and K2/K3 packs exist, then the capture): the
    launch counters read during the capture must be K1 1, K2 2, K3 8, K4 1,
-   K8 8 (records gain ``graph_capture_launches``); a replay's logits within
+   K7 3, K8 8 (records gain ``graph_capture_launches``); a replay's logits within
    0.05 of the port's CPU run of phase 4, valid slots equal; two replays
    no further apart than the largest spread of 10 eager forwards on the
    card (the ``index_add_`` atomics make f32 sums vary from run to run).
@@ -1456,8 +1464,8 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
     zero_counters()
     step.read_scores(st1, boxes[-1].to(dev), present[-1].to(dev))
     torch.cuda.synchronize()
-    per_read = read_counters({"spline_shift_pooled": 8, "pool_graph": 8},
-                             "one read_scores")
+    per_read = read_counters({"spline_shift_pooled": 8, "pool_graph": 8,
+                              "bilinear_sample": 3}, "one read_scores")
     sst = dense_update_image(model, init_streaming_state(
         n_buf, cfg1.max_boxes, cfg1.h_dim, device=dev), image.to(dev))
     for c in fill:
@@ -1473,7 +1481,8 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
     torch.cuda.synchronize()
     per_dense = read_counters(dict(event_graph_search=1, upsample_rows=1,
                                    spline_fused_level0=2,
-                                   spline_shift_pooled=8, pool_graph=8),
+                                   spline_shift_pooled=8, bilinear_sample=3,
+                                   pool_graph=8),
                               "one dense streaming step")
     log(f"streaming launches: one append {per_append}, one read_scores "
         f"{per_read}, one dense step (bf16) {per_dense}")
@@ -1709,7 +1718,8 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
         nms_inputs[f"stream_{name}_{seed}"] = pp_calls[0]
         # launches/K3: the pooled levels' 8 and the GNN head's 10 in bf16
         seen = read_counters(
-            {"spline_shift_pooled": 18, "pool_graph": 8, "postprocess": 1}
+            {"spline_shift_pooled": 18, "bilinear_sample": 3, "pool_graph": 8,
+             "postprocess": 1}
             if name == "bfloat16" else {"pool_graph": 8, "postprocess": 1},
             f"read_detections ({name})")
         head_note = (check_head(read_det, dst) if name == "bfloat16"
@@ -2106,7 +2116,8 @@ def detector_training_phase(dev, smi, records, counters):
             n = TRAIN_EVAL_BATCHES
             expect = dict(event_graph_search=n, spline_fused_level0=2 * n,
                           spline_shift_pooled=18 * n, upsample_rows=n,
-                          pool_graph=8 * n, postprocess=n)
+                          bilinear_sample=3 * n, pool_graph=8 * n,
+                          postprocess=n)
             if seen != expect:
                 raise AssertionError(f"the bf16 EMA evaluation launched "
                                      f"{seen}, expected {expect}")
@@ -2294,7 +2305,7 @@ def loader_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, records,
     per_batch = read_counters(dict(event_graph_search=1,
                                    spline_fused_level0=2,
                                    spline_shift_pooled=8, upsample_rows=1,
-                                   pool_graph=8),
+                                   bilinear_sample=3, pool_graph=8),
                               "a loader batch's eval_step")
     for r in records:
         r["loader_batch_launches"] = per_batch.get(r["name"], 0)
@@ -2575,7 +2586,7 @@ def parallel_phase(dev, smi, cfg, model, bc, mc, gsc, records, counters):
         same_launches("DP eval", e_p, e_d,
                       ("event_graph_search", "spline_fused_level0",
                        "spline_shift_pooled", "upsample_rows",
-                       "pool_graph"))
+                       "bilinear_sample", "pool_graph"))
         # ---- 12.4 the DP head step in f32, and the plain step twice ----
         ctl_m = copy.deepcopy(plain_m)
         plain, dp = fns(plain_m, bc32), fns(dp_m, bc32, mesh)
@@ -2717,7 +2728,7 @@ def parallel_phase(dev, smi, cfg, model, bc, mc, gsc, records, counters):
             need = {"event_graph_search", "gather_window_rows",
                     "pool_graph"}
             if dt_name == "bfloat16":
-                need.add("spline_shift_pooled")
+                need |= {"spline_shift_pooled", "bilinear_sample"}
             if not need <= set(seq_n):
                 raise AssertionError(f"seq SP ({dt_name}) launched {seq_n}")
             seq_launches[dt_name] = seq_n
@@ -2744,7 +2755,8 @@ def parallel_phase(dev, smi, cfg, model, bc, mc, gsc, records, counters):
 # lose device events)
 GRAPH_EAGER_RUNS = 10     # eager forwards whose spread bounds two replays'
 GRAPH_LAUNCHES = dict(event_graph_search=1, spline_fused_level0=2,
-                      spline_shift_pooled=8, upsample_rows=1, pool_graph=8)
+                      spline_shift_pooled=8, upsample_rows=1,
+                      bilinear_sample=3, pool_graph=8)
 # trace_device_ms may exceed the replay time by this: the profiler lengthens
 # each of a forward's ~2 400 kernels; on one H100 the traced kernels of a
 # capture summed to 6.19-6.25 ms while untraced replays of captures took
@@ -3819,15 +3831,19 @@ def main():
                                  "write one table's column ranges")
         return calls
 
+    # the bilinear flavour's level-0/1 rows (its first two calls), and the
+    # pooled levels 2-4, one call a level in every bf16 forward on the card
     k7_op = one_table(recorded_calls(batches[0], bc_bil, bb,
-                                     "sample_bilinear", 2))
+                                     "sample_bilinear", 5)[:2])
     k7_dense = one_table(recorded_calls(dense, bc_bil, bb,
-                                        "sample_bilinear", 2))
+                                        "sample_bilinear", 5)[:2])
+    k7_pooled = recorded_calls(batches[0], bc, bb, "sample_bilinear", 3)
+    k7_pooled_dense = recorded_calls(dense, bc, bb, "sample_bilinear", 3)
     k7_rel = {torch.float32: 0.0, torch.bfloat16: 0.0}
     k7_abs = 0.0
     k7_ms = k7_plain = k7_lib = k7_alone = k7_lib_alone = 0.0
     k7_bytes = k7_ops = 0
-    for calls in (k7_op, k7_dense):
+    for calls in (k7_op, k7_dense, k7_pooled, k7_pooled_dense):
         for a, kw in calls:
             feat, pos, mask = a
             # a copy whose positions also leave the map, on every side, and
@@ -3878,6 +3894,46 @@ def main():
         k7_bytes += tensor_bytes(a) + tensor_bytes(kw)     # out= among kw
         k7_ops += 9 * kw["out"].numel()
     k7_bound, k7_by = bound(k7_bytes, k7_ops, PEAK_F32)
+    # levels 2-4 against the lookup K7 replaced there: within one bf16 step
+    # of scale of its f32 evaluation on the same map, and no farther from
+    # that than its bf16 evaluation, which rounds each product
+    from eventad_tpu_torch.models.graph import sample_image_features
+    k7p_err = k7p_err16 = 0.0
+    k7p_ms = k7p_alone = k7p_plain = 0.0
+    for a, kw in k7_pooled + k7_pooled_dense:
+        feat, pos, mask = a
+        plain_kw = {k: v for k, v in kw.items() if k != "out"}
+        got = bsm.sample_bilinear_cuda(feat, pos, mask, **plain_kw).float()
+        want32, want16 = (sample_image_features(
+            f, pos, kw["batch"], mask, bc.width, bc.height).float()
+            for f in (feat.float(), feat))
+        scale = want32.abs().max().item() + 1e-6
+        err = (got - want32).abs().max().item()
+        err16 = (want16 - want32).abs().max().item()
+        if not (err <= torch.finfo(torch.bfloat16).eps * scale
+                and err <= err16):
+            raise AssertionError(
+                f"sample_bilinear at {tuple(feat.shape)}, {pos.shape[0]} "
+                f"rows: {err} from the f32 lookup (scale {scale}; its bf16 "
+                f"evaluation {err16})")
+        k7p_err, k7p_err16 = max(k7p_err, err / scale), max(k7p_err16,
+                                                            err16 / scale)
+    for a, kw in k7_pooled:
+        feat, pos, mask = a
+        k7p_ms += median_ms(lambda: bsm.sample_bilinear_cuda(*a, **kw))
+        k7p_alone += launch_ms(bsm, lambda: bsm.sample_bilinear_cuda(*a,
+                                                                     **kw))
+        k7p_plain += median_ms(lambda: sample_image_features(
+            feat, pos, kw["batch"], mask, bc.width, bc.height), reps=5)
+    log(f"sample_bilinear at the pooled levels 2-4: 3 calls per bf16 "
+        f"forward, maps {[tuple(a[0].shape) for a, _ in k7_pooled]} at "
+        f"{[a[1].shape[0] for a, _ in k7_pooled]} positions (and the dense "
+        f"batch's), each into the image columns of its level's input table; "
+        f"vs the f32 sample_image_features max {k7p_err:.3g} of scale "
+        f"(tolerance {torch.finfo(torch.bfloat16).eps}; its bf16 evaluation "
+        f"{k7p_err16:.3g}); kernel {k7p_ms:.4f} ms (launches alone "
+        f"{k7p_alone:.4f} ms), sample_image_features {k7p_plain:.4f} ms per "
+        f"forward")
     log(f"sample_bilinear: 2 calls per bilinear forward, maps "
         f"{[tuple(a[0].shape) for a, _ in k7_op]} at {k7_op[0][0][1].shape[0]}"
         f" positions; max abs err vs plain {k7_abs:.3g}, of scale: bf16 "
@@ -3908,9 +3964,10 @@ def main():
     flavour_launches = {}
     default_expect = dict(event_graph_search=n, spline_fused_level0=2 * n,
                           spline_shift_pooled=8 * n, upsample_rows=n,
-                          pool_graph=8 * n)
+                          bilinear_sample=3 * n, pool_graph=8 * n)
     base_expect = dict(event_graph_search=n, upsample_rows=n,
-                       fused_spline_conv=10 * n, pool_graph=8 * n)
+                       fused_spline_conv=10 * n, bilinear_sample=3 * n,
+                       pool_graph=8 * n)
     # default and base run twice, in mirrored order, so that their batch
     # times can be compared within this call
     for name, bcx, expect in (
@@ -3919,7 +3976,7 @@ def main():
             ("bilinear", bc_bil, dict(event_graph_search=n,
                                       spline_fused_level0=2 * n,
                                       spline_shift_pooled=8 * n,
-                                      bilinear_sample=2 * n,
+                                      bilinear_sample=5 * n,
                                       pool_graph=8 * n)),
             ("base", bc_base, base_expect),
             ("default", bc, default_expect)):
@@ -3966,7 +4023,10 @@ def main():
         launches=flavour_launches["bilinear"]["bilinear_sample"],
         max_abs_err=k7_abs, ms=k7_ms, launch_ms=k7_alone,
         plain_ms=k7_plain, bound_ms=k7_bound, bound_by=k7_by,
-        library_ms=k7_lib, library_launch_ms=k7_lib_alone))
+        library_ms=k7_lib, library_launch_ms=k7_lib_alone,
+        pooled_launches=flavour_launches["default"]["bilinear_sample"],
+        pooled_ms=k7p_ms, pooled_launch_ms=k7p_alone,
+        pooled_plain_ms=k7p_plain, pooled_lookup_err=k7p_err))
 
     # ---- 8. detection serving ----
     from eventad_tpu_torch.bench_detector import ITERS, WARMUP, bench
@@ -4013,10 +4073,11 @@ def main():
     for name, bcx, expect in (
             ("default", bc, dict(event_graph_search=1, spline_fused_level0=2,
                                  spline_shift_pooled=18, upsample_rows=1,
-                                 pool_graph=8, postprocess=1)),
+                                 bilinear_sample=3, pool_graph=8,
+                                 postprocess=1)),
             ("base+bilinear", bc._replace(**BASE, **BILINEAR),
              dict(event_graph_search=1, fused_spline_conv=10,
-                  bilinear_sample=2, pool_graph=8, postprocess=1))):
+                  bilinear_sample=5, pool_graph=8, postprocess=1))):
         with torch.no_grad():
             maps, strides = detector_maps(detector, batches[0], cfg, bcx)
         worst = maps_err(maps, cpu_maps)

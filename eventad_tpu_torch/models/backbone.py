@@ -9,9 +9,11 @@ act) (reference conv.py:10-72).
 Routing (:func:`frozen_route`, once a forward) follows the reference's
 branches: with bf16 compute, sum aggregation, eval mode and tensors on CUDA,
 the level-0 layer runs the fused kernel K2 (``ops/spline_fused``), pooled
-layers and the GNN head the shift kernel K3 (``ops/spline_shift``) and the
+layers and the GNN head the shift kernel K3 (``ops/spline_shift``), the
 level-0/1 image rows K4
-(``ops/upsample_flat``); otherwise the non-fused formulation
+(``ops/upsample_flat``) and the image lookup of levels 2-4 the bilinear
+sampler K7 (``ops/bilinear_sample``, one launch a level, into the level's
+input table); otherwise the non-fused formulation
 (``ops/spline_conv`` + ``ops/norm``), as the reference runs f32, training
 and CPU, whose level-0 layer fetches its neighbour rows through the windowed
 gather K6a (``ops/gather_window``; its backward is K6b).
@@ -142,6 +144,7 @@ class Route(NamedTuple):
     level0: str       # "K2" whole layer, "K5" generic conv twice, "plain"
     pooled: str       # "K3" whole layer, "K5" generic conv twice, "plain"
     image_rows: str   # "K7", "K4" or "plain" (``upsample_lookup``)
+    pooled_image: str  # levels 2-4: "K7" or "plain" (sample_image_features)
 
 
 def frozen_route(bc: BackboneConfig, dt: torch.dtype, device: torch.device,
@@ -149,7 +152,9 @@ def frozen_route(bc: BackboneConfig, dt: torch.dtype, device: torch.device,
     """The kernels a forward in ``dt`` on ``device`` takes (the module
     docstring's routing; the GNN head's convs take the pooled layers').  A
     whole-layer kernel needs its flavour flag, an activation the kernels
-    apply (``ACT_CODES``) and the card; with its flag off, K5."""
+    apply (``ACT_CODES``) and the card; with its flag off, K5.  The pooled
+    levels' image lookup takes K7 in every bf16 eval forward on the card
+    (K7 has no backward)."""
     kernels = dt == torch.bfloat16 and bc.aggr == "sum" and not training
 
     def layer(whole: str, flag: bool) -> str:
@@ -160,8 +165,10 @@ def frozen_route(bc: BackboneConfig, dt: torch.dtype, device: torch.device,
         return "K5"
     rows = ("K7" if bc.bilinear_kernel
             else "K4" if dt == torch.bfloat16 and not training else "plain")
+    pooled_image = ("K7" if dt == torch.bfloat16 and not training
+                    and device.type == "cuda" else "plain")
     return Route(layer("K2", bc.fused_two_block), layer("K3", bc.fused_shift),
-                 rows)
+                 rows, pooled_image)
 
 
 def fold_bn_affine(bn: BatchNorm, bias, dt):
@@ -440,6 +447,17 @@ def backbone_forward(backbone: Backbone, g0: Graph,
             f = rows01[:, :c0]
         elif level == 1 and rows01 is not None:
             f = rows01[:, c0:]
+        elif route.pooled_image == "K7":
+            # the sampler writes the image columns of the level's input table
+            feat = image_feats[level].to(dt)
+            cx = g.x.shape[1]
+            x = torch.empty((g.x.shape[0], cx + feat.shape[-1]), dtype=dt,
+                            device=g.x.device)
+            x[:, :cx] = g.x
+            sample_bilinear(feat, g.pos, g.node_mask, full_width=bc.width,
+                            full_height=bc.height, batch=g.batch,
+                            out=x[:, cx:])
+            return g._replace(x=x)
         else:
             f = sample_image_features(image_feats[level], g.pos, g.batch,
                                       g.node_mask, bc.width, bc.height)

@@ -2,8 +2,10 @@
 package's Pallas kernel ``sample_bilinear_mxu`` in interpret mode and
 against its oracle ``sample_image_features``, on the cases of
 ``tests/test_bilinear_sample.py`` and on an N and a C that the TPU kernel
-refuses.  The CUDA kernel is held against this plain version on the card by
-``chip_smoke.py``."""
+refuses; at the pooled levels' shapes against ``sample_image_features``,
+the lookup it replaces there on the card, and wired into
+``backbone_forward`` on that route.  The CUDA kernel is held against this
+plain version on the card by ``chip_smoke.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -173,3 +175,114 @@ def test_cuda_wrapper_takes_the_bool_mask_as_it_is():
     with pytest.raises(ValueError, match="CUDA"):     # past the mask check
         sample_bilinear_cuda(*args, torch.from_numpy(mask), full_width=W,
                              full_height=H)
+
+
+# the pooled levels' lookup at the operating point (360x240, ResNet-50):
+# level: (rows, hp, wp, C), the rows of a stream read's pooled grid (56 x
+# 40, 28 x 20, 14 x 10 cells), here split into two items, and the map of
+# the ResNet stage the level reads
+POOLED_LEVELS = {2: (2240, 30, 45, 64), 3: (560, 15, 23, 64),
+                 4: (140, 8, 12, 64)}
+
+
+@pytest.mark.parametrize("level", sorted(POOLED_LEVELS))
+def test_k7_at_the_pooled_levels_against_sample_image_features(level):
+    """What K7 computes at levels 2-4 on the bf16 route against
+    ``sample_image_features``, the lookup it replaces there: two items
+    through ``batch``, positions on the pixel grid as the pooling rounds
+    them, the four corners (0 and 1: taps off the map) among them, masked
+    rows.  Against the f32 evaluation of the same bf16 map it lies within
+    one bf16 step of scale (it blends in f32 and rounds once); against the
+    bf16 evaluation, which rounds each product, within two, and never
+    farther from the f32 evaluation than that one is."""
+    n, hp, wp, c = POOLED_LEVELS[level]
+    gen = torch.Generator().manual_seed(level)
+    feat = torch.randn((2, hp, wp, c), generator=gen).bfloat16()
+    px = torch.randint(0, W, (n,), generator=gen) / W
+    py = torch.randint(0, H, (n,), generator=gen) / H
+    px[:4], py[:4] = torch.tensor([0., 1., 0., 1.]), torch.tensor(
+        [0., 1., 1., 0.])
+    pos = torch.stack([px, py, torch.rand(n, generator=gen)], 1)
+    batch = (torch.arange(n) >= n // 2).to(torch.int32)
+    batch[1] = 1            # a corner of the second item among the first's
+    mask = torch.rand(n, generator=gen) > 0.2
+    mask[:4] = True
+    got = sample_bilinear_plain(feat, pos, mask, full_width=W,
+                                full_height=H, batch=batch)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, c)
+    assert (got[~mask] == 0).all()
+    want32 = torch_sample_image_features(feat.float(), pos, batch, mask, W,
+                                         H)
+    want16 = torch_sample_image_features(feat, pos, batch, mask, W, H)
+    step = torch.finfo(torch.bfloat16).eps * want32.abs().max().item()
+    err32 = (got.float() - want32).abs().max().item()
+    err16 = (got.float() - want16.float()).abs().max().item()
+    assert err32 <= step, (err32, step)
+    assert err16 <= 2 * step, (err16, step)
+    assert err32 <= (want16.float() - want32).abs().max().item()
+    # a corner at 1 reads its last row or column and the zero beyond it
+    assert got[1].float().abs().max() > 0
+
+
+def test_backbone_pooled_image_route_on_the_cpu(monkeypatch):
+    """The route's K7 lookup wired into ``backbone_forward``, forced on the
+    CPU (where ``sample_bilinear`` runs its plain version): at levels 2-4
+    the sampler writes the image columns of the level's input table, whose
+    first columns are the previous layer's output bit for bit, and the
+    outputs lie within the bf16 band of the default route's.  The streaming
+    tests' 48x36 geometry, two items."""
+    from eventad_tpu_torch.config import Config
+    from eventad_tpu_torch.data.synthetic import make_synthetic_batch
+    from eventad_tpu_torch.models import backbone as tbb
+    from eventad_tpu_torch.models.dagr import (build_level0_graph,
+                                               graph_static_config,
+                                               init_model)
+    from eventad_tpu_torch.models.resnet import cnn_branch_forward
+
+    cfg = Config(batch_size=2, width=48, height=36, scale=1,
+                 event_buckets=(512,), graph_lookback=512, use_image=True,
+                 compute_dtype="bfloat16")
+    model, bc, _ = init_model(cfg, torch.Generator().manual_seed(1),
+                              device="cpu")
+    b = make_synthetic_batch(cfg)
+    with torch.no_grad():
+        g0 = build_level0_graph(b.pos, b.polarity, b.valid,
+                                graph_static_config(cfg), b.rank)
+        feats = cnn_branch_forward(model.dagr.cnn, b.image, bc.compute_dtype)
+        assert tbb.frozen_route(bc, torch.bfloat16, g0.x.device,
+                                False).pooled_image == "plain"
+        want = tbb.backbone_forward(model.dagr.backbone, g0, feats, bc)
+
+        route, pool_in, layer_out, views = tbb.frozen_route, [], [], []
+        pool, layer, sampler = tbb.pool_graph, tbb.apply_layer, \
+            tbb.sample_bilinear
+        monkeypatch.setattr(tbb, "frozen_route", lambda *a: route(*a)
+                            ._replace(pooled_image="K7"))
+        monkeypatch.setattr(tbb, "pool_graph", lambda x, *a, **kw: (
+            pool_in.append(x), pool(x, *a, **kw))[1])
+        monkeypatch.setattr(tbb, "apply_layer", lambda *a, **kw: (
+            lambda out: (layer_out.append(out[0]), out)[1])(
+                layer(*a, **kw)))
+        monkeypatch.setattr(tbb, "sample_bilinear", lambda *a, **kw: (
+            views.append(kw["out"]), sampler(*a, **kw))[1])
+        got = tbb.backbone_forward(model.dagr.backbone, g0, feats, bc)
+
+    assert len(views) == 3 and len(pool_in) == 4 and len(layer_out) == 5
+    for level in (2, 3, 4):
+        table, prev = pool_in[level - 1], layer_out[level - 1]
+        cx = prev.x.shape[1]
+        assert table.dtype == torch.bfloat16
+        assert views[level - 2].data_ptr() == table[:, cx:].data_ptr()
+        assert torch.equal(table[:, :cx], prev.x)
+        assert torch.equal(table[:, cx:], sample_bilinear_plain(
+            feats[level], prev.pos, prev.node_mask, full_width=bc.width,
+            full_height=bc.height, batch=prev.batch))
+        assert (table[~prev.node_mask, cx:] == 0).all()
+    assert len(got) == len(want) == 2
+    for tg, wg in zip(got, want):
+        assert torch.equal(tg.node_mask, wg.node_mask)
+        assert torch.equal(tg.nbr_mask, wg.nbr_mask)
+        assert tg.node_mask.sum() > 0
+        scale = wg.x.float().abs().max().item()
+        err = (tg.x.float() - wg.x.float()).abs().max().item()
+        assert 0 < scale and err <= BF16_TOL * scale, (err, scale)

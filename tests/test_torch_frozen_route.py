@@ -6,7 +6,9 @@ dtype, device (a CUDA device as the route sees it: only its type is read),
 training, aggregation, the three flavour flags and every activation a
 configuration can name; the kernels' activation table also holds None,
 which no configuration sets and on which the old predicates disagreed
-among themselves."""
+among themselves.  The pooled levels' image lookup, which no predicate
+chose before (it was always ``sample_image_features``), takes K7 exactly
+in a bf16 eval forward on the card, whatever the flags and aggregation."""
 import itertools
 
 import pytest
@@ -45,6 +47,11 @@ def _image_rows(dt, training, bc):
     return "K4" if dt == torch.bfloat16 and not training else "plain"
 
 
+def _pooled_image(dt, is_cuda, training):
+    return ("K7" if dt == torch.bfloat16 and is_cuda and not training
+            else "plain")
+
+
 def _head_takes_shift(dt, is_cuda, training, bc):
     return (dt == torch.bfloat16 and is_cuda and bc.aggr == "sum"
             and not training and bc.fused_shift
@@ -73,5 +80,7 @@ def test_route_equals_the_predicates_it_replaced(dt, device, training,
         assert (route.pooled != "plain") == _fused_pooled(
             dt, is_cuda, training, bc), where
         assert route.image_rows == _image_rows(dt, training, bc), where
+        assert route.pooled_image == _pooled_image(dt, is_cuda,
+                                                   training), where
         assert (route.pooled == "K3") == _head_takes_shift(
             dt, is_cuda, training, bc), where
