@@ -145,8 +145,8 @@ exits non-zero without printing a result:
    route lies within 0.03 of each map's scale of its plain spline convs on
    the same graphs, and no host-blocking call falls inside
    ``detect/gnn_head`` (``torch.cuda.set_sync_debug_mode``, under which
-   the plain head raises).  Then the times
-   (``latency_bench_incremental``, ``latency_bench``, the read-out) and
+   a copy from pageable memory there raises), with either head.  Then the
+   times (``latency_bench_incremental``, ``latency_bench``, the read-out) and
    the device's busy share from a ``torch.profiler`` trace of 10 steps in
    a fresh process (``tools.profile_step streaming``: late in this one a
    trace may lose device events), on a line with the card's name and
@@ -1663,8 +1663,8 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
         """The GNN head of one bf16 read: its K3 route (five launches a
         scale) against its plain spline convs (``gnn_head_scale_plain``)
         on the same graphs and operands, and no host-blocking call inside
-        ``detect/gnn_head``, where the plain head (its tap index copied
-        from pageable memory) has some."""
+        ``detect/gnn_head``, with either head; the plain head with one copy
+        from pageable memory added raises there."""
         _, calls = recorded(mdet, "gnn_head_scale_forward",
                             lambda: no_sync_in_head(lambda: read_det(dst)))
         zero_counters()
@@ -1675,25 +1675,32 @@ def streaming_phase(dev, smi, cfg, model, cpu_model, bc, mc, gsc, detector,
         plain = [tuple(m.cpu() for m in yh.gnn_head_scale_plain(*a))
                  for a, _ in calls]
         route = mdet.gnn_head_scale_forward
-        mdet.gnn_head_scale_forward = (
-            lambda *a, **kw: yh.gnn_head_scale_plain(*a))
-        try:
-            no_sync_in_head(lambda: read_det(dst))
-            plain_blocks = False
-        except RuntimeError:
-            plain_blocks = True
-        finally:
-            mdet.gnn_head_scale_forward = route
+
+        def plain_head(copies):
+            def head(*a, **kw):
+                for _ in range(copies):
+                    torch.zeros(4).to("cuda")   # from pageable memory
+                return yh.gnn_head_scale_plain(*a)
+            mdet.gnn_head_scale_forward = head
+            try:
+                no_sync_in_head(lambda: read_det(dst))
+                return False
+            except RuntimeError:
+                return True
+            finally:
+                mdet.gnn_head_scale_forward = route
+        plain_blocks, copy_blocks = plain_head(0), plain_head(1)
         err = maps_err(routed, plain)
-        if not (err <= HEAD_TOL and plain_blocks):
+        if not (err <= HEAD_TOL and copy_blocks and not plain_blocks):
             raise AssertionError(f"GNN head: K3 route vs plain {err} of "
-                                 f"scale (tolerance {HEAD_TOL}), the plain "
-                                 f"head blocks in detect/gnn_head: "
-                                 f"{plain_blocks}")
+                                 f"scale (tolerance {HEAD_TOL}); blocking "
+                                 f"in detect/gnn_head: the plain head "
+                                 f"{plain_blocks}, with a pageable copy "
+                                 f"{copy_blocks}")
         return (f"the GNN head's K3 route ({per_head} for both scales) vs "
                 f"its plain spline convs max {err:.3g} of scale (tolerance "
-                f"{HEAD_TOL}), no host-blocking call in detect/gnn_head (the "
-                f"plain head's raise)")
+                f"{HEAD_TOL}), no host-blocking call in detect/gnn_head, "
+                f"nor in the plain head's (a pageable copy there raises)")
 
     det_ms = None
     for name, bcx, tol, seed in (("bfloat16", bc1, MAP_TOL, 0),

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .gru import GRU, dropout_mask, gru_step
+from .gru import GRU, apply_dropout, dropout_keep, gru_input, gru_step
 
 
 class EventADConfig(NamedTuple):
@@ -75,12 +75,15 @@ def spatial_attention(h: torch.Tensor, w: torch.Tensor,
 
 def fusion_forward(p: Fusion, ev: torch.Tensor, co: torch.Tensor, *,
                    dropout: float = 0.0,
-                   generator: torch.Generator = None) -> torch.Tensor:
+                   keep: torch.Tensor = None) -> torch.Tensor:
+    """The fusion MLP over ``ev [..., H]`` and ``co [..., Hc]``; with
+    ``keep`` (the hidden layer's dropout mask) dropout at rate ``dropout``
+    before the last layer."""
     e = ev @ p.event_proj_w + p.event_proj_b
     c = co @ p.coord_proj_w + p.coord_proj_b
     h = torch.relu(torch.cat([e, c], dim=-1) @ p.fuse1_w + p.fuse1_b)
-    if dropout > 0.0 and generator is not None:
-        h = dropout_mask(h, dropout, generator)
+    if keep is not None:
+        h = apply_dropout(h, keep, dropout)
     return h @ p.fuse2_w + p.fuse2_b
 
 
@@ -116,26 +119,38 @@ def eventad_forward(head: EventADHead, mc: EventADConfig,
     h_coord = torch.zeros((s1, mc.coord_layers, mc.coord_dim), device=dev)
     seen = torch.zeros((s1,), dtype=torch.bool, device=dev)
     drop = mc.dropout if (training and generator is not None) else 0.0
-    all_logits, losses = [], []
+    # what carries no state from item to item runs once over the batch:
+    # the GRUs' first input projections before the loop, the fusion and
+    # the cross entropy after it
+    gi_e = gru_input(head.gru_event, curr_feat)
+    gi_c = gru_input(head.gru_coord, coords)
+    outs_e, outs_c, keeps = [], [], []
     for i in range(b):
         v = valid[i]
         # unseen tracks start from a zero hidden state (EventAD.py:292-296)
         h_in_e = torch.where(seen[:, None, None], h_event, 0.0)
         h_in_c = torch.where(seen[:, None, None], h_coord, 0.0)
-        out_e, h_out_e = gru_step(head.gru_event, curr_feat[i], h_in_e,
+        out_e, h_out_e = gru_step(head.gru_event, gi_e[i], h_in_e,
                                   dropout=drop, generator=generator)
-        out_c, h_out_c = gru_step(head.gru_coord, coords[i], h_in_c)
-        logits = fusion_forward(head.fusion, out_e, out_c, dropout=drop,
-                                generator=generator)
-        ce = -F.log_softmax(logits, dim=-1).gather(
-            1, labels[i][:, None].long())[:, 0]
-        losses.append(torch.where(v, ce, 0.0).sum())
+        out_c, h_out_c = gru_step(head.gru_coord, gi_c[i], h_in_c)
+        if drop > 0.0:
+            # the fusion's mask is drawn in the loop, after the item's GRU
+            # mask: the generator's draws stay in the reference's order,
+            # one item at a time
+            keeps.append(dropout_keep((s1, head.fusion.fuse1_b.shape[0]),
+                                      drop, generator, dev))
+        outs_e.append(out_e)
+        outs_c.append(out_c)
         att_e = spatial_attention(h_out_e, head.att_event_w, v)
         att_c = spatial_attention(h_out_c, head.att_coord_w, v)
         h_event = torch.where(v[:, None, None], att_e, h_event)
         h_coord = torch.where(v[:, None, None], att_c, h_coord)
         seen = seen | v
-        all_logits.append(logits)
-    return EventADOutputs(torch.stack(all_logits), valid, labels,
-                          torch.stack(losses[loss_items]).sum(),
+    logits = fusion_forward(head.fusion, torch.stack(outs_e),
+                            torch.stack(outs_c), dropout=drop,
+                            keep=torch.stack(keeps) if keeps else None)
+    ce = -F.log_softmax(logits, dim=-1).gather(
+        2, labels[..., None].long())[..., 0]
+    losses = torch.where(valid, ce, 0.0).sum(-1)
+    return EventADOutputs(logits, valid, labels, losses[loss_items].sum(),
                           valid.sum().to(torch.int32))

@@ -41,25 +41,40 @@ class GRU(nn.Module):
                       generator) for i in range(n_layers)])
 
 
-def dropout_mask(x: torch.Tensor, rate: float,
-                 generator: torch.Generator) -> torch.Tensor:
-    """Inverted dropout with the keep mask drawn from ``generator`` (which
-    lives on ``x``'s device): kept values are scaled by ``1 / (1 - rate)``."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+def dropout_keep(shape, rate: float, generator: torch.Generator,
+                 device) -> torch.Tensor:
+    """The keep mask of inverted dropout at ``rate``, drawn from
+    ``generator`` (which lives on ``device``)."""
+    return torch.rand(shape, generator=generator, device=device) >= rate
+
+
+def apply_dropout(x: torch.Tensor, keep: torch.Tensor,
+                  rate: float) -> torch.Tensor:
+    """Inverted dropout with the keep mask ``keep``: kept values are scaled
+    by ``1 / (1 - rate)``."""
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
-def gru_step(gru: GRU, x: torch.Tensor, h: torch.Tensor, *,
+def gru_input(gru: GRU, x: torch.Tensor) -> torch.Tensor:
+    """The first layer's input projection ``x @ W_ih + b_ih`` (``x [...,
+    In]`` -> ``[..., 3H]``): it carries no state, so a sequence's steps
+    project at once."""
+    p = gru.layers[0]
+    return x @ p.w_ih + p.b_ih
+
+
+def gru_step(gru: GRU, gi: torch.Tensor, h: torch.Tensor, *,
              dropout: float = 0.0, generator: torch.Generator = None):
-    """One step: ``x [B, In]``, ``h [B, L, H]`` -> ``(out [B, H], h' [B, L,
-    H])``.  ``dropout`` is the inter-layer rate (applied to every layer's
-    output but the last, as torch.nn.GRU), active only with a
+    """One step from the first layer's input projection ``gi =
+    gru_input(gru, x)`` (``x [B, In]``) and ``h [B, L, H]`` -> ``(out [B,
+    H], h' [B, L, H])``.  ``dropout`` is the inter-layer rate (applied to
+    every layer's output but the last, as torch.nn.GRU), active only with a
     ``generator``; the returned hidden states are the undropped ones."""
     hs = []
-    inp = x
     last = len(gru.layers) - 1
     for i, p in enumerate(gru.layers):
-        gi = inp @ p.w_ih + p.b_ih
+        if i > 0:
+            gi = inp @ p.w_ih + p.b_ih
         gh = h[:, i, :] @ p.w_hh + p.b_hh
         ir, iz, inn = gi.chunk(3, dim=-1)
         hr, hz, hn = gh.chunk(3, dim=-1)
@@ -69,5 +84,7 @@ def gru_step(gru: GRU, x: torch.Tensor, h: torch.Tensor, *,
         inp = (1.0 - z) * n + z * h[:, i, :]
         hs.append(inp)
         if dropout > 0.0 and generator is not None and i < last:
-            inp = dropout_mask(inp, dropout, generator)
+            inp = apply_dropout(inp, dropout_keep(inp.shape, dropout,
+                                                  generator, inp.device),
+                                dropout)
     return inp, torch.stack(hs, dim=1)

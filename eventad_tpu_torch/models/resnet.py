@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.norm import BatchNorm
+from ..utils.tensors import frozen_operands
 
 LAYER_SPECS = {
     "resnet18": ([2, 2, 2, 2], 1),
@@ -102,31 +103,72 @@ class CNNBranch(nn.Module):
             self.output_b.append(nn.Parameter(b))
 
 
-def _bn_apply(x: torch.Tensor, bn: BatchNorm, eps: float = 1e-5):
-    """Eval BN on NCHW as one affine folded in f32 from the parameters in
-    ``x.dtype`` and the f32 running statistics, applied in ``x.dtype``."""
-    a = bn.scale.to(x.dtype).float() * torch.rsqrt(bn.var.float() + eps)
-    b = bn.offset.to(x.dtype).float() - bn.mean.float() * a
-    return x * a.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
+def _bn_fold(bn: BatchNorm, dt: torch.dtype, eps: float = 1e-5):
+    """Eval BN on NCHW as the affine ``(a, b)``, each ``[C, 1, 1]`` in
+    ``dt``, folded in f32 from the parameters in ``dt`` and the f32 running
+    statistics; applied as ``x * a + b``."""
+    a = bn.scale.to(dt).float() * torch.rsqrt(bn.var.float() + eps)
+    b = bn.offset.to(dt).float() - bn.mean.float() * a
+    return a.to(dt)[:, None, None], b.to(dt)[:, None, None]
 
 
-def _conv(x, w, stride=1):
-    return F.conv2d(x, w.to(x.dtype), stride=stride,
-                    padding=(w.shape[2] - 1) // 2)
+def branch_operands(cnn: CNNBranch, dt: torch.dtype):
+    """What :func:`cnn_branch_forward` takes from ``cnn`` in compute dtype
+    ``dt``: ``(stem, blocks, feature remaps, output remaps)``, the stem
+    ``(weight, a, b)``, each block ``(convs, down)`` with a ``(weight, a,
+    b)`` per conv and BN (``down`` None without one), each remap ``(weight,
+    bias [C, 1, 1])``; weights and biases cast to ``dt``, each BN folded by
+    :func:`_bn_fold`.  Kept on the branch (``utils/tensors.frozen_operands``,
+    one entry for every tensor of the branch), so a forward with unchanged
+    weights casts and folds nothing."""
+    def bn_tensors(bn):
+        return [bn.scale, bn.offset, bn.mean, bn.var]
+
+    # the sources named one by one: walking the module tree (parameters(),
+    # buffers()) costs more than reading the list
+    sources = [cnn.conv1, *bn_tensors(cnn.bn1)]
+    for layer in cnn.layers:
+        for blk in layer:
+            sources += blk.convs
+            for bn in blk.bns:
+                sources += bn_tensors(bn)
+            if blk.down is not None:
+                sources += [blk.down, *bn_tensors(blk.down_bn)]
+    sources += [*cnn.feature_w, *cnn.feature_b, *cnn.output_w,
+                *cnn.output_b]
+
+    def make():
+        def remap(ws, bs):
+            return [(w.to(dt), b.to(dt)[:, None, None])
+                    for w, b in zip(ws, bs)]
+        blocks = [([(w.to(dt), *_bn_fold(bn, dt))
+                    for w, bn in zip(blk.convs, blk.bns)],
+                   None if blk.down is None else
+                   (blk.down.to(dt), *_bn_fold(blk.down_bn, dt)))
+                  for layer in cnn.layers for blk in layer]
+        return ((cnn.conv1.to(dt), *_bn_fold(cnn.bn1, dt)), blocks,
+                remap(cnn.feature_w, cnn.feature_b),
+                remap(cnn.output_w, cnn.output_b))
+    return frozen_operands(cnn, "branch_operands", sources, make, key=(dt,))
 
 
-def _block_forward(x, blk: Block):
+def _conv_bn(x, w, a, b, stride=1):
+    return F.conv2d(x, w, stride=stride,
+                    padding=(w.shape[2] - 1) // 2) * a + b
+
+
+def _block_forward(x, blk: Block, convs, down):
     h = x
-    n = len(blk.convs)
-    for i, (w, bn) in enumerate(zip(blk.convs, blk.bns)):
+    n = len(convs)
+    for i, (w, a, b) in enumerate(convs):
         # bottleneck: stride on the 3x3 (i == 1); basic: on the first conv
         stride = blk.stride if i == (1 if n == 3 else 0) else 1
-        h = _bn_apply(_conv(h, w, stride), bn)
+        h = _conv_bn(h, w, a, b, stride)
         if i < n - 1:
             h = torch.relu(h)
     identity = x
-    if blk.down is not None:
-        identity = _bn_apply(_conv(x, blk.down, blk.stride), blk.down_bn)
+    if down is not None:
+        identity = _conv_bn(x, *down, blk.stride)
     return torch.relu(h + identity)
 
 
@@ -137,26 +179,28 @@ def cnn_branch_forward(cnn: CNNBranch, image: torch.Tensor,
     NHWC; with ``outputs`` the pair ``(features, output maps)``, the two
     ``output_dconv`` maps beside them.  ``compute_dtype="bfloat16"`` casts
     weights and activations; BN running statistics stay f32 inside the
-    folded affine."""
+    folded affine (:func:`branch_operands`)."""
     dt = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+    (w1, a1, b1), blocks, feature_maps, output_maps = branch_operands(cnn,
+                                                                      dt)
     x = image.to(dt).permute(0, 3, 1, 2)
-    h = F.conv2d(x, cnn.conv1.to(dt), stride=2, padding=3)
+    h = F.conv2d(x, w1, stride=2, padding=3)
     taps = [h]                       # the hook fires on conv1 (pre-BN)
-    h = torch.relu(_bn_apply(h, cnn.bn1))
+    h = torch.relu(h * a1 + b1)
     h = F.max_pool2d(h, 3, 2, padding=1)
+    ops = iter(blocks)
     for layer in cnn.layers:
         for blk in layer:
-            h = _block_forward(h, blk)
+            h = _block_forward(h, blk, *next(ops))
         taps.append(h)
 
     def remap(t, w, b):
-        f = F.conv2d(t, w.to(dt)) + b.to(dt)[:, None, None]
+        f = F.conv2d(t, w) + b
         return f.permute(0, 2, 3, 1).contiguous()
 
-    feats = [remap(t, w, b)
-             for t, w, b in zip(taps, cnn.feature_w, cnn.feature_b)]
+    feats = [remap(t, w, b) for t, (w, b) in zip(taps, feature_maps)]
     if not outputs:
         return feats
     by_layer = dict(zip(FEATURE_LAYERS, taps))
-    return feats, [remap(by_layer[layer], w, b) for layer, w, b in
-                   zip(OUTPUT_LAYERS, cnn.output_w, cnn.output_b)]
+    return feats, [remap(by_layer[layer], w, b)
+                   for layer, (w, b) in zip(OUTPUT_LAYERS, output_maps)]

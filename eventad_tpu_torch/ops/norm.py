@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..utils.tensors import frozen_operands
 from .group_sum import all_reduce_sum, stats_group
 
 
@@ -73,21 +74,41 @@ def batch_norm(x: torch.Tensor, mask: torch.Tensor, bn: BatchNorm,
     fold the affine in f32 from the parameters rounded to ``x.dtype`` (the
     reference casts a layer's parameters, not its statistics, to the compute
     dtype) and apply it in ``x.dtype``."""
-    mean, var = bn.mean, bn.var
+    mean = bn.mean
     if training:
         mean, var, cnt = batch_statistics(x, mask)
         with torch.no_grad():
             unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
             bn.mean.mul_(1 - MOMENTUM).add_(MOMENTUM * mean)
             bn.var.mul_(1 - MOMENTUM).add_(MOMENTUM * unbiased)
+        affine = _affine(bn, mean, var, eps, x.dtype)
+    else:
+        affine = eval_affine(bn, x.dtype, eps)
     if x.dtype == torch.float32:
-        y = (x - mean) * torch.reciprocal(torch.sqrt(var + eps))
+        y = (x - mean) * affine
         y = y * bn.scale + bn.offset
     else:
-        scale = bn.scale.to(x.dtype).float()
-        offset = bn.offset.to(x.dtype).float()
-        a = scale * torch.reciprocal(torch.sqrt(var + eps))
-        b = offset - mean * a
-        y = x * a.to(x.dtype) + b.to(x.dtype)
+        y = x * affine[0] + affine[1]
     return torch.where(mask[:, None], y, torch.zeros((), dtype=y.dtype,
                                                      device=y.device))
+
+
+def _affine(bn: BatchNorm, mean, var, eps: float, dt: torch.dtype):
+    inv = torch.reciprocal(torch.sqrt(var + eps))
+    if dt == torch.float32:
+        return inv
+    a = bn.scale.to(dt).float() * inv
+    return a.to(dt), (bn.offset.to(dt).float() - mean * a).to(dt)
+
+
+def eval_affine(bn: BatchNorm, dt: torch.dtype, eps: float = 1e-5):
+    """What :func:`batch_norm` in eval mode takes from ``bn`` for ``x`` in
+    ``dt``: in f32 ``1 / sqrt(var + eps)``; otherwise the affine ``(a,
+    b)`` in ``dt``, folded in f32 from the parameters rounded to ``dt``.
+    Kept on ``bn`` (``utils/tensors.frozen_operands``): a training step
+    moves the running statistics in place, so the next eval forward folds
+    anew."""
+    return frozen_operands(bn, "eval_affine",
+                           (bn.scale, bn.offset, bn.mean, bn.var),
+                           lambda: _affine(bn, bn.mean, bn.var, eps, dt),
+                           key=(dt, eps))

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..utils.tensors import constant
+from ..utils.tensors import constant, frozen_operands
 
 
 class SplineConv(nn.Module):
@@ -120,6 +120,31 @@ def offset_attr(off: torch.Tensor, nbr_mask: torch.Tensor, max_value: float,
     return torch.where(nbr_mask[..., None], a, 0.5)
 
 
+def conv_operands(conv: SplineConv, dt: torch.dtype, kernel_size: int,
+                  ranges, add_center_to_root: bool):
+    """What :func:`spline_conv` takes from ``conv`` in ``dt``: ``(w_sub,
+    root, bias)``, the weights of the tap sub-rectangle ``ranges``, the
+    root (plus the centre tap's weight with ``add_center_to_root``) and the
+    bias (None without one), cast to ``dt``.  Kept on the conv
+    (``utils/tensors.frozen_operands``), so a call with unchanged weights
+    gathers, folds and copies nothing."""
+    sources = [conv.weight, conv.root]
+    if conv.bias is not None:
+        sources.append(conv.bias)
+
+    def make():
+        weight = conv.weight.to(dt)
+        idx = sub_kernel_index(kernel_size, ranges)
+        w_sub = weight[constant(idx.tolist(), torch.int64, weight.device)]
+        root = conv.root.to(dt)
+        if add_center_to_root:
+            root = root + weight[center_index(kernel_size)]
+        return (w_sub, root,
+                None if conv.bias is None else conv.bias.to(dt))
+    return frozen_operands(conv, "conv_operands", sources, make,
+                           key=(dt, kernel_size, ranges, add_center_to_root))
+
+
 def spline_conv(x: torch.Tensor, nbr: torch.Tensor, nbr_mask: torch.Tensor,
                 attr: torch.Tensor, conv: SplineConv, *, kernel_size: int,
                 aggr: str = "sum", node_mask: torch.Tensor = None,
@@ -158,18 +183,14 @@ def spline_conv(x: torch.Tensor, nbr: torch.Tensor, nbr_mask: torch.Tensor,
     if x_j is None:
         x_j = x[nbr.long()]
     z = torch.einsum("nkm,nkc->nmc", coeff, x_j)
-    weight = conv.weight.to(dt)
-    w_sub = weight[torch.as_tensor(sub_kernel_index(kernel_size, ranges),
-                                   device=x.device)]
+    if add_center_to_root and aggr != "sum":
+        raise ValueError("the self-edge fold requires sum aggregation")
+    w_sub, root, bias = conv_operands(conv, dt, kernel_size, ranges,
+                                      add_center_to_root)
     out = z.reshape(n, m_sub * cin) @ w_sub.reshape(m_sub * cin, -1)
-    root = conv.root.to(dt)
-    if add_center_to_root:
-        if aggr != "sum":
-            raise ValueError("the self-edge fold requires sum aggregation")
-        root = root + weight[center_index(kernel_size)]
     out = out + xd @ root
-    if conv.bias is not None:
-        out = out + conv.bias.to(dt)
+    if bias is not None:
+        out = out + bias
     if node_mask is not None:
         out = torch.where(node_mask[:, None], out,
                           torch.zeros((), dtype=out.dtype, device=x.device))

@@ -19,7 +19,7 @@ from ..models.backbone import BackboneConfig, backbone_forward
 from ..models.dagr import EventADModel, build_level0_graph
 from ..models.eventad import EventADConfig, fusion_forward, spatial_attention
 from ..models.feature_extract import extract_box_features
-from ..models.gru import gru_step
+from ..models.gru import gru_input, gru_step
 from ..models.resnet import cnn_branch_forward
 from ..utils.tensors import constant
 from .state import StreamingState
@@ -66,8 +66,10 @@ def head_step(model: EventADModel, mc: EventADConfig, state, out4, boxes,
     v = box_present & feat_ok & (slot_ids >= 1) & (slot_ids <= mc.max_boxes)
     h_in_e = torch.where(state.seen[:, None, None], state.h_event, 0.0)
     h_in_c = torch.where(state.seen[:, None, None], state.h_coord, 0.0)
-    out_e, h_out_e = gru_step(head.gru_event, feats, h_in_e)
-    out_c, h_out_c = gru_step(head.gru_coord, coords, h_in_c)
+    out_e, h_out_e = gru_step(head.gru_event,
+                              gru_input(head.gru_event, feats), h_in_e)
+    out_c, h_out_c = gru_step(head.gru_coord,
+                              gru_input(head.gru_coord, coords), h_in_c)
     logits = fusion_forward(head.fusion, out_e, out_c)
     att_e = spatial_attention(h_out_e, head.att_event_w, v)
     att_c = spatial_attention(h_out_c, head.att_coord_w, v)

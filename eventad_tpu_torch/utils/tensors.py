@@ -35,3 +35,14 @@ def kept_on(module: torch.nn.Module, name: str, sources, make, key=()):
             kept = (k, make(), tuple(sources))
         module.__dict__[name] = kept
     return kept[1]
+
+
+def frozen_operands(module: torch.nn.Module, name: str, sources, make,
+                    key=()):
+    """:func:`kept_on` of operands prepared from frozen weights, unless
+    autograd has to reach the weights (gradients on, a source that requires
+    them): a kept result carries no graph, so then ``make()`` runs anew,
+    recorded, as it would inline.  The same values either way."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in sources):
+        return make()
+    return kept_on(module, name, sources, make, key)
